@@ -8,11 +8,15 @@ a non-zero exit and prints no result):
 
 1. device: a CUDA card must be present; prints ``nvidia-smi``'s name and
    power limit;
-2. build: compiles the four hand-written kernels from
+2. build: compiles the hand-written kernels from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in parallel);
-3. kernel parity at ragged shapes: K1-K4 against their plain PyTorch
-   versions, exact equality (bool is exact; min of sums of small integers
-   in f32 is exact and order-independent);
+3. kernel parity at ragged shapes: K1-K6 and K2's max-plus instantiation
+   against their plain PyTorch versions, exact equality (bool is exact; min
+   and max of sums of small integers in f32 are exact and order-independent;
+   K5's inputs are small integers whose sums stay below 2^24, where f32
+   sums are exact in any order); B = 3, 32 and 130 (over the CSR kernels'
+   128-row split), hub rows wider than one 1024-position segment, and a
+   COO tail built by hand;
 4. dense main path: ``DatalogService`` TC and SPATH on ``gnp_graph(10_000,
    0.1)`` (the paper's Table-6 Gn-p family; density 0.1 picks the dense
    carrier), ``ask_batch`` of 100 sources, a second batch of 100, a repeat
@@ -20,13 +24,28 @@ a non-zero exit and prints no result):
 5. CSR main path: TC and SPATH on ``powerlaw_graph(2**20, 16_000_000,
    alpha=0.8)`` (a social-graph shape; the density heuristic picks CSR),
    ``ask_batch`` of 32 sources, a second batch of 32 and a repeat;
-6. checks: the chosen carriers, every kernel's launch count during its path
-   (counts reset just before each path and read just after), and the
-   answers of 4 sources per path against scipy's csgraph (BFS, Dijkstra);
-   each kernel is timed at the shapes its path gave it (the first fixpoint
-   iteration's frontier) beside its plain version and, where one PyTorch
-   call computes the same function, that call; a warm batch is split into
-   fixpoint, copy to the host and formatting.
+6. ``max<>`` and ``sum<>`` paths, the same traffic: dense LPATH (longest
+   paths, K2's max-plus instantiation) on ``dag_graph(10_000, 0.05,
+   max_w=9)`` (density 0.025 picks the dense carrier); dense CPATH (path
+   counts, a full-f32 ``torch.matmul`` per iteration) on ``dag_graph(10_000,
+   8/10_000)`` with the dense carrier forced, the JAX package's own counting
+   regime (per-source totals near e^8); CSR LPATH (K6, weights 1..9) and
+   CSR CPATH (K5, unit weights) on the arcs of phase 5's power-law graph
+   with src > dst (a DAG of about 13.2M arcs, hub in-degrees near 183k);
+   then a 3-cycle CPATH on both carriers must raise
+   ``FixpointDivergenceError`` and cache nothing;
+7. checks: the chosen carriers (and semirings), every kernel's launch count
+   during its path (counts reset just before each path and read just
+   after), and the answers of 4 sources per path against oracles that
+   share no code with either package: scipy's csgraph for TC and SPATH
+   (BFS, Dijkstra), and for LPATH and CPATH scipy's BFS for the reached
+   vertices, then dynamic programming over them in topological order in
+   int64 (any path count at or above 2^24 fails the run: f32 would no
+   longer hold it exactly); each kernel is timed at the shapes its path
+   gave it (the first fixpoint iteration's frontier) beside its plain
+   version and, where one PyTorch call computes the same function, that
+   call; a warm batch is split into fixpoint, copy to the host and
+   formatting.
 
 The line before the last is one JSON object of kernel measurements; the last
 line is ``{"ok": true, "device": {...}}``.  Needs no network; the graphs are
@@ -63,16 +82,34 @@ SPATH = """
 dpath(X,Z,min<D>) <- darc(X,Z,D).
 dpath(X,Z,min<D>) <- dpath(X,Y,Dxy), darc(Y,Z,Dyz), D = Dxy + Dyz.
 """
+LPATH = """
+lpath(X,Z,max<D>) <- d(X,Z,D).
+lpath(X,Z,max<D>) <- lpath(X,Y,D1), d(Y,Z,D2), D = D1 + D2.
+"""
+CPATH = """
+cpath(X,Z,sum<C>) <- d(X,Z,C).
+cpath(X,Z,sum<C>) <- cpath(X,Y,C1), d(Y,Z,C2), C = C1 * C2.
+"""
+LPATH_N, LPATH_P, LPATH_W = 10_000, 0.05, 9
+CPATH_N, CPATH_P = 10_000, 8 / 10_000
 
 KERNELS = {
     "bool_matmul": ("src/repro_torch/kernels/csrc/boolmm.cu",
                     "src/repro/kernels/boolmm.py:47"),
     "minplus_matmul": ("src/repro_torch/kernels/csrc/minplus.cu",
                        "src/repro/kernels/minplus.py:49"),
+    # K2's max-plus instantiation: the JAX package serves max-plus through
+    # the same Pallas kernel by negation (ops.maxplus_frontier)
+    "maxplus_matmul": ("src/repro_torch/kernels/csrc/minplus.cu",
+                       "src/repro/kernels/minplus.py:49"),
     "csr_bool_step": ("src/repro_torch/kernels/csrc/spmv.cu",
                       "src/repro/kernels/spmv.py:149"),
     "csr_minplus_step": ("src/repro_torch/kernels/csrc/spmv.cu",
                          "src/repro/kernels/spmv.py:251"),
+    "csr_plustimes_step": ("src/repro_torch/kernels/csrc/spmv.cu",
+                           "src/repro/kernels/spmv.py:211"),
+    "csr_maxplus_step": ("src/repro_torch/kernels/csrc/spmv.cu",
+                         "src/repro/kernels/spmv.py:297"),
 }
 
 
@@ -189,10 +226,22 @@ def _ragged_graph(rng, n, m, hub_deg):
     return edges, tail
 
 
+def _neg_inf(x):
+    """A min-plus array re-zeroed for max-plus (+inf -> -inf)."""
+    return np.where(np.isinf(x), -np.inf, x).astype(np.float32)
+
+
+def _rand_count(rng, shape, p):
+    """Small integers (0 = no fact): K5's sums stay far below 2^24."""
+    return np.where(rng.random(shape) < p, rng.integers(1, 4, shape),
+                    0).astype(np.float32)
+
+
 def ragged_parity():
     import torch
     from repro_torch.kernels import boolmm, minplus, spmv
     rng = np.random.default_rng(SEED)
+    rng2 = np.random.default_rng(SEED + 2)  # the max-plus and plus-times cases
     dev = DEVICE
     cases = 0
     for B, n in ((3, 1000), (5, 1003), (130, 257)):
@@ -204,7 +253,11 @@ def ragged_parity():
         w = torch.from_numpy(_rand_dist(rng, (n, n), 0.05)).to(dev)
         equal_and_err(torch, minplus.minplus_frontier_matmul(fw, w),
                       minplus.plain(fw, w))
-        cases += 2
+        fm = torch.from_numpy(_neg_inf(_rand_dist(rng2, (B, n), 0.3))).to(dev)
+        wm = torch.from_numpy(_neg_inf(_rand_dist(rng2, (n, n), 0.05))).to(dev)
+        equal_and_err(torch, minplus.maxplus_frontier_matmul(fm, wm),
+                      minplus.plain_max(fm, wm))
+        cases += 3
     for B, n, m, hub in ((3, 1000, 8000, 0), (130, 5000, 30000, 4000),
                          (32, 3000, 20000, 2500)):
         edges, tail = _ragged_graph(rng, n, m, hub)
@@ -220,7 +273,18 @@ def ragged_parity():
         fw = torch.from_numpy(_rand_dist(rng, (B, n), 0.1)).to(dev)
         equal_and_err(torch, spmv.csr_minplus_step(fw, csr_w),
                       spmv.plain_minplus(fw, csr_w))
-        cases += 2
+        for kind, step, plain, hi, frontier in (
+                ("maxplus", spmv.csr_maxplus_step, spmv.plain_maxplus, 10,
+                 lambda: _neg_inf(_rand_dist(rng2, (B, n), 0.1))),
+                ("plustimes", spmv.csr_plustimes_step, spmv.plain_plustimes,
+                 4, lambda: _rand_count(rng2, (B, n), 0.1))):
+            w = rng2.integers(1, hi, (len(edges), 1))
+            tw = np.concatenate([tail, rng2.integers(1, hi, (len(tail), 1))], 1)
+            csr_k = _hand_tailed_csr(kind, n, np.concatenate([edges, w], 1),
+                                     tw, dev)
+            fk = torch.from_numpy(frontier()).to(dev)
+            equal_and_err(torch, step(fk, csr_k), plain(fk, csr_k))
+        cases += 4
     torch.cuda.synchronize()
     say(f"parity (ragged): {cases} kernel cases exactly equal to plain")
 
@@ -273,7 +337,55 @@ class Oracle:
             check(np.array_equal(ans[1], vals), f"source {s}: distances differ")
 
 
-def drive(label, svc, pred, edges, n, srcs, srcs2, single, weighted, repr_):
+class DagOracle(Oracle):
+    """Single-source longest paths (``agg="max"``) or path counts
+    (``agg="sum"``) over a DAG whose arcs all run one way in vertex-id order
+    (the topological order), in int64: scipy's BFS finds the vertices the
+    source reaches, then each of them, in topological order, folds its
+    in-arcs from reached vertices (max of d[u] + w, or sum of c[u] * w).
+    The edge list is a set of arcs; the source never answers for itself."""
+
+    weighted = True
+
+    def __init__(self, edges, n, agg):
+        from scipy.sparse import csr_matrix
+        src, dst = edges[:, 0], edges[:, 1]
+        fwd, back = bool((src < dst).all()), bool((src > dst).all())
+        check(fwd or back, "DagOracle: the arcs are not in vertex-id order")
+        self.n, self.agg, self.step = n, agg, 1 if fwd else -1
+        self.g = csr_matrix((np.ones(len(edges), np.float32), (src, dst)),
+                            shape=(n, n))
+        order = np.argsort(dst, kind="stable")
+        self.in_src = src[order]
+        self.in_w = edges[order, 2].astype(np.int64)
+        self.in_ptr = np.concatenate(
+            [[0], np.cumsum(np.bincount(dst, minlength=n))])
+
+    def answer(self, s):
+        from scipy.sparse.csgraph import breadth_first_order
+        reach = breadth_first_order(self.g, s, directed=True,
+                                    return_predecessors=False)
+        dst = np.sort(reach[reach != s])
+        val = np.zeros(self.n, np.int64)
+        val[s] = 0 if self.agg == "max" else 1
+        seen = np.zeros(self.n, bool)
+        seen[s] = True
+        for v in dst[::self.step]:
+            lo, hi = self.in_ptr[v], self.in_ptr[v + 1]
+            us, ws = self.in_src[lo:hi], self.in_w[lo:hi]
+            live = seen[us]
+            us, ws = us[live], ws[live]
+            val[v] = (val[us] + ws).max() if self.agg == "max" else \
+                (val[us] * ws).sum()
+            seen[v] = True
+        if self.agg == "sum":
+            check(not len(dst) or val[dst].max() < 2 ** 24,
+                  f"source {s}: a path count reaches 2^24, past f32's exact "
+                  "integers")
+        return dst, val[dst]
+
+
+def drive(label, svc, pred, oracle, srcs, srcs2, single, weighted, repr_):
     """One service's traffic: batch, second batch, repeat (cache hits), one
     ask; then the oracle on 3 batch sources and the single one."""
     import torch
@@ -308,10 +420,9 @@ def drive(label, svc, pred, edges, n, srcs, srcs2, single, weighted, repr_):
         f"{len(srcs) / s3:.1f} qps (cache) | ask: {s4 * 1e3:.1f} ms "
         f"({it4} iterations)")
     t0 = time.perf_counter()
-    oracle = Oracle(edges, n, weighted)
     for s, ans in [*zip(srcs[:3], first[:3]), (single, one)]:
         oracle.check(s, ans)
-    say(f"{label}: 4 sources equal the scipy oracle "
+    say(f"{label}: 4 sources equal the {type(oracle).__name__} "
         f"({time.perf_counter() - t0:.1f} s)")
     return {"qps_cold": len(srcs) / s1, "qps_warm": len(srcs2) / s2,
             "iterations": [it1, it2, it4]}
@@ -321,9 +432,16 @@ def breakdown(torch, label, svc, pred, srcs):
     """Where a warm batch's time goes, measured after the path's launch
     counts are read: the batched fixpoint on the card (seed step
     included), the copy of its table to the host, and formatting the
-    answers.  The rest of ``ask_batch`` is cache and bookkeeping."""
+    answers.  The rest of ``ask_batch`` is cache and bookkeeping.  Also
+    times packing the carrier again (what a cold batch adds), on the host
+    and into device memory."""
     ds = svc._dense_state(pred)
     torch.cuda.synchronize()
+    tp = time.perf_counter()
+    repacked = type(ds)(svc, ds.low)
+    torch.cuda.synchronize()
+    pack_ms = (time.perf_counter() - tp) * 1e3
+    del repacked
     t0 = time.perf_counter()
     res = ds.run_batch(svc, srcs)
     torch.cuda.synchronize()
@@ -334,10 +452,12 @@ def breakdown(torch, label, svc, pred, srcs):
         svc._format(ds, s, table[j])
     t3 = time.perf_counter()
     out = {"fixpoint_ms": (t1 - t0) * 1e3, "copy_ms": (t2 - t1) * 1e3,
-           "format_ms": (t3 - t2) * 1e3, "iterations": res.iterations}
+           "format_ms": (t3 - t2) * 1e3, "iterations": res.iterations,
+           "pack_ms": pack_ms}
     say(f"{label} warm batch of {len(srcs)}: fixpoint {out['fixpoint_ms']:.1f}"
         f" ms ({res.iterations} iterations), copy to host "
-        f"{out['copy_ms']:.1f} ms, formatting {out['format_ms']:.1f} ms")
+        f"{out['copy_ms']:.1f} ms, formatting {out['format_ms']:.1f} ms; "
+        f"packing the carrier again {pack_ms:.1f} ms")
     return out
 
 
@@ -398,10 +518,11 @@ def dense_phase(results):
     tc = DatalogService(TC, db={"arc": edges})
     sp = DatalogService(SPATH, db={"darc": wedges})
     ops.reset_launch_counts()
-    phase = {"tc": drive("dense TC", tc, "tc", edges, n, srcs, srcs2,
-                         single, False, "dense"),
-             "spath": drive("dense SPATH", sp, "dpath", wedges, n, srcs,
-                            srcs2, single, True, "dense")}
+    phase = {"tc": drive("dense TC", tc, "tc", Oracle(edges, n, False), srcs,
+                         srcs2, single, False, "dense"),
+             "spath": drive("dense SPATH", sp, "dpath",
+                            Oracle(wedges, n, True), srcs, srcs2, single,
+                            True, "dense")}
     counts = ops.launch_counts()
     say(f"dense path launches: {counts}")
     for k in ("bool_matmul", "minplus_matmul"):
@@ -444,14 +565,30 @@ def _matmul_call(torch, f, adj):
 
 def _sparse_mm_call(torch, csr, f):
     """``torch.sparse.mm`` of the transposed f32 adjacency (spine arcs)
-    with the f32 frontier: the same segment sum the bool step thresholds."""
+    with the f32 frontier: the same segment sum the bool step thresholds
+    (all-ones values) and the plus-times step computes (the arc weights)."""
     m = int(csr.nnz)
     idx = torch.stack([csr.col_idx[:m].long(), csr.src_idx[:m].long()])
+    vals = csr.edge_val[:m].float() if csr.kind == "plustimes" else \
+        torch.ones(m, device=f.device)
     at = torch.sparse_coo_tensor(
-        idx, torch.ones(m, device=f.device), (csr.n_alloc, csr.n_alloc),
+        idx, vals, (csr.n_alloc, csr.n_alloc),
         check_invariants=False).coalesce().to_sparse_csr()
     ft = f.T.float().contiguous()
     return lambda: torch.sparse.mm(at, ft)
+
+
+def _csr_seed_bound(torch, csr, f, live, s, rate):
+    """The CSR steps' bound at frontier ``f``: a push over the live sources'
+    out-arcs is the least work, one ⊗ and one ⊕ per (row, live source,
+    arc); bytes: the frontier in and out (``s`` bytes a value), those arcs'
+    (dst, val) once, the row pointers."""
+    B, na = f.shape
+    outdeg = (csr.row_ptr[1:] - csr.row_ptr[:-1]).double()
+    work = float((live.double() @ outdeg).sum())
+    arcs = float((live.any(0).double() * outdeg).sum())
+    return _bound(2 * B * na * s + arcs * (4 + s) + 4 * (na + 1), 2 * work,
+                  rate)
 
 
 def csr_phase(results):
@@ -471,10 +608,10 @@ def csr_phase(results):
     tc = DatalogService(TC, db={"arc": edges}, bits=20)
     sp = DatalogService(SPATH, db={"darc": wedges}, bits=20)
     ops.reset_launch_counts()
-    phase = {"tc": drive("CSR TC", tc, "tc", edges, n, srcs, srcs2, single,
-                         False, "csr"),
-             "spath": drive("CSR SPATH", sp, "dpath", wedges, n, srcs, srcs2,
-                            single, True, "csr")}
+    phase = {"tc": drive("CSR TC", tc, "tc", Oracle(edges, n, False), srcs,
+                         srcs2, single, False, "csr"),
+             "spath": drive("CSR SPATH", sp, "dpath", Oracle(wedges, n, True),
+                            srcs, srcs2, single, True, "csr")}
     counts = ops.launch_counts()
     say(f"CSR path launches: {counts}")
     for k in ("csr_bool_step", "csr_minplus_step"):
@@ -496,21 +633,131 @@ def csr_phase(results):
         csr = svc._dense_state(pred).csr
         f = _seed_rows(torch, lambda i: rows_from_sources(csr, i), srcs,
                        svc.batch_pads, zero)
-        B, na = f.shape
         live = f if f.dtype == torch.bool else torch.isfinite(f)
-        outdeg = (csr.row_ptr[1:] - csr.row_ptr[:-1]).double()
-        # a push over the live sources' out-arcs is the least work: one ⊗
-        # and one ⊕ per (row, live source, arc); bytes: the frontier in and
-        # out, those arcs' (dst, val) once, the row pointers
-        work = float((live.double() @ outdeg).sum())
-        arcs = float((live.any(0).double() * outdeg).sum())
-        bytes_ = 2 * B * na * s + arcs * (4 + s) + 4 * (na + 1)
         results[key].update(measure(
             torch, f"{key} ({pred})", step, plain, (f, csr), 10,
-            _bound(bytes_, 2 * work, rate),
+            _csr_seed_bound(torch, csr, f, live, s, rate),
             library=_sparse_mm_call(torch, csr, f) if s == 1 else None))
     del tc, sp
     torch.cuda.empty_cache()
+    return edges
+
+
+def _path_launches(counts, label, want, results):
+    """Check the kernel ``want`` (None: no counted kernel at all) ran on the
+    path just driven, and record its launches."""
+    say(f"{label} launches: {counts}")
+    if want is None:
+        check(not any(counts.values()), f"{label}: a counted kernel launched")
+        return
+    check(counts[want] > 0, f"{want} never launched on the {label} path")
+    results[want] = {"launches": counts[want]}
+
+
+def dag_phase(results, csr_edges):
+    """The max<> and sum<> carriers: LPATH and CPATH, dense and CSR (module
+    docstring, phase 6), each path driven alone between launch-count reads,
+    then the divergence check and the kernels timed at their paths' first
+    frontiers."""
+    import torch
+    from repro_torch.core.seminaive import FixpointDivergenceError
+    from repro_torch.core.sparse import rows_from_sources
+    from repro_torch.data import dag_graph
+    from repro_torch.kernels import minplus, ops, spmv
+    from repro_torch.service import DatalogService
+    rng = np.random.default_rng(SEED + 3)
+    phase = {}
+
+    def run(label, program, pred, edges, n, batch, repr_, semiring, kernel,
+            **kw):
+        srcs, srcs2, single = _sources(rng, n, batch)
+        svc = DatalogService(program, db={"d": edges}, bits=20, **kw)
+        oracle = DagOracle(edges, n, "max" if pred == "lpath" else "sum")
+        ops.reset_launch_counts()
+        out = drive(label, svc, pred, oracle, srcs, srcs2, single, True,
+                    repr_)
+        _path_launches(ops.launch_counts(), label, kernel, results)
+        rel = svc.explain()["relations"][pred]
+        check(rel["semiring"] == semiring,
+              f"{label}: semiring {rel['semiring']} != {semiring}")
+        out["breakdown"] = breakdown(torch, label, svc, pred, srcs2)
+        phase[label] = out
+        return svc, srcs
+
+    t0 = time.perf_counter()
+    ledges = dag_graph(LPATH_N, LPATH_P, seed=SEED, max_w=LPATH_W)
+    say(f"dense LPATH graph: dag_graph({LPATH_N}, {LPATH_P}, max_w={LPATH_W})"
+        f": {len(ledges)} arcs ({time.perf_counter() - t0:.1f} s)")
+    lp, lsrcs = run("dense LPATH", LPATH, "lpath", ledges, LPATH_N,
+                    DENSE_BATCH, "dense", "max_plus", "maxplus_matmul")
+    w = lp._dense_state("lpath").matrix
+    fw = _seed_rows(torch, lambda i: w[torch.from_numpy(i).to(w.device)],
+                    lsrcs, lp.batch_pads, float("-inf"))
+    fin = torch.isfinite
+    live_ops = 2 * float((fin(fw).double() @ fin(w).sum(1).double()).sum())
+    B, na = fw.shape
+    results["maxplus_matmul"].update(measure(
+        torch, "K2 maxplus_frontier_matmul", minplus.maxplus_frontier_matmul,
+        minplus.plain_max, (fw, w), 10,
+        _bound(4 * (2 * B * na + na * na), live_ops, F32_OPS_S)))
+    del lp, w, fw
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cedges = dag_graph(CPATH_N, CPATH_P, seed=SEED)
+    say(f"dense CPATH graph: dag_graph({CPATH_N}, {CPATH_P}): {len(cedges)} "
+        f"arcs ({time.perf_counter() - t0:.1f} s)")
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "f32 products may use TF32: dense path counts would be inexact")
+    cp, _ = run("dense CPATH", CPATH, "cpath", cedges, CPATH_N, DENSE_BATCH,
+                "dense", "plus_times", None, sparse=False)
+    del cp
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    dag = csr_edges[csr_edges[:, 0] > csr_edges[:, 1]]
+    lw = np.concatenate([dag, rng.integers(1, 10, (len(dag), 1))], 1)
+    cw = np.concatenate([dag, np.ones((len(dag), 1), np.int64)], 1)
+    indeg = np.bincount(dag[:, 1], minlength=CSR_N)
+    say(f"CSR DAG: the {len(dag)} arcs of the power-law graph with src > dst"
+        f", largest in-degree {int(indeg.max())} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del dag, indeg
+    for label, program, pred, edges, semiring, key, plain, zero in (
+            ("CSR LPATH", LPATH, "lpath", lw, "max_plus", "csr_maxplus_step",
+             spmv.plain_maxplus, float("-inf")),
+            ("CSR CPATH", CPATH, "cpath", cw, "plus_times",
+             "csr_plustimes_step", spmv.plain_plustimes, 0.0)):
+        svc, srcs = run(label, program, pred, edges, CSR_N, CSR_BATCH, "csr",
+                        semiring, key)
+        csr = svc._dense_state(pred).csr
+        f = _seed_rows(torch, lambda i: rows_from_sources(csr, i), srcs,
+                       svc.batch_pads, zero)
+        live = torch.isfinite(f) if key == "csr_maxplus_step" else f != 0
+        results[key].update(measure(
+            torch, f"{key} ({pred})", ops.csr_frontier_step(csr.kind), plain,
+            (f, csr), 10, _csr_seed_bound(torch, csr, f, live, 4, F32_OPS_S),
+            library=_sparse_mm_call(torch, csr, f)
+            if key == "csr_plustimes_step" else None))
+        del svc, csr, f, live
+        torch.cuda.empty_cache()
+
+    cycle = np.array([[0, 1, 1], [1, 2, 1], [2, 0, 1], [2, 3, 1]], np.int64)
+    for sparse in (False, True):
+        svc = DatalogService(CPATH, db={"d": cycle}, sparse=sparse)
+        try:
+            svc.ask_batch([("cpath", (0, None, None)), ("cpath", (3, None, None))])
+        except FixpointDivergenceError as err:
+            msg = str(err)
+        else:
+            check(False, "a cyclic CPATH served answers")
+        rel = svc.explain()["relations"]["cpath"]
+        check(rel["repr"] == ("csr" if sparse else "dense")
+              and len(svc.cache) == 0 and svc.stats.dense_fixpoints == 0,
+              f"cyclic CPATH ({rel['repr']}): something was cached")
+        say(f"cyclic CPATH ({rel['repr']}): FixpointDivergenceError ({msg})")
+    results["dag_phase"] = phase
 
 
 def main():
@@ -521,7 +768,7 @@ def main():
     ragged_parity()
     results: dict = {}
     dense_phase(results)
-    csr_phase(results)
+    dag_phase(results, csr_phase(results))
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          **{k: results[name][k] for k in (
@@ -529,7 +776,8 @@ def main():
              "bound_by", "library_ms")}}
         for name, (src, rep) in KERNELS.items()]}
     say("phases: " + json.dumps({k: results[k]
-                                 for k in ("dense_phase", "csr_phase")}))
+                                 for k in ("dense_phase", "csr_phase",
+                                           "dag_phase")}))
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps(line))
     say(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
 """repro_torch — the PyTorch/CUDA port of ``repro`` for NVIDIA Hopper.
 
 The JAX package ``repro`` stays the reference; this package re-implements
-its serving main path (batched single-source frontier fixpoints on the bool
-and min-plus carriers, dense and CSR) in PyTorch, with every TPU kernel on
+its serving main path (batched single-source frontier fixpoints on the bool,
+min-plus, max-plus and plus-times carriers, dense and CSR) in PyTorch, with every TPU kernel on
 that path replaced by a CUDA C++ kernel written for ``sm_90a``
 (``repro_torch.kernels``).  It never imports ``jax`` or ``repro``.
 

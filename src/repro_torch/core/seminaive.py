@@ -1,10 +1,12 @@
 """Semi-naive dense frontier fixpoints over torch tensors.
 
 Port of the dense half of ``repro.core.seminaive``.  Each iteration is one
-⊕.⊗ product, with semi-naive evaluation realized as delta-row masking (the
-idempotent carriers).  ``lax.while_loop`` becomes a host loop: the
-convergence test ``any(mask)`` syncs the host once per iteration, and the
-loop reproduces the JAX loop's ``iterations`` and ``generated`` exactly.
+⊕.⊗ product, with semi-naive evaluation realized as delta-row masking
+(idempotent ⊕) or delta accumulation (additive ⊕).  ``lax.while_loop``
+becomes a host loop: the convergence test (``any(mask)``, or
+``any(delta != 0)`` for the accumulate form) syncs the host once per
+iteration, and the loop reproduces the JAX loop's ``iterations`` and
+``generated`` exactly.
 
 The default ⊗ is ``kernels.ops.frontier_matmul``: the CUDA kernel on a CUDA
 tensor, the plain version on a CPU tensor.
@@ -16,7 +18,7 @@ from typing import Callable
 
 import torch
 
-from .semiring import BOOL, MIN_PLUS, Semiring
+from .semiring import BOOL, MIN_PLUS, PLUS_TIMES, Semiring
 
 #: generated-fact accumulator dtype (int64, as in the x64 JAX run)
 GEN_DTYPE = torch.int64
@@ -49,22 +51,20 @@ def fixpoint_dense(
     matmul: Callable | None = None,
     max_iters: int | None = None,
 ) -> DenseResult:
-    """Dense fixpoint over an idempotent semiring.
+    """Dense fixpoint over a semiring.
 
     form:
-      'linear'  D <- D ⊕ (Δmask·D) ⊗ arc          (tc r2 / dpath r2')
-      'vector'  d <- d ⊕ arcᵀ-propagate(d)        (a (B, n) init runs B
-                                                   frontiers as one batched
-                                                   fixpoint with per-row
-                                                   convergence masking)
-    The additive accumulate form waits for ROADMAP A.1, the nonlinear and
-    sandwich forms for the tuple/graph engines (ROADMAP A.6).
+      'linear'      D <- D ⊕ (Δmask·D) ⊗ arc          (tc r2 / dpath r2')
+      'vector'      d <- d ⊕ arcᵀ-propagate(d)        (a (B, n) init runs B
+                                                       frontiers as one
+                                                       batched fixpoint with
+                                                       per-row convergence
+                                                       masking)
+      'accumulate'  C = Σ Δ;  Δ <- Δ ⊗ arc             (path counting, +,×)
+    The nonlinear and sandwich forms wait for the tuple/graph engines
+    (ROADMAP A.6).
     """
-    if not sr.idempotent:
-        raise NotImplementedError(
-            f"the {sr.name} (accumulate-form) fixpoint is not ported yet "
-            "(ROADMAP A.1)")
-    if form not in ("linear", "vector"):
+    if form not in ("linear", "vector", "accumulate"):
         raise NotImplementedError(
             f"fixpoint_dense form={form!r} is not ported yet (ROADMAP A.6)")
     if matmul is None:
@@ -76,6 +76,20 @@ def fixpoint_dense(
     if max_iters is None:
         max_iters = 4 * n + 8
     zero = _zero_like(sr, init)
+
+    if form == "accumulate":
+        if sr.idempotent:
+            raise ValueError("accumulate form is for additive semirings")
+        total = delta = init
+        it = 0
+        gen = torch.zeros((), dtype=GEN_DTYPE, device=init.device)
+        while it < max_iters and bool((delta != zero).any()):
+            new = matmul(delta[None, :], arc)[0] if delta.ndim == 1 \
+                else matmul(delta, arc)
+            gen = gen + (new != zero).sum(dtype=GEN_DTYPE)
+            total, delta = total + new, new
+            it += 1
+        return DenseResult(total, it, int(gen))
 
     def step(D, mask):
         rmask = mask if D.ndim == 1 else mask[:, None]
@@ -118,6 +132,35 @@ def fixpoint_dense_cached(
                           max_iters=max_iters)
 
 
+# additive-⊕ termination -------------------------------------------------------
+# Idempotent carriers converge unconditionally; the additive (+,×) carrier
+# only terminates when the program is acyclic (paper §2.1's count/sum
+# termination discussion).  Additive fixpoints run under a tight iteration
+# bound and the caller checks it afterwards, as in the JAX package.
+
+
+class FixpointDivergenceError(RuntimeError):
+    """An additive (non-idempotent ⊕) fixpoint hit its iteration bound —
+    the underlying graph is cyclic, so count/sum-in-recursion diverges."""
+
+
+def additive_max_iters(n: int) -> int:
+    """Iteration bound for accumulate-form fixpoints: an acyclic n-vertex
+    graph's longest path has < n arcs, so the delta drains within n steps;
+    hitting n + 2 means a cycle keeps feeding it."""
+    return int(n) + 2
+
+
+def check_additive_converged(res: DenseResult, max_iters: int,
+                             what: str = "additive fixpoint") -> DenseResult:
+    if int(res.iterations) >= max_iters:
+        raise FixpointDivergenceError(
+            f"{what} hit its iteration bound ({max_iters}): the graph is "
+            "cyclic, so the (+,×) carrier has no finite fixpoint — additive "
+            "aggregates in recursion require an acyclic EDB")
+    return res
+
+
 def _as_index(srcs, device) -> torch.Tensor:
     return torch.as_tensor(srcs, dtype=torch.int64).to(device)
 
@@ -136,6 +179,19 @@ def distances_batch_dense(w: torch.Tensor, srcs, matmul=None,
     init = w[_as_index(srcs, w.device)]
     return fixpoint_dense_cached(MIN_PLUS, w, init, form="vector",
                                  matmul=matmul, max_iters=max_iters)
+
+
+def counts_batch_dense(w: torch.Tensor, srcs, matmul=None,
+                       max_iters: int | None = None) -> DenseResult:
+    """``?- cpath(s, Z, C)`` for a batch of sources: plus-times path counts
+    via the accumulate form (total = Σ_k w[s]·wᵏ), guarded by the additive
+    iteration bound — raises :class:`FixpointDivergenceError` on cycles."""
+    init = w[_as_index(srcs, w.device)]
+    if max_iters is None:
+        max_iters = additive_max_iters(w.shape[-1])
+    res = fixpoint_dense_cached(PLUS_TIMES, w, init, form="accumulate",
+                                matmul=matmul, max_iters=max_iters)
+    return check_additive_converged(res, max_iters, "plus-times batch")
 
 
 def quantize_rows(n: int, minimum: int = 8) -> int:

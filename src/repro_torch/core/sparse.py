@@ -1,6 +1,6 @@
 """CSR-packed sparse frontier engine — O(|E|)-per-iteration fixpoints.
 
-Port of ``repro.core.sparse`` for the idempotent carriers.  The packing
+Port of ``repro.core.sparse`` without appends and tile plans.  The packing
 (``_pack_edges``, ``_ell_index``, ``_sliced_ell_index``, ``build_csr``) is a
 numpy copy of the JAX package's, so the packed layout is identical array for
 array; the arrays then land on the caller's device as a :class:`CSRMatrix`
@@ -19,8 +19,9 @@ Layout (see the JAX module for the full story):
 * a COO tail (``tail_src``/``tail_dst``/``tail_val``/``tail_ell``) that
   ``build_csr`` leaves empty; appends that fill it wait for a later slice.
 
-``csr_frontier_or``/``csr_frontier_min`` are the plain PyTorch steps (the
-CPU path and the oracle the CUDA kernels in ``kernels.spmv`` are held to).
+``csr_frontier_or``/``_min``/``_max``/``_sum`` are the plain PyTorch steps
+(the CPU path and the oracle the CUDA kernels in ``kernels.spmv`` are held
+to).
 ``fixpoint_csr`` defaults to ``kernels.ops.csr_frontier_step``: the CUDA
 kernel on a CUDA frontier, the plain step on a CPU one.
 """
@@ -33,8 +34,10 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from .query import unique_rows
 from .semiring import Semiring, carrier_for
-from .seminaive import (GEN_DTYPE, DenseResult, _ne, quantize_ladder,
+from .seminaive import (GEN_DTYPE, DenseResult, _ne, additive_max_iters,
+                        check_additive_converged, quantize_ladder,
                         quantize_rows)
 
 #: density |E|/n² below which the serving layer prefers CSR over the dense
@@ -126,7 +129,7 @@ def _pack_edges(edges: np.ndarray, kind: str):
     if edges.ndim != 2 or edges.shape[1] not in (2, 3):
         raise ValueError(f"edge list must be (m, 2|3), got {edges.shape}")
     if len(edges) and not carrier_for(kind).idempotent:
-        edges = np.unique(edges, axis=0)
+        edges = unique_rows(edges)
     src = edges[:, 0].astype(np.int32)
     dst = edges[:, 1].astype(np.int32)
     if kind == "bool":
@@ -272,6 +275,28 @@ def _sliced_step_min(f, src, val, slices, rank):
     return torch.cat(parts, dim=1)[:, rank.long()]
 
 
+def _ell_step_max(f, src, val, ell):
+    contrib = f[:, src.long()] + val  # -inf sentinels never win the max
+    return contrib[:, ell.long()].amax(dim=2)
+
+
+def _sliced_step_max(f, src, val, slices, rank):
+    contrib = f[:, src.long()] + val
+    parts = [contrib[:, t.long()].amax(dim=2) for t in slices]
+    return torch.cat(parts, dim=1)[:, rank.long()]
+
+
+def _ell_step_sum(f, src, val, ell):
+    contrib = f[:, src.long()] * val  # 0-valued sentinels contribute nothing
+    return contrib[:, ell.long()].sum(dim=2)
+
+
+def _sliced_step_sum(f, src, val, slices, rank):
+    contrib = f[:, src.long()] * val
+    parts = [contrib[:, t.long()].sum(dim=2) for t in slices]
+    return torch.cat(parts, dim=1)[:, rank.long()]
+
+
 def csr_frontier_or(frontier: torch.Tensor, csr: CSRMatrix) -> torch.Tensor:
     """One plain boolean frontier step over the packed arcs: O(B·|E|).
 
@@ -293,6 +318,28 @@ def csr_frontier_min(frontier: torch.Tensor, csr: CSRMatrix) -> torch.Tensor:
                            csr.ell_rank)
     out = torch.minimum(
         out, _ell_step_min(f, csr.tail_src, csr.tail_val, csr.tail_ell))
+    return out[0] if frontier.ndim == 1 else out
+
+
+def csr_frontier_max(frontier: torch.Tensor, csr: CSRMatrix) -> torch.Tensor:
+    """One plain max-plus frontier step over the packed arcs (sentinels are
+    -inf)."""
+    f = frontier[None, :] if frontier.ndim == 1 else frontier
+    out = _sliced_step_max(f, csr.src_idx, csr.edge_val, csr.ell_slices,
+                           csr.ell_rank)
+    out = torch.maximum(
+        out, _ell_step_max(f, csr.tail_src, csr.tail_val, csr.tail_ell))
+    return out[0] if frontier.ndim == 1 else out
+
+
+def csr_frontier_sum(frontier: torch.Tensor, csr: CSRMatrix) -> torch.Tensor:
+    """One plain plus-times frontier step over the packed arcs (sentinels
+    are 0): the segment reduce is an exact sum while the partial sums are
+    integers below 2^24 — parallel arcs both contribute."""
+    f = frontier[None, :] if frontier.ndim == 1 else frontier
+    out = _sliced_step_sum(f, csr.src_idx, csr.edge_val, csr.ell_slices,
+                           csr.ell_rank)
+    out = out + _ell_step_sum(f, csr.tail_src, csr.tail_val, csr.tail_ell)
     return out[0] if frontier.ndim == 1 else out
 
 
@@ -328,24 +375,31 @@ def fixpoint_csr(csr: CSRMatrix, init: torch.Tensor,
 
     Twin of ``fixpoint_dense(form="vector")`` over the packed arcs, as a host
     loop reproducing the JAX while_loop's ``iterations`` and ``generated``.
+    The additive carrier runs the accumulate form instead (the twin of
+    ``fixpoint_dense(form="accumulate")``): the delta propagates until it
+    drains, bounded by ``max_iters``, which the caller checks afterwards
+    (``check_additive_converged``).
     """
     sr = csr.semiring
-    if not sr.idempotent:
-        raise NotImplementedError(
-            "the accumulate-form CSR fixpoint (plus-times) is not ported yet "
-            "(ROADMAP A.1)")
     if spmv is None:
         from ..kernels import ops
         spmv = ops.csr_frontier_step(csr.kind)
-    n = init.shape[-1]
     if max_iters is None:
-        max_iters = 4 * n + 8
+        max_iters = _default_max_iters(csr, init)
     zero = torch.tensor(sr.zero, dtype=init.dtype, device=init.device)
+    it = 0
+    gen = torch.zeros((), dtype=GEN_DTYPE, device=init.device)
+    if not sr.idempotent:
+        total = delta = init
+        while it < max_iters and bool((delta != zero).any()):
+            new = spmv(delta, csr)
+            gen = gen + (new != zero).sum(dtype=GEN_DTYPE)
+            total, delta = total + new, new
+            it += 1
+        return DenseResult(total, it, int(gen))
     D = init
     mask = torch.ones(init.shape[:-1] if init.ndim > 1 else init.shape,
                       dtype=torch.bool, device=init.device)
-    it = 0
-    gen = torch.zeros((), dtype=GEN_DTYPE, device=init.device)
     while it < max_iters and bool(mask.any()):
         rmask = mask if D.ndim == 1 else mask[:, None]
         dm = torch.where(rmask, D, zero)
@@ -359,14 +413,36 @@ def fixpoint_csr(csr: CSRMatrix, init: torch.Tensor,
     return DenseResult(D, it, int(gen))
 
 
+def _default_max_iters(csr: CSRMatrix, init: torch.Tensor) -> int:
+    """The JAX default bound: ``n + 2`` for the additive carrier (an acyclic
+    graph drains within n steps), ``4n + 8`` for the idempotent ones, over
+    the frontier's domain size n."""
+    n = init.shape[-1]
+    return additive_max_iters(n) if not csr.semiring.idempotent \
+        else 4 * n + 8
+
+
 def fixpoint_csr_cached(csr: CSRMatrix, init: torch.Tensor,
                         spmv: Callable | None = None,
                         max_iters: int | None = None) -> DenseResult:
     """:func:`fixpoint_csr` with the JAX cached twin's signature (no jit
-    here; ``max_iters`` resolves to ``4n + 8`` as there)."""
+    here; ``max_iters`` resolves per carrier as there)."""
     if max_iters is None:
-        max_iters = 4 * init.shape[-1] + 8
+        max_iters = _default_max_iters(csr, init)
     return fixpoint_csr(csr, init, spmv=spmv, max_iters=max_iters)
+
+
+def counts_batch_csr(csr: CSRMatrix, srcs, spmv=None,
+                     max_iters: int | None = None) -> DenseResult:
+    """``?- cpath(s, Z, C)`` for a batch of sources (plus-times carrier):
+    accumulate-form over the packed arcs, host-checked against the additive
+    iteration bound (:class:`~repro_torch.core.seminaive.
+    FixpointDivergenceError` on cyclic graphs)."""
+    if max_iters is None:
+        max_iters = additive_max_iters(csr.n_alloc)
+    res = fixpoint_csr_cached(csr, rows_from_sources(csr, srcs, spmv),
+                              spmv=spmv, max_iters=max_iters)
+    return check_additive_converged(res, max_iters, "plus-times CSR batch")
 
 
 # (de)serialization --------------------------------------------------------

@@ -1,6 +1,7 @@
 """CUDA kernels for Hopper (``csrc/*.cu``), with their plain PyTorch versions.
 
-K1 ``boolmm``, K2 ``minplus``, K3/K4 ``spmv``; ``ops`` dispatches by device
-and keeps the launch counters; ``build`` compiles the sources with ``nvcc``
-at first use.  Importing this package builds nothing.
+K1 ``boolmm``, K2 ``minplus`` (min-plus and max-plus), K3-K6 ``spmv``
+(bool, min-plus, plus-times, max-plus); ``ops`` dispatches by device, keeps
+the launch counters and holds the dense plus-times product (``torch.matmul``
+in full f32); ``build`` compiles the sources with ``nvcc`` at first use.  Importing this package builds nothing.
 """

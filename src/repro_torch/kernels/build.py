@@ -29,8 +29,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 #: launches per kernel wrapper: each wrapper adds one where it launches its
 #: kernel, and nowhere else
-LAUNCHES = {"bool_matmul": 0, "minplus_matmul": 0, "csr_bool_step": 0,
-            "csr_minplus_step": 0}
+LAUNCHES = {"bool_matmul": 0, "minplus_matmul": 0, "maxplus_matmul": 0,
+            "csr_bool_step": 0, "csr_minplus_step": 0, "csr_maxplus_step": 0,
+            "csr_plustimes_step": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

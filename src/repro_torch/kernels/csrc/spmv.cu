@@ -1,18 +1,21 @@
-// K3 / K4 — one CSR frontier step on the bool and min-plus carriers:
+// K3 / K4 / K5 / K6 — one CSR frontier step per carrier:
 //
 //   out[b, v] = ⊕_{p in segments(v)} frontier[b, src_idx[p]] ⊗ edge_val[p]
 //
-// with (⊕, ⊗) = (OR, AND) for K3 and (min, +) for K4, the segments of v
-// being its row of the sliced-ELL map (ell_slices / ell_rank) plus its row
-// of the COO tail's single-width map (tail_ell / tail_src / tail_val).
+// with (⊕, ⊗) = (OR, AND) for K3, (min, +) for K4, (+, ×) for K5 and
+// (max, +) for K6, the segments of v being its row of the sliced-ELL map
+// (ell_slices / ell_rank) plus its row of the COO tail's single-width map
+// (tail_ell / tail_src / tail_val).
 //
-// Replaces: src/repro/kernels/spmv.py, `csr_bool_spmv` (K3) and
-// `csr_minplus_spmv` (K4), as driven by ops._csr_bool_step /
-// ops._csr_minplus_step (spine + tail).  The TPU kernels keep the whole
-// (B, n) frontier resident in VMEM and scatter by destination through a
-// one-hot MXU product (bool) or a masked broadcast-min over column tiles
-// (min-plus).  Neither carries over: at B = 32 and n = 2^20 one frontier is
-// 128 MB of f32, and a one-hot scatter is O(|E|·n).
+// Replaces: src/repro/kernels/spmv.py, `csr_bool_spmv` (K3),
+// `csr_minplus_spmv` (K4), `csr_plustimes_spmv` (K5) and
+// `csr_maxplus_spmv` (K6), as driven by ops._csr_<carrier>_step (spine +
+// tail).  The TPU kernels keep the whole (B, n) frontier resident in VMEM
+// and scatter by destination through a one-hot MXU product (bool; plus-times
+// adds a per-chunk frontier-activity skip) or a masked broadcast-min/max
+// over column tiles (min-plus, max-plus).  Neither carries over: at B = 32
+// and n = 2^20 one frontier is 128 MB of f32, and a one-hot scatter is
+// O(|E|·n).
 //
 // What bounds it on the H100: device memory.  Per step the kernel reads the
 // frontier once, each live arc's position, source and value once, and
@@ -35,8 +38,19 @@
 //     vertices share the all-sentinel row 0), fold in the COO tail the same
 //     way, and write out[b, v] through a shared-memory tile so the (B, n)
 //     stores are coalesced.
-// OR and min do not depend on order, so the result is bit-identical to the
-// plain PyTorch step and to the JAX one.
+// OR, min and max do not depend on order, so K3, K4 and K6 are bit-identical
+// to the plain PyTorch step and to the JAX one.
+//
+// K5's sum does depend on order.  Its order is fixed (no atomics): positions
+// in order within a segment, then segments in order (segment_reduce_kernel),
+// then the COO tail's positions in order after the spine's result.  So
+// repeated runs on the card give identical bits.  The plain step sums in
+// torch.sum's order instead, so K5 equals it (and the JAX steps) exactly
+// while every partial sum is an integer below 2^24 — f32 adds integers
+// exactly there, whatever the order.  The service's EDB is integral, and
+// path counts are integers, so that is the contract (the JAX package's
+// plus-times kernel states the same one); non-integer sums may differ from
+// the plain step in the last bits.
 #include "common.cuh"
 
 namespace {
@@ -59,6 +73,22 @@ struct MinPlusOp {
   static __device__ __forceinline__ bool live(T w) { return w != INFINITY; }
   static __device__ __forceinline__ T combine(T f, T w) { return __fadd_rn(f, w); }
   static __device__ __forceinline__ T reduce(T a, T b) { return fminf(a, b); }
+};
+
+struct MaxPlusOp {
+  using T = float;
+  static __device__ __forceinline__ T zero() { return -INFINITY; }
+  static __device__ __forceinline__ bool live(T w) { return w != -INFINITY; }
+  static __device__ __forceinline__ T combine(T f, T w) { return __fadd_rn(f, w); }
+  static __device__ __forceinline__ T reduce(T a, T b) { return fmaxf(a, b); }
+};
+
+struct PlusTimesOp {
+  using T = float;
+  static __device__ __forceinline__ T zero() { return 0.0f; }
+  static __device__ __forceinline__ bool live(T w) { return w != 0.0f; }
+  static __device__ __forceinline__ T combine(T f, T w) { return __fmul_rn(f, w); }
+  static __device__ __forceinline__ T reduce(T a, T b) { return __fadd_rn(a, b); }
 };
 
 // ⊕-fold the positions idx[0 .. len) into acc (lane owns batch rows
@@ -308,4 +338,27 @@ extern "C" int repro_csr_minplus_step(
   return csr_step_dispatch<MinPlusOp>(f, B, n, src, val, n_slices, ells, rows,
                                       caps, seg, rank, tail_ell, tdc, tail_src,
                                       tail_val, fT, cat, part, out, stream);
+}
+
+extern "C" int repro_csr_maxplus_step(
+    const void* f, int B, int n, const int* src, const void* val,
+    int n_slices, const void* const* ells, const int* rows, const int* caps,
+    int seg, const int* rank, const int* tail_ell, int tdc,
+    const int* tail_src, const void* tail_val, void* fT, void* cat,
+    void* part, void* out, void* stream) {
+  return csr_step_dispatch<MaxPlusOp>(f, B, n, src, val, n_slices, ells, rows,
+                                      caps, seg, rank, tail_ell, tdc, tail_src,
+                                      tail_val, fT, cat, part, out, stream);
+}
+
+extern "C" int repro_csr_plustimes_step(
+    const void* f, int B, int n, const int* src, const void* val,
+    int n_slices, const void* const* ells, const int* rows, const int* caps,
+    int seg, const int* rank, const int* tail_ell, int tdc,
+    const int* tail_src, const void* tail_val, void* fT, void* cat,
+    void* part, void* out, void* stream) {
+  return csr_step_dispatch<PlusTimesOp>(f, B, n, src, val, n_slices, ells,
+                                        rows, caps, seg, rank, tail_ell, tdc,
+                                        tail_src, tail_val, fT, cat, part, out,
+                                        stream);
 }

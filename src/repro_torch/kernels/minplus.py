@@ -1,12 +1,15 @@
-"""K2 — the tropical (min,+) frontier product, a CUDA kernel for Hopper.
+"""K2 — the tropical frontier products, a CUDA kernel for Hopper with a
+min-plus and a max-plus instantiation.
 
 Replaces the Pallas kernel ``repro.kernels.minplus.minplus_matmul``
-(serving entry ``minplus_frontier_matmul``).  The kernel
-(``csrc/minplus.cu``) is a shared-memory tiled broadcast-add and min on the
-CUDA cores, with +inf as the ⊕-zero and ragged shapes masked.
+(serving entry ``minplus_frontier_matmul``; the JAX package serves max-plus
+through it by negation, ``ops.maxplus_frontier``).  The kernel
+(``csrc/minplus.cu``) is a shared-memory tiled broadcast-add and ⊕ on the
+CUDA cores, templated on the ⊕ (min with +inf, max with -inf as the
+⊕-zero), with ragged shapes masked.
 
-On CPU tensors the wrapper runs the plain version (:data:`plain`); on CUDA
-tensors it launches the kernel or raises.
+On CPU tensors the wrappers run the plain versions (:data:`plain`,
+:data:`plain_max`); on CUDA tensors they launch the kernel or raise.
 """
 from __future__ import annotations
 
@@ -16,32 +19,45 @@ import torch
 
 from . import build, ref
 
-#: the plain PyTorch version of this kernel
+#: the plain PyTorch versions of this kernel's two instantiations
 plain = ref.minplus_ref
+plain_max = ref.maxplus_ref
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
-_PROTOTYPES = {"repro_minplus_matmul": [_VP, _VP, _VP, _I, _I, _I, _VP]}
+_ARGS = [_VP, _VP, _VP, _I, _I, _I, _VP]
+_PROTOTYPES = {"repro_minplus_matmul": _ARGS, "repro_maxplus_matmul": _ARGS}
+
+
+def _launch(fn: str, counter: str, a: torch.Tensor, b: torch.Tensor
+            ) -> torch.Tensor:
+    build.require(f"{counter} a", a, torch.float32, 2)
+    build.require(f"{counter} b", b, torch.float32, 2)
+    m, k = a.shape
+    if b.shape[0] != k:
+        raise ValueError(f"{counter}: {tuple(a.shape)} x {tuple(b.shape)}")
+    n = b.shape[1]
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    lib = build.load("minplus", _PROTOTYPES)
+    with torch.cuda.device(a.device):
+        rc = getattr(lib, fn)(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                              m, k, n, build.stream_handle(a))
+    build.check(lib, rc, counter)
+    build.LAUNCHES[counter] += 1
+    return out
 
 
 def minplus_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(m, k) ⊗_min,+ (k, n) -> (m, n); f32 with +inf for 'no fact'."""
     if not build.on_card("minplus_matmul", a, b):
         return plain(a, b)
-    build.require("minplus_matmul a", a, torch.float32, 2)
-    build.require("minplus_matmul b", b, torch.float32, 2)
-    m, k = a.shape
-    if b.shape[0] != k:
-        raise ValueError(f"minplus_matmul: {tuple(a.shape)} x {tuple(b.shape)}")
-    n = b.shape[1]
-    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    lib = build.load("minplus", _PROTOTYPES)
-    with torch.cuda.device(a.device):
-        rc = lib.repro_minplus_matmul(a.data_ptr(), b.data_ptr(),
-                                      out.data_ptr(), m, k, n,
-                                      build.stream_handle(a))
-    build.check(lib, rc, "minplus_matmul")
-    build.LAUNCHES["minplus_matmul"] += 1
-    return out
+    return _launch("repro_minplus_matmul", "minplus_matmul", a, b)
+
+
+def maxplus_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(m, k) ⊗_max,+ (k, n) -> (m, n); f32 with -inf for 'no fact'."""
+    if not build.on_card("maxplus_matmul", a, b):
+        return plain_max(a, b)
+    return _launch("repro_maxplus_matmul", "maxplus_matmul", a, b)
 
 
 def minplus_frontier_matmul(frontier: torch.Tensor, w: torch.Tensor
@@ -49,3 +65,9 @@ def minplus_frontier_matmul(frontier: torch.Tensor, w: torch.Tensor
     """Micro-batched frontier step: (B, n) ⊗_min,+ (n, n) -> (B, n).
     No padding: the kernel masks ragged B and n itself."""
     return minplus_matmul(frontier, w)
+
+
+def maxplus_frontier_matmul(frontier: torch.Tensor, w: torch.Tensor
+                            ) -> torch.Tensor:
+    """Micro-batched frontier step: (B, n) ⊗_max,+ (n, n) -> (B, n)."""
+    return maxplus_matmul(frontier, w)

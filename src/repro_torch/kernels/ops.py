@@ -2,20 +2,38 @@
 
 Every entry returned here routes by device: a CPU tensor goes to the
 kernel's plain PyTorch version, a CUDA tensor to the CUDA kernel (or the
-call raises).  Carriers whose kernels are not ported yet (max-plus,
-plus-times) raise ``NotImplementedError`` on every device.
+call raises).  The one exception is the dense plus-times product, which is
+a plain f32 matrix product on both (the JAX package leaves it to XLA's
+``jnp.matmul`` as well), held to full f32 on the card.
 """
 from __future__ import annotations
 
-from . import build
+import torch
+
+from . import build, ref
 from .boolmm import bool_frontier_matmul
-from .minplus import minplus_frontier_matmul
-from .spmv import csr_bool_step, csr_minplus_step
+from .minplus import maxplus_frontier_matmul, minplus_frontier_matmul
+from .spmv import (csr_bool_step, csr_maxplus_step, csr_minplus_step,
+                   csr_plustimes_step)
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP {item})")
+def plustimes_frontier_matmul(frontier: torch.Tensor, w: torch.Tensor
+                              ) -> torch.Tensor:
+    """(B, n) ⊗_+,× (n, n) -> (B, n): ``torch.matmul`` in full f32.
+
+    Path counts must stay exact integers, and TF32 rounds the inputs to a
+    10-bit mantissa (a count of 3,000 already needs 12 bits), so on the card
+    this raises when PyTorch is set to let f32 products use TF32.  It never
+    changes the setting itself."""
+    if build.on_card("plustimes_frontier_matmul", frontier, w) and (
+            torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise RuntimeError(
+            "plustimes_frontier_matmul: f32 products may use TF32 "
+            "(torch.backends.cuda.matmul.allow_tf32 or "
+            "torch.set_float32_matmul_precision); path counts need full f32 "
+            "— set the precision to 'highest'")
+    return ref.plustimes_ref(frontier, w)
 
 
 def frontier_matmul(name: str):
@@ -25,20 +43,24 @@ def frontier_matmul(name: str):
         return bool_frontier_matmul
     if name == "min_plus":
         return minplus_frontier_matmul
-    if name in ("max_plus", "plus_times"):
-        _not_ported(f"the dense {name} frontier product", "A.1")
+    if name == "max_plus":
+        return maxplus_frontier_matmul
+    if name == "plus_times":
+        return plustimes_frontier_matmul
     raise KeyError(name)
 
 
 def csr_frontier_step(kind: str):
     """Kernel-backed segment-semiring step for the sparse engine (``kind``
-    is the CSR carrier: 'bool' | 'minplus')."""
+    is the CSR carrier: 'bool' | 'minplus' | 'maxplus' | 'plustimes')."""
     if kind == "bool":
         return csr_bool_step
     if kind == "minplus":
         return csr_minplus_step
-    if kind in ("maxplus", "plustimes"):
-        _not_ported(f"the {kind} CSR step", "A.1")
+    if kind == "maxplus":
+        return csr_maxplus_step
+    if kind == "plustimes":
+        return csr_plustimes_step
     raise KeyError(kind)
 
 

@@ -1,11 +1,12 @@
-"""Plain PyTorch versions of the four CUDA kernels: the CPU path and the
-oracles the kernels are held to on the card (exact equality)."""
+"""Plain PyTorch versions of the CUDA kernels: the CPU path and the oracles
+the kernels are held to on the card (exact equality)."""
 from __future__ import annotations
 
 import torch
 
 from ..core.semiring import BOOL, MIN_PLUS
-from ..core.sparse import csr_frontier_min, csr_frontier_or
+from ..core.sparse import (csr_frontier_max, csr_frontier_min,
+                           csr_frontier_or, csr_frontier_sum)
 
 
 def boolmm_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -20,6 +21,19 @@ def minplus_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return MIN_PLUS.matmul(a.to(torch.float32), b.to(torch.float32))
 
 
-#: one CSR frontier step on the bool / min-plus carriers (spine + COO tail)
+def maxplus_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(m, k) ⊗_max,+ (k, n) -> (m, n) in f32; -inf means "no fact".  The
+    JAX package's route: min-plus through negation."""
+    return -minplus_ref(-a, -b)
+
+
+def plustimes_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(m, k) ⊗_+,× (k, n) -> (m, n): the f32 matrix product."""
+    return a @ b
+
+
+#: one CSR frontier step per carrier (spine + COO tail)
 csr_bool_step_ref = csr_frontier_or
 csr_minplus_step_ref = csr_frontier_min
+csr_maxplus_step_ref = csr_frontier_max
+csr_plustimes_step_ref = csr_frontier_sum

@@ -1,18 +1,22 @@
-"""K3 / K4 — one CSR frontier step on the bool and min-plus carriers, as
-CUDA kernels for Hopper.
+"""K3 / K4 / K5 / K6 — one CSR frontier step on the bool, min-plus,
+plus-times and max-plus carriers, as CUDA kernels for Hopper.
 
-Replace the Pallas kernels ``repro.kernels.spmv.csr_bool_spmv`` and
-``csr_minplus_spmv`` as the JAX serving path drives them
-(``ops._csr_bool_step`` / ``ops._csr_minplus_step``: spine + COO tail).  The
-kernels (``csrc/spmv.cu``) compute the same function as a pull over the
-CSR's own sliced-ELL segment map: each output ``(b, v)`` ⊕-reduces
-``frontier[b, src_idx[p]] ⊗ edge_val[p]`` over v's in-edge positions ``p``,
-then over its COO-tail positions.  No atomics; OR and min are
-order-independent, so the result is bit-identical to the plain step.
+Replace the Pallas kernels ``repro.kernels.spmv.csr_bool_spmv``,
+``csr_minplus_spmv``, ``csr_plustimes_spmv`` and ``csr_maxplus_spmv`` as the
+JAX serving path drives them (``ops._csr_<carrier>_step``: spine + COO
+tail).  The kernels (``csrc/spmv.cu``) compute the same function as a pull
+over the CSR's own sliced-ELL segment map: each output ``(b, v)``
+⊕-reduces ``frontier[b, src_idx[p]] ⊗ edge_val[p]`` over v's in-edge
+positions ``p``, then over its COO-tail positions.  No atomics: OR, min and
+max are order-independent, so K3, K4 and K6 are bit-identical to the plain
+step; K5 sums in a fixed order, so it is deterministic, and equals the plain
+step exactly while every partial sum is an integer below 2^24 (integral
+EDBs and path counts).
 
 The wrappers take the CSR itself (``csr_bool_step(frontier, csr)``), not the
 raw arc triple.  On CPU tensors they run the plain step (:data:`plain_bool`,
-:data:`plain_minplus`); on CUDA tensors they launch the kernel or raise.
+:data:`plain_minplus`, :data:`plain_plustimes`, :data:`plain_maxplus`); on
+CUDA tensors they launch the kernel or raise.
 """
 from __future__ import annotations
 
@@ -25,6 +29,8 @@ from . import build, ref
 #: the plain PyTorch versions of these kernels
 plain_bool = ref.csr_bool_step_ref
 plain_minplus = ref.csr_minplus_step_ref
+plain_plustimes = ref.csr_plustimes_step_ref
+plain_maxplus = ref.csr_maxplus_step_ref
 
 #: positions per warp work item: wider slice rows (power-law hubs) are cut
 #: into SEG-position segments, one warp each, then ⊕-reduced
@@ -36,7 +42,9 @@ _VP, _I = ctypes.c_void_p, ctypes.c_int
 _STEP_ARGS = [_VP, _I, _I, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _I, _VP,
               _VP, _VP, _VP, _VP, _VP, _VP]
 _PROTOTYPES = {"repro_csr_bool_step": _STEP_ARGS,
-               "repro_csr_minplus_step": _STEP_ARGS}
+               "repro_csr_minplus_step": _STEP_ARGS,
+               "repro_csr_plustimes_step": _STEP_ARGS,
+               "repro_csr_maxplus_step": _STEP_ARGS}
 
 
 def _launch(fn: str, counter: str, dtype: torch.dtype, frontier, csr):
@@ -109,4 +117,23 @@ def csr_minplus_step(frontier: torch.Tensor, csr) -> torch.Tensor:
     if not build.on_card("csr_minplus_step", *_operands(frontier, csr)):
         return plain_minplus(frontier, csr)
     return _launch("repro_csr_minplus_step", "csr_minplus_step",
+                   torch.float32, frontier, csr)
+
+
+def csr_plustimes_step(frontier: torch.Tensor, csr) -> torch.Tensor:
+    """(B, n_alloc) f32 ⊗_+,× packed arcs -> (B, n_alloc) f32: segment-sum
+    by destination over the spine and the COO tail, in a fixed order."""
+    if not build.on_card("csr_plustimes_step", *_operands(frontier, csr)):
+        return plain_plustimes(frontier, csr)
+    return _launch("repro_csr_plustimes_step", "csr_plustimes_step",
+                   torch.float32, frontier, csr)
+
+
+def csr_maxplus_step(frontier: torch.Tensor, csr) -> torch.Tensor:
+    """(B, n_alloc) f32 ⊗_max,+ packed arcs -> (B, n_alloc) f32:
+    segment-max by destination over the spine and the COO tail (-inf
+    sentinels)."""
+    if not build.on_card("csr_maxplus_step", *_operands(frontier, csr)):
+        return plain_maxplus(frontier, csr)
+    return _launch("repro_csr_maxplus_step", "csr_maxplus_step",
                    torch.float32, frontier, csr)

@@ -1,10 +1,13 @@
 """Micro-batching: coalesce B single-source queries into one frontier
-fixpoint (port of ``repro.service.batch`` for the idempotent carriers).
+fixpoint (port of ``repro.service.batch`` without mesh, probe and resume).
 
 B concurrent queries ``?- tc(s_i, Y)`` on the same decomposable predicate
 share one evaluation: their frontier rows stack into a (B, n) matrix and the
 semi-naive fixpoint runs once, each iteration one ⊕.⊗ contraction (dense)
-or one segment step (CSR) with per-row convergence masking.
+or one segment step (CSR) with per-row convergence masking.  The additive
+carrier (``sum<>``) runs the accumulate form instead, under the acyclicity
+iteration bound: a cyclic EDB raises ``FixpointDivergenceError`` rather than
+serving a truncated count.
 
 Batch sizes quantize to the service's pad levels (1, 8, 32, 128, ...) with
 ⊕-zero frontier rows, exactly as in the JAX package, so ``iterations`` and
@@ -18,7 +21,8 @@ import torch
 
 from ..core import sparse as _sparse
 from ..core.semiring import Semiring
-from ..core.seminaive import DenseResult, fixpoint_dense_cached
+from ..core.seminaive import (DenseResult, additive_max_iters,
+                              check_additive_converged, fixpoint_dense_cached)
 
 
 def pad_batch_size(b: int, pads: tuple[int, ...]) -> int:
@@ -46,6 +50,13 @@ def run_frontier_batch(sr: Semiring, matrix: torch.Tensor, srcs: list[int],
     idx = torch.from_numpy(_padded_index(srcs, bp)).to(matrix.device)
     init = matrix[idx]  # a gather: a fresh tensor, padded in place
     init[b:] = sr.zero
+    if not sr.idempotent:
+        # additive ⊕ has no masked vector form: the accumulate fixpoint sums
+        # init·Aᵏ over path lengths, bounded by the acyclicity budget
+        max_iters = additive_max_iters(matrix.shape[-1])
+        res = fixpoint_dense_cached(sr, matrix, init, form="accumulate",
+                                    max_iters=max_iters)
+        return check_additive_converged(res, max_iters, "additive dense batch")
     return fixpoint_dense_cached(sr, matrix, init, form="vector")
 
 
@@ -59,6 +70,12 @@ def run_frontier_batch_csr(csr: "_sparse.CSRMatrix", srcs: list[int],
     init = _sparse.rows_from_sources(
         csr, _padded_index(srcs, pad_batch_size(b, pads)))
     init[b:] = csr.semiring.zero  # a step's fresh output, padded in place
+    if not csr.semiring.idempotent:
+        # fixpoint_csr runs the accumulate form for the additive carrier;
+        # the budget is checked here, as on the dense twin
+        max_iters = additive_max_iters(csr.n_alloc)
+        res = _sparse.fixpoint_csr_cached(csr, init, max_iters=max_iters)
+        return check_additive_converged(res, max_iters, "additive CSR batch")
     return _sparse.fixpoint_csr_cached(csr, init)
 
 
@@ -81,3 +98,28 @@ def format_minplus_row(src: int, row, n: int) -> tuple[np.ndarray, np.ndarray]:
     rows = np.stack([np.full(len(dst), src, np.int64), dst.astype(np.int64)],
                     axis=1)
     return rows, d[dst].astype(np.int64)
+
+
+def format_maxplus_row(src: int, row, n: int) -> tuple[np.ndarray, np.ndarray]:
+    """(n_alloc,) float32 longest-path row -> ((k, 2) rows, (k,) int64).
+
+    Same finite mask as the min-plus formatter — the max-plus ⊕-zero is
+    -inf, equally non-finite — kept as its own entry point so the carrier
+    table stays one-kind-one-formatter."""
+    return format_minplus_row(src, row, n)
+
+
+def format_plustimes_row(src: int, row, n: int
+                         ) -> tuple[np.ndarray, np.ndarray]:
+    """(n_alloc,) float32 count/sum row -> ((k, 2) rows, (k,) int64 values).
+
+    The additive ⊕-zero is 0.0, so non-zero entries are the destinations
+    with at least one path.  Values round to int64 — the packed domain is
+    integral, and f32 keeps integer totals exact to 2^24."""
+    d = np.asarray(row[:n])
+    dst = np.nonzero(d != 0.0)[0]
+    if not len(dst):
+        return np.zeros((0, 2), np.int64), np.zeros((0,), np.int64)
+    rows = np.stack([np.full(len(dst), src, np.int64), dst.astype(np.int64)],
+                    axis=1)
+    return rows, np.rint(d[dst]).astype(np.int64)

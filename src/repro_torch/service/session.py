@@ -1,8 +1,10 @@
 """``DatalogService`` — load a program + EDB once, answer query streams fast.
 
 Port of ``repro.service.session`` for the serving main path: batched
-single-source queries on a decomposable recursive predicate over the bool
-(``tc(s, X)``) and min-plus (``dpath(s, X, min<D>)``) carriers.  B queries on
+single-source queries on a decomposable recursive predicate over all four
+carriers — bool (``tc(s, X)``), min-plus (``dpath(s, X, min<D>)``),
+max-plus (``lpath(s, X, max<D>)``) and plus-times (``cpath(s, X,
+sum<C>)``; an acyclic EDB, else ``FixpointDivergenceError``).  B queries on
 one predicate coalesce into ONE (B, n) frontier fixpoint (``batch.py``) over
 the relation's carrier, a dense matrix or a sliced-ELL CSR picked by the
 density heuristic, and every answer lands in an LRU result cache.
@@ -13,13 +15,14 @@ density heuristic, and every answer lands in an LRU result cache.
 
 The service runs on ``cuda`` unless the caller passes ``device="cpu"``; on
 the card every fixpoint iteration is a hand-written CUDA kernel
-(``repro_torch.kernels``), on the CPU the kernels' plain versions run.
+(``repro_torch.kernels``) except the dense plus-times product, a full-f32
+``torch.matmul`` as in the JAX package; on the CPU the kernels' plain
+versions run.
 
 What the JAX service does beyond this path raises ``NotImplementedError``
-naming its ROADMAP item: the ``max<>``/``sum<>`` carriers (A.1), appends
-(A.2), ``tune`` (A.3), and the tuple engine with the modules built on it —
-non-frontier queries, ``mesh``, ``probe``, ``tracer`` and ``durable_dir``
-(A.6).
+naming its ROADMAP item: appends (A.2), ``tune`` (A.3), and the tuple engine
+with the modules built on it — non-frontier queries, ``mesh``, ``probe``,
+``tracer`` and ``durable_dir`` (A.6).
 """
 from __future__ import annotations
 
@@ -33,8 +36,9 @@ from ..core.ir import Const, Literal
 from ..core.magic import (FrontierLowering, detect_frontier_lowering,
                           frontier_query_source)
 from ..core.parser import parse_program
-from ..core.query import PlanError, as_query_literal, normalize_db, query_row_mask
-from ..core.semiring import BOOL, carrier_for, edge_arity
+from ..core.query import (PlanError, as_query_literal, normalize_db,
+                          query_row_mask, unique_rows)
+from ..core.semiring import BOOL, MIN_PLUS, carrier_for, edge_arity
 from ..device import resolve_device
 from . import batch as _batch
 from .cache import CacheEntry, LRUCache
@@ -76,6 +80,10 @@ class _DenseRelation:
         self.sr = carrier_for(low.kind)
         edges = svc.db.get(low.edb, np.zeros((0, edge_arity(low.kind)),
                                              np.int64))
+        if not self.sr.idempotent and len(edges):
+            # additive ⊕ is set-semantics over arcs: exact duplicate facts
+            # collapse before they can double-count
+            edges = unique_rows(edges, svc.bits)
         n = int(edges[:, :2].max()) + 1 if len(edges) else 0
         align = svc.n_align
         self.n = n
@@ -94,11 +102,15 @@ class _DenseRelation:
                 adj[edges[:, 0], edges[:, 1]] = True
             self.matrix = torch.from_numpy(adj).to(svc.device)
         else:
-            # ⊕-zero (+inf) fill; the ⊕ scatter folds parallel arcs
+            # ⊕-zero fill (+inf for min-plus, -inf for max-plus, 0 for
+            # plus-times) and the ⊕ scatter folds parallel arcs (min/max; the
+            # additive arcs are distinct, so += sums each exactly once)
             w = np.full((self.n_alloc, self.n_alloc), self.sr.zero, np.float32)
             if len(edges):
-                np.minimum.at(w, (edges[:, 0], edges[:, 1]),
-                              edges[:, 2].astype(np.float32))
+                scatter = (np.minimum if self.sr is MIN_PLUS
+                           else np.maximum if self.sr.idempotent else np.add)
+                scatter.at(w, (edges[:, 0], edges[:, 1]),
+                           edges[:, 2].astype(np.float32))
             self.matrix = torch.from_numpy(w).to(svc.device)
 
     @property
@@ -274,13 +286,11 @@ class DatalogService:
 
     def _frontier(self, q: Literal) -> int:
         """The bound source of a frontier-lowered query; anything else needs
-        a carrier or the tuple engine that is not ported yet."""
+        the tuple engine that is not ported yet."""
         low = self._lowering(q.pred)
         src = frontier_query_source(q) if low is not None else None
         if src is None:
             raise _not_ported(f"query {q!r} (the tuple engine)", "A.6")
-        if low.kind not in ("bool", "minplus"):
-            raise _not_ported(f"the {low.kind} carrier of {q.pred!r}", "A.1")
         return src
 
     def _dense_state(self, pred: str) -> _DenseRelation:
@@ -291,6 +301,10 @@ class DatalogService:
     def _format(self, ds: _DenseRelation, src: int, row: np.ndarray):
         if ds.low.kind == "bool":
             return _batch.format_bool_row(src, row, ds.n)
+        if ds.low.kind == "plustimes":
+            return _batch.format_plustimes_row(src, row, ds.n)
+        if ds.low.kind == "maxplus":
+            return _batch.format_maxplus_row(src, row, ds.n)
         return _batch.format_minplus_row(src, row, ds.n)
 
     def _run_group(self, pred: str, srcs: list[int]) -> dict:

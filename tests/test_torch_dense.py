@@ -1,10 +1,11 @@
 """Port parity of the dense carrier: semirings, the plain versions of the
-K1 (bool) and K2 (min-plus) frontier kernels against the JAX Pallas kernels
-(interpret mode, as ``tests/test_kernels.py`` runs them), and the dense
-fixpoints' table, iteration count and generated-fact count.  Inputs are
-made with numpy from a seed and fed to both packages; every comparison is
-exact (bool is exact, and min of sums of small integers in f32 is exact
-whatever the order)."""
+K1 (bool) and K2 (min-plus and max-plus) frontier kernels against the JAX
+Pallas kernels (interpret mode, as ``tests/test_kernels.py`` runs them), the
+dense plus-times product, and the dense fixpoints' table, iteration count
+and generated-fact count (vector and accumulate forms).  Inputs are made
+with numpy from a seed and fed to both packages; every comparison is exact
+(bool is exact, min/max of sums of small integers in f32 are exact whatever
+the order, and so are sums of integers below 2^24)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -32,6 +33,18 @@ def _dist(rng, shape, p):
                     np.inf).astype(np.float32)
 
 
+def _neg_inf(x):
+    """A min-plus array re-zeroed for max-plus (+inf -> -inf)."""
+    return np.where(np.isinf(x), -np.inf, x).astype(np.float32)
+
+
+def _count(rng, shape, p, dag=False):
+    """Small integer weights (0 = no arc); ``dag`` keeps the strict upper
+    triangle, so accumulate fixpoints drain."""
+    w = np.where(rng.random(shape) < p, rng.integers(1, 3, shape), 0)
+    return (np.triu(w, k=1) if dag else w).astype(np.float32)
+
+
 def _same(got: torch.Tensor, want) -> bool:
     want = np.asarray(want)
     got = got.numpy()
@@ -56,6 +69,20 @@ def test_k2_plain_matches_pallas_minplus_frontier(b, n):
     got = minplus.minplus_frontier_matmul(torch.from_numpy(f),
                                           torch.from_numpy(w))
     assert _same(got, want)
+
+
+@pytest.mark.parametrize("b,n", RAGGED)
+def test_k2_max_plain_matches_pallas_maxplus_frontier(b, n):
+    """The max-plus instantiation's plain version == the JAX route (the
+    min-plus Pallas kernel through negation)."""
+    rng = np.random.default_rng(b * 1000 + n + 2)
+    f, w = _neg_inf(_dist(rng, (b, n), 0.3)), _neg_inf(_dist(rng, (n, n), 0.05))
+    want = jops.maxplus_frontier(jnp.asarray(f), jnp.asarray(w))
+    got = minplus.maxplus_frontier_matmul(torch.from_numpy(f),
+                                          torch.from_numpy(w))
+    assert _same(got, want)
+    assert _same(minplus.plain_max(torch.from_numpy(f), torch.from_numpy(w)),
+                 jsr.MAX_PLUS.matmul(jnp.asarray(f), jnp.asarray(w)))
 
 
 @pytest.mark.parametrize("name", ["bool", "min_plus", "max_plus",
@@ -107,15 +134,21 @@ def _seeds(matrix, srcs, b_pad, zero):
 @pytest.mark.parametrize("kind,n,p", [("bool", 90, 0.03),
                                       ("bool", 150, 0.01),
                                       ("minplus", 90, 0.04),
-                                      ("minplus", 130, 0.02)])
+                                      ("minplus", 130, 0.02),
+                                      ("maxplus", 90, 0.08),
+                                      ("maxplus", 130, 0.03)])
 def test_fixpoint_dense_vector_form_matches_jax(kind, n, p):
     """Batched (B, n) vector fixpoint with ⊕-zero pad rows: equal table,
-    iterations and generated facts."""
+    iterations and generated facts (max-plus over a DAG: upper triangle)."""
     rng = np.random.default_rng(n)
     if kind == "bool":
         arc, jsr_, tsr_ = _bool(rng, (n, n), p), jsr.BOOL, tsr.BOOL
-    else:
+    elif kind == "minplus":
         arc, jsr_, tsr_ = _dist(rng, (n, n), p), jsr.MIN_PLUS, tsr.MIN_PLUS
+    else:
+        arc = _neg_inf(np.where(np.triu(np.ones((n, n), bool), k=1),
+                                _dist(rng, (n, n), p), np.inf))
+        jsr_, tsr_ = jsr.MAX_PLUS, tsr.MAX_PLUS
     init = _seeds(arc, [0, 7, 40], 8, jsr_.zero)
     want = jsn.fixpoint_dense(jsr_, jnp.asarray(arc), jnp.asarray(init),
                               form="vector")
@@ -144,6 +177,56 @@ def test_fixpoint_dense_linear_and_single_row_match_jax(kind):
             (int(want.iterations), int(want.generated)), form
 
 
+@pytest.mark.parametrize("n,p,max_iters", [(90, 0.05, None), (130, 0.03, None),
+                                           (90, 0.05, 3)])
+def test_fixpoint_dense_accumulate_form_matches_jax(n, p, max_iters):
+    """The additive carrier's accumulate form (total = Σ Δ, Δ <- Δ ⊗ arc)
+    with ⊕-zero pad rows: equal table, iterations and generated facts,
+    also when the iteration bound cuts it short."""
+    rng = np.random.default_rng(n + 7)
+    arc = _count(rng, (n, n), p, dag=True)
+    init = _seeds(arc, [0, 2, 33], 8, 0.0)
+    want = jsn.fixpoint_dense(jsr.PLUS_TIMES, jnp.asarray(arc),
+                              jnp.asarray(init), form="accumulate",
+                              max_iters=max_iters)
+    got = tsn.fixpoint_dense(tsr.PLUS_TIMES, torch.from_numpy(arc),
+                             torch.from_numpy(init), form="accumulate",
+                             max_iters=max_iters)
+    assert _same(got.table, want.table)
+    assert got.iterations == int(want.iterations)
+    assert got.generated == int(want.generated)
+    one = tsn.fixpoint_dense(tsr.PLUS_TIMES, torch.from_numpy(arc),
+                             torch.from_numpy(init[0]), form="accumulate",
+                             max_iters=max_iters)  # (n,) frontier
+    assert _same(one.table, np.asarray(want.table)[0])
+    with pytest.raises(ValueError, match="additive"):
+        tsn.fixpoint_dense(tsr.MIN_PLUS, torch.from_numpy(arc),
+                           torch.from_numpy(init), form="accumulate")
+
+
+def test_counts_batch_dense_and_divergence_match_jax():
+    """``counts_batch_dense`` on a DAG equals JAX's; on a cycle both hit the
+    n + 2 bound and raise ``FixpointDivergenceError``."""
+    rng = np.random.default_rng(17)
+    n = 70
+    dag = _count(rng, (n, n), 0.06, dag=True)
+    srcs = [0, 1, 40]
+    want = jsn.counts_batch_dense(jnp.asarray(dag), srcs)
+    got = tsn.counts_batch_dense(torch.from_numpy(dag), srcs)
+    assert _same(got.table, want.table)
+    assert (got.iterations, got.generated) == \
+        (int(want.iterations), int(want.generated))
+    assert tsn.additive_max_iters(n) == jsn.additive_max_iters(n) == n + 2
+    cyc = dag.copy()
+    cyc[5, 0] = 1.0  # 0 -> ... -> 5 -> 0
+    cyc[0, 5] = 1.0
+    with pytest.raises(jsn.FixpointDivergenceError, match=r"\(72\)") as jerr:
+        jsn.counts_batch_dense(jnp.asarray(cyc), srcs)
+    with pytest.raises(tsn.FixpointDivergenceError) as terr:
+        tsn.counts_batch_dense(torch.from_numpy(cyc), srcs)
+    assert str(terr.value) == str(jerr.value)
+
+
 def test_batch_helpers_and_iteration_bound_match_jax():
     rng = np.random.default_rng(3)
     n = 70
@@ -167,9 +250,15 @@ def test_batch_helpers_and_iteration_bound_match_jax():
 def test_run_frontier_batch_pads_like_jax(srcs, pads):
     rng = np.random.default_rng(len(srcs))
     n = 80
+    upper = np.triu(np.ones((n, n), bool), k=1)
     for jsr_, tsr_, arc in ((jsr.BOOL, tsr.BOOL, _bool(rng, (n, n), 0.03)),
                             (jsr.MIN_PLUS, tsr.MIN_PLUS,
-                             _dist(rng, (n, n), 0.03))):
+                             _dist(rng, (n, n), 0.03)),
+                            (jsr.MAX_PLUS, tsr.MAX_PLUS,
+                             _neg_inf(np.where(upper, _dist(rng, (n, n), 0.06),
+                                               np.inf))),
+                            (jsr.PLUS_TIMES, tsr.PLUS_TIMES,
+                             _count(rng, (n, n), 0.06, dag=True))):
         want = jbatch.run_frontier_batch(jsr_, jnp.asarray(arc), srcs, pads)
         got = tbatch.run_frontier_batch(tsr_, torch.from_numpy(arc), srcs,
                                         pads)
@@ -202,19 +291,56 @@ def test_wrappers_route_by_device():
         boolmm.bool_matmul(f.to("meta"), a.to("meta"))
     with pytest.raises(ValueError, match="CUDA"):
         minplus.minplus_matmul(f.float(), a.float().to("meta"))
-    assert set(before) == {"bool_matmul", "minplus_matmul", "csr_bool_step",
-                           "csr_minplus_step"}
+    with pytest.raises(ValueError, match="CUDA"):
+        minplus.maxplus_matmul(f.float(), a.float().to("meta"))
+    assert set(before) == {"bool_matmul", "minplus_matmul", "maxplus_matmul",
+                           "csr_bool_step", "csr_minplus_step",
+                           "csr_maxplus_step", "csr_plustimes_step"}
     assert build.SOURCES == ("boolmm", "minplus", "spmv")
 
 
-def test_unported_dense_carriers_raise():
-    rng = np.random.default_rng(0)
-    w = torch.from_numpy(_dist(rng, (8, 8), 0.5))
-    with pytest.raises(NotImplementedError, match="A.1"):
-        tops.frontier_matmul("max_plus")
-    with pytest.raises(NotImplementedError, match="A.1"):
-        tsn.fixpoint_dense(tsr.PLUS_TIMES, w, w, form="accumulate")
-    with pytest.raises(NotImplementedError, match="A.1"):
-        tsn.fixpoint_dense(tsr.MAX_PLUS, -w, -w, form="vector")
+@pytest.mark.parametrize("name", ["bool", "min_plus", "max_plus",
+                                  "plus_times"])
+def test_frontier_matmul_routes_every_carrier(name):
+    """Each carrier's dense ⊗ is the port's wrapper for it, and on CPU
+    tensors equals the semiring's plain product; unknown names raise."""
+    rng = np.random.default_rng(1)
+    if name == "bool":
+        f, w = _bool(rng, (3, 40), 0.2), _bool(rng, (40, 40), 0.1)
+    elif name == "plus_times":
+        f, w = _count(rng, (3, 40), 0.2), _count(rng, (40, 40), 0.1)
+    else:
+        f, w = _dist(rng, (3, 40), 0.3), _dist(rng, (40, 40), 0.1)
+        if name == "max_plus":
+            f, w = _neg_inf(f), _neg_inf(w)
+    f, w = torch.from_numpy(f), torch.from_numpy(w)
+    before = tops.launch_counts()
+    got = tops.frontier_matmul(name)(f, w)
+    assert torch.equal(got, tsr.BY_NAME[name].matmul(f, w))
+    assert tops.launch_counts() == before
     with pytest.raises(KeyError):
         tops.frontier_matmul("tropical")
+
+
+def test_dense_plus_times_refuses_tf32_on_the_card(monkeypatch):
+    """On a CUDA operand the dense plus-times product raises while PyTorch
+    lets f32 products use TF32, and never changes the setting itself.  The
+    card is stood in for by routing every operand to it (the product then
+    runs on the CPU tensors)."""
+    f = torch.ones((2, 4))
+    w = torch.ones((4, 4))
+    monkeypatch.setattr(build, "on_card", lambda what, *ts: True)
+    assert torch.equal(tops.plustimes_frontier_matmul(f, w), f @ w)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    with pytest.raises(RuntimeError, match="TF32"):
+        tops.plustimes_frontier_matmul(f, w)
+    assert torch.backends.cuda.matmul.allow_tf32
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    prec = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        with pytest.raises(RuntimeError, match="TF32"):
+            tops.plustimes_frontier_matmul(f, w)
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(prec)

@@ -1,9 +1,10 @@
 """Port parity of the serving layer: ``repro_torch.service.DatalogService``
 answers ``ask``/``ask_batch`` exactly as ``repro.service.DatalogService``
-does on the bool (TC) and min-plus (SPATH) carriers, dense and CSR, with
-cache hits and out-of-domain sources; what the port does not serve yet
-raises ``NotImplementedError``; the package imports neither ``jax`` nor
-``repro``; and it runs on the CPU only when asked to."""
+does on the bool (TC), min-plus (SPATH), max-plus (LPATH) and plus-times
+(CPATH) carriers, dense and CSR, with cache hits and out-of-domain sources;
+a cyclic ``sum<>`` EDB raises ``FixpointDivergenceError`` in both; what the
+port does not serve yet raises ``NotImplementedError``; the package imports
+neither ``jax`` nor ``repro``; and it runs on the CPU only when asked to."""
 import itertools
 import os
 import subprocess
@@ -15,12 +16,16 @@ import pytest
 import torch
 
 from repro.core import ir as jir
+from repro.core.seminaive import FixpointDivergenceError as JDivergence
 from repro.core.planner import PlanError as JPlanError
 from repro.data import graphs as jgraphs
+from repro.service import batch as jbatch
 from repro.service import DatalogService as JService
 from repro_torch.core import ir as tir
 from repro_torch.core.query import PlanError as TPlanError
+from repro_torch.core.seminaive import FixpointDivergenceError as TDivergence
 from repro_torch.kernels import ops as tops
+from repro_torch.service import batch as tbatch
 from repro_torch.service import DatalogService as TService
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -42,18 +47,28 @@ lpath(X,Z,max<D>) <- d(X,Z,D).
 lpath(X,Z,max<D>) <- lpath(X,Y,D1), d(Y,Z,D2), D = D1 + D2.
 """
 
-#: (program, pred, EDB name, weighted)
-WORKLOADS = {"tc": (TC, "tc", "arc", False),
-             "spath": (SPATH, "dpath", "darc", True)}
+#: (program, pred, EDB name, largest weight (0: unweighted), DAG only)
+WORKLOADS = {"tc": (TC, "tc", "arc", 0, False),
+             "spath": (SPATH, "dpath", "darc", 9, False),
+             "lpath": (LPATH, "lpath", "d", 9, True),
+             "cpath": (CPATH, "cpath", "d", 2, True)}
+
+#: a diamond where longest and shortest routes differ:
+#: 0->3 direct (1), 0->1->3 (2+2=4), 0->1->2->3 (2+1+5=8)
+DIAMOND = np.array([[0, 3, 1], [0, 1, 2], [1, 3, 2],
+                    [1, 2, 1], [2, 3, 5]], np.int64)
 
 
-def _db(edb, weighted, n, p, seed):
+def _db(edb, max_w, n, p, seed, dag=False):
     """A Gn-p relation with duplicate rows (EDB relations are sets: both
-    packages must collapse them)."""
+    packages must collapse them); ``dag`` keeps the arcs with src < dst."""
     e = jgraphs.gnp_graph(n, p, seed=seed)
-    if weighted:
+    if dag:
+        e = e[e[:, 0] < e[:, 1]]
+    if max_w:
         rng = np.random.default_rng(seed)
-        e = np.concatenate([e, rng.integers(1, 10, (len(e), 1))], axis=1)
+        e = np.concatenate([e, rng.integers(1, max_w + 1, (len(e), 1))],
+                           axis=1)
     return {edb: np.concatenate([e, e[:7]])}
 
 
@@ -85,9 +100,10 @@ CARRIERS = [((90, 0.05, 1), None, "dense"), ((90, 0.05, 1), True, "csr"),
 @pytest.mark.parametrize("graph,sparse,repr_", CARRIERS)
 @pytest.mark.parametrize("workload", sorted(WORKLOADS))
 def test_ask_batch_matches_jax(workload, graph, sparse, repr_):
-    program, pred, edb, weighted = WORKLOADS[workload]
+    program, pred, edb, max_w, dag = WORKLOADS[workload]
+    weighted = bool(max_w)
     n, p, seed = graph
-    db = _db(edb, weighted, n, p, seed)
+    db = _db(edb, max_w, n, p, seed, dag)
     jsvc, tsvc = _pair(program, db, sparse=sparse)
     for k in db:
         assert np.array_equal(tsvc.db[k], np.asarray(jsvc.db[k])), k
@@ -120,7 +136,7 @@ def test_ask_batch_matches_jax(workload, graph, sparse, repr_):
 
 
 def test_mixed_query_forms_and_edb_selections_match_jax():
-    db = _db("arc", False, 60, 0.06, 4)
+    db = _db("arc", 0, 60, 0.06, 4)
     jsvc, tsvc = _pair(TC, db)
     qs = ["tc(1, X)", ("arc", (2, None)), ("arc", (None, 9)), "tc(4, Y)",
           ("tc", (1, None)), "arc(X, X)"]
@@ -138,7 +154,7 @@ def test_query_errors_match_jax(query, monkeypatch):
     # package; start both at zero so the messages print alike
     monkeypatch.setattr(jir, "_fresh", itertools.count())
     monkeypatch.setattr(tir, "_fresh", itertools.count())
-    db = _db("arc", False, 40, 0.1, 5)
+    db = _db("arc", 0, 40, 0.1, 5)
     jsvc, tsvc = _pair(TC, db)
     with pytest.raises((ValueError, JPlanError)) as jerr:
         jsvc.ask(*query)
@@ -156,22 +172,77 @@ def test_out_of_domain_edb_raises_like_jax():
         TService(TC, db=db, device="cpu")
 
 
-@pytest.mark.parametrize("program,pred,edb", [(CPATH, "cpath", "d"),
-                                              (LPATH, "lpath", "d")])
-def test_max_and_sum_carriers_raise_not_implemented(program, pred, edb):
-    db = {edb: np.array([[0, 1, 2], [1, 2, 3]])}
-    tsvc = TService(program, db=db, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.1"):
-        tsvc.ask_batch([(pred, (0, None, None))])
-    with pytest.raises(NotImplementedError, match="A.1"):
-        tsvc.ask(pred, (1, None, None))
-    # the unported carrier ran nothing, and nothing was cached
-    assert tsvc.stats.dense_fixpoints == 0 and len(tsvc.cache) == 0
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "csr"])
+def test_diamond_serves_longest_not_shortest(sparse):
+    """The max<> program rides the max-plus carrier, not min-plus: on the
+    diamond the longest route to 3 is 8, the shortest 1."""
+    jsvc, tsvc = _pair(LPATH, {"d": DIAMOND}, sparse=sparse)
+    got = tsvc.ask("lpath", (0, None, None))
+    _assert_same_answer(got, jsvc.ask("lpath", (0, None, None)), "diamond")
+    rows = {(int(a), int(b), int(v)) for (a, b), v in zip(*got)}
+    assert rows == {(0, 1, 2), (0, 2, 3), (0, 3, 8)}
+    rel = tsvc.explain()["relations"]["lpath"]
+    assert (rel["semiring"], rel["repr"]) == \
+        ("max_plus", "csr" if sparse else "dense")
+
+
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "csr"])
+def test_duplicate_cpath_rows_count_once(sparse):
+    """EDB relations are sets: a duplicated arc is one arc, so the diamond
+    still has 3 unit-weight routes 0 -> 3, not 4 or 5."""
+    ones = DIAMOND.copy()
+    ones[:, 2] = 1
+    dup = np.concatenate([ones, ones[:2], ones[:1]])
+    jsvc, tsvc = _pair(CPATH, {"d": dup}, sparse=sparse)
+    got = tsvc.ask("cpath", (0, None, None))
+    _assert_same_answer(got, jsvc.ask("cpath", (0, None, None)), "dup")
+    assert {(int(a), int(b), int(v)) for (a, b), v in zip(*got)} == \
+        {(0, 1, 1), (0, 2, 1), (0, 3, 3)}
+    assert tsvc.explain()["relations"]["cpath"]["semiring"] == "plus_times"
+
+
+#: a 3-cycle 0 -> 1 -> 2 -> 0 with a spur 2 -> 3
+CYCLE = np.array([[0, 1, 1], [1, 2, 2], [2, 0, 1], [2, 3, 4]], np.int64)
+
+
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "csr"])
+def test_cyclic_cpath_raises_divergence_and_caches_nothing(sparse):
+    jsvc, tsvc = _pair(CPATH, {"d": CYCLE}, sparse=sparse)
+    with pytest.raises(JDivergence) as jerr:
+        jsvc.ask("cpath", (0, None, None))
+    with pytest.raises(TDivergence) as terr:
+        tsvc.ask_batch([("cpath", (0, None, None)), ("cpath", (1, None, None))])
+    assert str(terr.value) == str(jerr.value)
+    assert "(130)" in str(terr.value)  # n_alloc + 2
+    assert len(tsvc.cache) == 0 and tsvc.stats.dense_fixpoints == 0
+    with pytest.raises(TDivergence):  # still nothing cached to serve
+        tsvc.ask("cpath", (0, None, None))
+
+
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "csr"])
+def test_cyclic_lpath_runs_to_the_bound_like_jax(sparse):
+    """max<> on a cycle has no finite fixpoint either; both packages run
+    the vector form to its 4n + 8 bound and serve the values reached."""
+    jsvc, tsvc = _pair(LPATH, {"d": CYCLE}, sparse=sparse)
+    qs = [("lpath", (s, None, None)) for s in (0, 3)]
+    for g, w in zip(tsvc.ask_batch(qs), jsvc.ask_batch(qs)):
+        _assert_same_answer(g, w, "cyclic lpath")
+    assert tsvc.stats.fixpoint_iterations == 4 * 128 + 8
+    # the batch under the answers: the same table and iteration count
+    jds, tds = jsvc._dense_state("lpath"), tsvc._dense_state("lpath")
+    if sparse:
+        want = jbatch.run_frontier_batch_csr(jds.csr, [0, 1], (1, 8))
+        got = tbatch.run_frontier_batch_csr(tds.csr, [0, 1], (1, 8))
+    else:
+        want = jbatch.run_frontier_batch(jds.sr, jds.matrix, [0, 1], (1, 8))
+        got = tbatch.run_frontier_batch(tds.sr, tds.matrix, [0, 1], (1, 8))
+    assert np.array_equal(got.table.numpy(), np.asarray(want.table))
+    assert got.iterations == int(want.iterations) == 4 * 128 + 8
 
 
 @pytest.mark.parametrize("query", ["tc(X, 5)", "tc(1, 2)", "tc(X, Y)"])
 def test_tuple_path_queries_raise_not_implemented(query):
-    tsvc = TService(TC, db=_db("arc", False, 30, 0.1, 6), device="cpu")
+    tsvc = TService(TC, db=_db("arc", 0, 30, 0.1, 6), device="cpu")
     with pytest.raises(NotImplementedError, match="A.6"):
         tsvc.ask_batch([query])
 
