@@ -16,20 +16,43 @@ a non-zero exit and prints no result):
    K5's inputs are small integers whose sums stay below 2^24, where f32
    sums are exact in any order); B = 3, 32 and 130 (over the CSR kernels'
    128-row split), hub rows wider than one 1024-position segment, and a
-   COO tail built by hand;
+   COO tail built by hand; then K7 (the min-plus step over a tile-skip
+   plan) against its plain version and K4's at (chunk, bn) = (32, 128),
+   (64, 128), (32, 256) and (16, 64) and B = 3, 32 and 130, on a graph with
+   empty column tiles, an allocation no tile width divides, a hub tile
+   split into several work units and a COO tail made by ``csr_append``;
 4. dense main path: ``DatalogService`` TC and SPATH on ``gnp_graph(10_000,
    0.1)`` (the paper's Table-6 Gn-p family; density 0.1 picks the dense
    carrier), ``ask_batch`` of 100 sources, a second batch of 100, a repeat
-   of the first (all cache hits) and one ``ask``;
+   of the first (all cache hits) and one ``ask``; then appends to both
+   services: 1,000 arcs, and one arc to vertex 10,200, which grows
+   ``n_alloc`` from 10,112 to 10,240 (cached rows re-padded): 3 resumed
+   batch sources, the single one and the new vertex against the oracle;
 5. CSR main path: TC and SPATH on ``powerlaw_graph(2**20, 16_000_000,
    alpha=0.8)`` (a social-graph shape; the density heuristic picks CSR),
    ``ask_batch`` of 32 sources, a second batch of 32 and a repeat;
+5b. the tuned CSR path on phase 5's weighted arcs (not generated again):
+   ``DatalogService(SPATH, sparse=True, tune=KernelConfig(use_kernel=True))``
+   (tile-skip plan (32, 128)), the same traffic; K7 must launch once per
+   iteration plus one seed step per fixpoint and K4 never; the plan's
+   length, padding and host build time; K7 timed beside its plain version,
+   its bound and K4 at the same frontier.  Then two appends to that
+   service: 10,000 arcs (to the COO tail) and 4,100,000 (past
+   ``csr_rebuild_frac``: a fold that rebuilds the pinned layout and its
+   plan), each resuming every cached source, the resumed iterations beside
+   the cold ones, 4 sources against Dijkstra on the union.  Then
+   ``tune=True`` on the same arcs: the measured search (the analytic
+   shortlist of layouts and the three tile-skip configs), each candidate's
+   predicted and measured seconds, the pick and its gain, and 4 sources
+   against Dijkstra;
 6. ``max<>`` and ``sum<>`` paths, the same traffic: dense LPATH (longest
    paths, K2's max-plus instantiation) on ``dag_graph(10_000, 0.05,
    max_w=9)`` (density 0.025 picks the dense carrier); dense CPATH (path
    counts, a full-f32 ``torch.matmul`` per iteration) on ``dag_graph(10_000,
    8/10_000)`` with the dense carrier forced, the JAX package's own counting
-   regime (per-source totals near e^8); CSR LPATH (K6, weights 1..9) and
+   regime (per-source totals near e^8), then 500 new arcs with src < dst
+   appended (increment replay, held to the int64 DP oracle) and the same
+   500 again (set semantics: no fixpoint, no count changes); CSR LPATH (K6, weights 1..9) and
    CSR CPATH (K5, unit weights) on the arcs of phase 5's power-law graph
    with src > dst (a DAG of about 13.2M arcs, hub in-degrees near 183k);
    then a 3-cycle CPATH on both carriers must raise
@@ -110,7 +133,16 @@ KERNELS = {
                            "src/repro/kernels/spmv.py:211"),
     "csr_maxplus_step": ("src/repro_torch/kernels/csrc/spmv.cu",
                          "src/repro/kernels/spmv.py:297"),
+    "csr_minplus_tiled_step": ("src/repro_torch/kernels/csrc/spmv.cu",
+                               "src/repro/kernels/spmv.py:359"),
 }
+#: K7's ragged cases: (chunk, bn) plans and batch sizes (130 crosses the
+#: 32-row passes more than four times)
+K7_PLANS = ((32, 128), (64, 128), (32, 256), (16, 64))
+K7_BATCHES = (3, 32, 130)
+TAIL_APPEND, FOLD_APPEND = 10_000, 4_100_000
+#: the vertex the dense append phase adds: past n_alloc 10,112 (Gn-p 10k)
+DENSE_GROW = 10_200
 
 
 def say(msg: str) -> None:
@@ -157,15 +189,18 @@ def time_ms(torch, fn, calls: int, rounds: int = 3) -> float:
 # -- phases 1-2 ---------------------------------------------------------------
 
 
-def check_device():
+def check_device() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
     import torch
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
-    say(smi.stdout.strip())
+    card = smi.stdout.strip()
+    say(card)
     say(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
+    return card
 
 
 def build_kernels():
@@ -175,7 +210,9 @@ def build_kernels():
     report = build.build(verbose=True)
     say(f"build: {time.perf_counter() - t0:.1f} s for {list(build.SOURCES)}")
     for line in report.splitlines():
-        if line.startswith("==") or "Used" in line or "spill" in line:
+        if line.startswith("==") or "Used" in line or (
+                "spill" in line and "0 bytes spill stores, 0 bytes spill "
+                "loads" not in line):
             say("  " + line.strip())
 
 
@@ -289,6 +326,46 @@ def ragged_parity():
     say(f"parity (ragged): {cases} kernel cases exactly equal to plain")
 
 
+def k7_ragged_parity():
+    """K7 against its plain version, exactly: a graph whose upper column
+    tiles are empty, an allocation that is no multiple of any tile width, a
+    hub whose tile's items split into several work units, and a COO tail
+    made by ``csr_append``; every plan of :data:`K7_PLANS` at every batch
+    size of :data:`K7_BATCHES`."""
+    import torch
+    from repro_torch.core import sparse
+    from repro_torch.kernels import spmv
+    rng = np.random.default_rng(SEED + 5)
+    n_alloc, m, hub = 3000, 24000, 6000
+    src = np.concatenate([rng.integers(0, n_alloc, m),
+                          rng.integers(0, n_alloc, hub)])
+    dst = np.concatenate([rng.integers(0, 1000, m // 2),
+                          rng.integers(2000, 2950, m - m // 2),
+                          np.ones(hub, np.int64)])  # 1000..1999: empty tiles
+    edges = np.stack([src, dst, rng.integers(1, 10, len(src))], 1)
+    tail = np.stack([rng.integers(0, n_alloc, 40),
+                     rng.integers(0, n_alloc, 40),
+                     rng.integers(1, 10, 40)], 1)
+    cases = 0
+    for plan in K7_PLANS:
+        csr = sparse.csr_append(sparse.build_csr(
+            edges, n_alloc, "minplus", kernel_plan=plan, device=DEVICE), tail)
+        units = csr.plan_unit.cpu().numpy()
+        check(int(csr.tail_nnz) == len(tail) and csr.plan_cfg == plan,
+              f"K7 case {plan}: tail or plan not built")
+        check(int(np.diff(units).max()) == sparse.PLAN_UNIT,
+              f"K7 case {plan}: no tile was split into work units")
+        for B in K7_BATCHES:
+            f = torch.from_numpy(_rand_dist(rng, (B, n_alloc), 0.2)).to(DEVICE)
+            got = spmv.csr_minplus_tiled_step(f, csr)
+            equal_and_err(torch, got, spmv.plain_minplus_tiled(f, csr))
+            equal_and_err(torch, got, spmv.plain_minplus(f, csr))
+            cases += 1
+    torch.cuda.synchronize()
+    say(f"parity (K7, ragged): {cases} cases exactly equal to plain "
+        f"(plans {list(K7_PLANS)}, B {list(K7_BATCHES)}, n_alloc {n_alloc})")
+
+
 # -- phases 4-6: the main path ------------------------------------------------
 
 
@@ -304,6 +381,12 @@ class Oracle:
     def __init__(self, edges, n, weighted):
         from scipy.sparse import csr_matrix
         self.n, self.weighted = n, weighted
+        if weighted:  # parallel arcs: keep the lightest (scipy would add)
+            edges = edges[np.lexsort((edges[:, 2], edges[:, 1], edges[:, 0]))]
+            keep = np.ones(len(edges), bool)
+            keep[1:] = (edges[1:, 0] != edges[:-1, 0]) | \
+                (edges[1:, 1] != edges[:-1, 1])
+            edges = edges[keep]
         w = edges[:, 2].astype(np.float64) if weighted else \
             np.ones(len(edges), np.float64)
         self.g = csr_matrix((w, (edges[:, 0], edges[:, 1])), shape=(n, n))
@@ -554,7 +637,9 @@ def dense_phase(results):
         torch, "K2 minplus_frontier_matmul", minplus.minplus_frontier_matmul,
         minplus.plain, (fw, w), 10,
         _bound(4 * (2 * B * na + na * na), live_ops, F32_OPS_S)))
-    del tc, sp, adj, w, f, fw
+    del adj, w, f, fw
+    phase["appends"] = dense_appends(tc, sp, edges, wedges, srcs, single)
+    del tc, sp
     torch.cuda.empty_cache()
 
 
@@ -578,17 +663,122 @@ def _sparse_mm_call(torch, csr, f):
     return lambda: torch.sparse.mm(at, ft)
 
 
-def _csr_seed_bound(torch, csr, f, live, s, rate):
-    """The CSR steps' bound at frontier ``f``: a push over the live sources'
-    out-arcs is the least work, one ⊗ and one ⊕ per (row, live source,
-    arc); bytes: the frontier in and out (``s`` bytes a value), those arcs'
-    (dst, val) once, the row pointers."""
+def dense_appends(tc, sp, edges, wedges, srcs, single):
+    """Appends on the warm dense Gn-p services: 1,000 arcs, then one arc to
+    vertex :data:`DENSE_GROW`, past the allocation (a rebuild; the cached
+    rows are re-padded).  Each cached closure resumes; K1 and K2 must run;
+    3 resumed sources, the single one and the new vertex equal the oracle
+    on the union."""
+    import torch
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(SEED + 6)
+    n = DENSE_N
+    extra = np.stack([rng.integers(0, n, 1000), rng.integers(0, n, 1000)], 1)
+    grow = np.array([[srcs[0], DENSE_GROW]], np.int64)
+    out = {}
+    ops.reset_launch_counts()
+    for label, svc, pred, edb, base in (("dense TC", tc, "tc", "arc", edges),
+                                        ("dense SPATH", sp, "dpath", "darc",
+                                         wedges)):
+        weighted = base.shape[1] == 3
+        union = [base]
+        st0 = dataclasses.replace(svc.stats)
+        t0 = time.perf_counter()
+        for rows in (extra, grow):
+            rows = _weighted(rng, rows) if weighted else rows
+            union.append(rows)
+            svc.append(edb, rows)
+        torch.cuda.synchronize()
+        rel = svc.explain()["relations"][pred]
+        rep = {"seconds": time.perf_counter() - t0, "n_alloc": rel["n_alloc"],
+               "resumed_rows": svc.stats.resumed_rows - st0.resumed_rows,
+               "resumed_iterations":
+                   svc.stats.fixpoint_iterations - st0.fixpoint_iterations}
+        grown = -(-(DENSE_GROW + 1) // svc.n_align) * svc.n_align
+        check(rel["n_alloc"] == grown and rel["repr"] == "dense",
+              f"{label} append: n_alloc {rel['n_alloc']}, {rel['repr']}")
+        say(f"{label} appends (1,000 arcs, then one to vertex {DENSE_GROW})"
+            f": {rep}")
+        oracle = Oracle(np.concatenate(union), DENSE_GROW + 1, weighted)
+        qs = srcs[:3] + [single, DENSE_GROW]
+        answers = svc.ask_batch([(pred, (s, None, None) if weighted
+                                  else (s, None)) for s in qs])
+        for s, ans in zip(qs, answers):
+            oracle.check(s, ans)
+        say(f"{label} after the appends: 5 sources equal the Oracle")
+        out[label] = rep
+    counts = ops.launch_counts()
+    say(f"dense appends launches: {counts}")
+    for k in ("bool_matmul", "minplus_matmul"):
+        check(counts[k] > 0, f"{k} never launched on the dense appends")
+    return out
+
+
+def cpath_appends(cp, cedges, srcs):
+    """Appends on the warm dense CPATH service: 500 new arcs with src < dst
+    resume the cached counts by increment replay and must equal the int64
+    DP oracle on the union; the same append again must launch nothing and
+    change no count."""
+    import torch
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(SEED + 7)
+    have = set(map(tuple, cedges[:, :2].tolist()))
+    cand = np.sort(rng.integers(0, CPATH_N, (4000, 2)), axis=1)
+    cand = cand[cand[:, 0] < cand[:, 1]]
+    new = np.array([r for r in map(tuple, cand.tolist()) if r not in have],
+                   np.int64)
+    new = np.unique(new, axis=0)[:500]
+    new = np.concatenate([new, np.ones((len(new), 1), np.int64)], 1)
+    check(len(new) == 500, "CPATH append: too few new arcs")
+    q = [("cpath", (s, None, None)) for s in srcs]
+    out = {}
+    for label in ("new", "repeat"):
+        before = cp.ask_batch(q)
+        ops.reset_launch_counts()
+        st0 = dataclasses.replace(cp.stats)
+        t0 = time.perf_counter()
+        cp.append("d", new)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        check(not any(counts.values()),
+              f"CPATH append ({label}): a counted kernel launched")
+        fixpoints = cp.stats.dense_fixpoints - st0.dense_fixpoints
+        rep = {"seconds": secs, "fixpoints": fixpoints,
+               "resumed_rows": cp.stats.resumed_rows - st0.resumed_rows,
+               "resumed_iterations":
+                   cp.stats.fixpoint_iterations - st0.fixpoint_iterations}
+        after = cp.ask_batch(q)
+        if label == "new":
+            check(fixpoints == 1, "CPATH append: no increment replay ran")
+            oracle = DagOracle(np.concatenate([cedges, new]), CPATH_N, "sum")
+            for s, ans in zip(srcs, after):
+                oracle.check(s, ans)
+        else:
+            check(fixpoints == 0, "CPATH repeated append ran a fixpoint")
+            check(all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                      for a, b in zip(after, before)),
+                  "CPATH repeated append changed a count")
+        say(f"dense CPATH append ({label}, 500 arcs): {rep}; "
+            f"{len(srcs)} sources {'equal the DagOracle' if label == 'new' else 'unchanged'}")
+        out[label] = rep
+    return out
+
+
+def _csr_seed_work(torch, csr, f, live, s):
+    """The least (bytes, operations) of a CSR step at frontier ``f``: a push
+    over the live sources' out-arcs, one ⊗ and one ⊕ per (row, live
+    source, arc); bytes: the frontier in and out (``s`` bytes a value),
+    those arcs' (dst, val) once, the row pointers."""
     B, na = f.shape
     outdeg = (csr.row_ptr[1:] - csr.row_ptr[:-1]).double()
     work = float((live.double() @ outdeg).sum())
     arcs = float((live.any(0).double() * outdeg).sum())
-    return _bound(2 * B * na * s + arcs * (4 + s) + 4 * (na + 1), 2 * work,
-                  rate)
+    return 2 * B * na * s + arcs * (4 + s) + 4 * (na + 1), 2 * work
+
+
+def _csr_seed_bound(torch, csr, f, live, s, rate):
+    return _bound(*_csr_seed_work(torch, csr, f, live, s), rate)
 
 
 def csr_phase(results):
@@ -607,10 +797,11 @@ def csr_phase(results):
     srcs, srcs2, single = _sources(rng, n, CSR_BATCH)
     tc = DatalogService(TC, db={"arc": edges}, bits=20)
     sp = DatalogService(SPATH, db={"darc": wedges}, bits=20)
+    sp_oracle = Oracle(wedges, n, True)
     ops.reset_launch_counts()
     phase = {"tc": drive("CSR TC", tc, "tc", Oracle(edges, n, False), srcs,
                          srcs2, single, False, "csr"),
-             "spath": drive("CSR SPATH", sp, "dpath", Oracle(wedges, n, True),
+             "spath": drive("CSR SPATH", sp, "dpath", sp_oracle,
                             srcs, srcs2, single, True, "csr")}
     counts = ops.launch_counts()
     say(f"CSR path launches: {counts}")
@@ -640,7 +831,7 @@ def csr_phase(results):
             library=_sparse_mm_call(torch, csr, f) if s == 1 else None))
     del tc, sp
     torch.cuda.empty_cache()
-    return edges
+    return edges, wedges, sp_oracle
 
 
 def _path_launches(counts, label, want, results):
@@ -710,8 +901,9 @@ def dag_phase(results, csr_edges):
     check(not torch.backends.cuda.matmul.allow_tf32
           and torch.get_float32_matmul_precision() == "highest",
           "f32 products may use TF32: dense path counts would be inexact")
-    cp, _ = run("dense CPATH", CPATH, "cpath", cedges, CPATH_N, DENSE_BATCH,
-                "dense", "plus_times", None, sparse=False)
+    cp, csrcs = run("dense CPATH", CPATH, "cpath", cedges, CPATH_N,
+                    DENSE_BATCH, "dense", "plus_times", None, sparse=False)
+    phase["dense CPATH"]["appends"] = cpath_appends(cp, cedges, csrcs[:4])
     del cp
     torch.cuda.empty_cache()
 
@@ -760,15 +952,167 @@ def dag_phase(results, csr_edges):
     results["dag_phase"] = phase
 
 
+def _k7_bound(torch, csr, f):
+    """K7's bound at frontier ``f``: the CSR steps' least work
+    (:func:`_csr_seed_work`) plus the plan's four arrays read once."""
+    bytes_, ops = _csr_seed_work(torch, csr, f, torch.isfinite(f), 4)
+    plan = sum(4 * t.numel() for t in (csr.plan_tile, csr.plan_chunk,
+                                        csr.plan_first, csr.plan_unit))
+    return _bound(bytes_ + plan, ops, F32_OPS_S)
+
+
+def _plan_report(csr):
+    units = csr.plan_unit.cpu().numpy()
+    items, live = int(csr.plan_tile.numel()), int(units[-1])
+    return {"items": items, "live": live, "pad": items - live,
+            "units": len(units) - 1, "plan_cfg": list(csr.plan_cfg)}
+
+
+def _launch_check(label, counts, stats0, svc, kernel, absent):
+    """``kernel`` launched once per fixpoint iteration plus one seed step
+    per fixpoint since ``stats0``; ``absent`` never launched."""
+    st = svc.stats
+    want = (st.fixpoint_iterations - stats0.fixpoint_iterations
+            + st.dense_fixpoints - stats0.dense_fixpoints)
+    say(f"{label} launches: {counts} (iterations + seed steps: {want})")
+    check(counts[kernel] == want and want > 0,
+          f"{label}: {kernel} launched {counts[kernel]} times, iterations "
+          f"+ seed steps {want}")
+    check(counts[absent] == 0, f"{label}: {absent} launched")
+
+
+def _check_sources(label, svc, pred, oracle, srcs):
+    """Ask ``srcs`` (cache hits where resumed) and hold 4 of them to the
+    oracle."""
+    answers = svc.ask_batch([(pred, (s, None, None)) for s in srcs])
+    for s, ans in list(zip(srcs, answers))[:4]:
+        oracle.check(s, ans)
+    say(f"{label}: 4 sources equal the {type(oracle).__name__}")
+
+
+def tuned_phase(results, wedges, oracle):
+    """The tuned CSR path on phase 5's weighted power-law arcs: a pinned
+    ``KernelConfig(use_kernel=True)`` SPATH service (K7 on every step),
+    appends to it (tail, then a fold), then ``tune=True``'s measured
+    search."""
+    import torch
+    from repro_torch.core import sparse
+    from repro_torch.kernels import autotune, ops, spmv
+    from repro_torch.service import DatalogService
+    rng = np.random.default_rng(SEED + 4)
+    n = CSR_N
+    srcs, srcs2, single = _sources(rng, n, CSR_BATCH)
+    sp = DatalogService(SPATH, db={"darc": wedges}, bits=20, sparse=True,
+                        tune=autotune.KernelConfig(use_kernel=True))
+    ops.reset_launch_counts()
+    st0 = dataclasses.replace(sp.stats)
+    phase = {"spath": drive("tuned CSR SPATH", sp, "dpath", oracle, srcs,
+                            srcs2, single, True, "csr")}
+    counts = ops.launch_counts()
+    _launch_check("tuned CSR SPATH", counts, st0, sp, "csr_minplus_tiled_step",
+                  "csr_minplus_step")
+    results["csr_minplus_tiled_step"] = {
+        "launches": counts["csr_minplus_tiled_step"]}
+    csr = sp._dense_state("dpath").csr
+    tuning = sp.explain()["kernels"]["tuning"]["dpath"]
+    check(tuning == {"config": autotune.KernelConfig(use_kernel=True).as_dict(),
+                     "pinned": True}, f"tuned SPATH: explain tuning {tuning}")
+    dst = csr.col_idx.cpu().numpy()
+    t0 = time.perf_counter()
+    sparse._tile_plan(dst, int(csr.nnz), csr.capacity, csr.n_alloc,
+                      *csr.plan_cfg)
+    plan = {**_plan_report(csr), "build_s": time.perf_counter() - t0}
+    del dst
+    say(f"tuned SPATH plan: {plan}")
+    phase["plan"] = plan
+
+    f = _seed_rows(torch, lambda i: sparse.rows_from_sources(csr, i), srcs,
+                   sp.batch_pads, float("inf"))
+    results["csr_minplus_tiled_step"].update(measure(
+        torch, "K7 csr_minplus_tiled_step (dpath)",
+        spmv.csr_minplus_tiled_step, spmv.plain_minplus_tiled, (f, csr), 10,
+        _k7_bound(torch, csr, f)))
+    phase["k4_ms_same_frontier"] = time_ms(
+        torch, lambda: spmv.csr_minplus_step(f, csr), 10)
+    say(f"K4 csr_minplus_step at the same frontier and CSR: "
+        f"{phase['k4_ms_same_frontier']:.3f} ms")
+    del f
+
+    # appends: a tail append, then one past csr_rebuild_frac (a fold)
+    appended = [wedges]
+    for label, k in (("tail", TAIL_APPEND), ("fold", FOLD_APPEND)):
+        rows = np.stack([rng.integers(0, n, k), rng.integers(0, n, k),
+                         rng.integers(1, 10, k)], 1)
+        appended.append(rows)
+        ops.reset_launch_counts()
+        st0 = dataclasses.replace(sp.stats)
+        t0 = time.perf_counter()
+        sp.append("darc", rows)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        _launch_check(f"append ({label})", counts, st0, sp,
+                      "csr_minplus_tiled_step", "csr_minplus_step")
+        csr = sp._dense_state("dpath").csr
+        resumed = sp.stats.fixpoint_iterations - st0.fixpoint_iterations
+        rep = {"arcs": k, "seconds": secs, "resumed_rows":
+               sp.stats.resumed_rows - st0.resumed_rows,
+               "resumed_iterations": resumed,
+               "cold_iterations": phase["spath"]["iterations"][0],
+               "tail_nnz": int(csr.tail_nnz), "nnz": int(csr.nnz),
+               "plan": _plan_report(csr)}
+        check(csr.plan_cfg == (32, 128) and
+              sp.explain()["kernels"]["tuning"]["dpath"]["pinned"],
+              f"append ({label}): the pinned config or plan was lost")
+        check((rep["tail_nnz"] == 0) == (label == "fold"),
+              f"append ({label}): tail {rep['tail_nnz']}")
+        say(f"append ({label}): {rep}")
+        phase[f"append_{label}"] = rep
+        _check_sources(f"after append ({label})", sp, "dpath",
+                       Oracle(np.concatenate(appended), n, True),
+                       srcs + [single])
+    del sp, csr
+    torch.cuda.empty_cache()
+
+    # tune=True: the measured search
+    autotune.clear_cache()
+    svc = DatalogService(SPATH, db={"darc": wedges}, bits=20, sparse=True,
+                         tune=True)
+    t0 = time.perf_counter()
+    svc.ask_batch([("dpath", (s, None, None)) for s in srcs])
+    secs = time.perf_counter() - t0
+    tuning = svc.explain()["kernels"]["tuning"]["dpath"]
+    say(f"tune=True: first batch {secs:.1f} s (search included); chose "
+        f"{tuning['config']} gain {tuning['gain']:.3f} (baseline "
+        f"{tuning['baseline_seconds']:.4f} s, best "
+        f"{tuning['best_seconds']:.4f} s)")
+    for c in tuning["candidates"]:
+        say(f"  candidate {c['config']}: predicted {c['predicted_s']} s, "
+            f"measured {c['measured_s']} s")
+    check(tuning["pinned"] is False and sum(
+        c["measured_s"] is not None and c["config"]["use_kernel"]
+        for c in tuning["candidates"]) == 3,
+        "tune=True: the three tile-skip candidates were not measured")
+    _check_sources("tune=True", svc, "dpath", oracle, srcs)
+    phase["tune_true"] = {"seconds": secs, **tuning}
+    del svc
+    torch.cuda.empty_cache()
+    results["tuned_phase"] = phase
+
+
 def main():
     t_start = time.perf_counter()
-    check_device()
+    card = check_device()
     build_kernels()
     import torch
     ragged_parity()
+    k7_ragged_parity()
     results: dict = {}
     dense_phase(results)
-    dag_phase(results, csr_phase(results))
+    edges, wedges, sp_oracle = csr_phase(results)
+    tuned_phase(results, wedges, sp_oracle)
+    del wedges, sp_oracle
+    dag_phase(results, edges)
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          **{k: results[name][k] for k in (
@@ -777,8 +1121,9 @@ def main():
         for name, (src, rep) in KERNELS.items()]}
     say("phases: " + json.dumps({k: results[k]
                                  for k in ("dense_phase", "csr_phase",
-                                           "dag_phase")}))
+                                           "tuned_phase", "dag_phase")}))
     say(f"total {time.perf_counter() - t_start:.1f} s")
+    say(card)
     say(json.dumps(line))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -62,28 +62,80 @@ def query_row_mask(q: Literal, rows: np.ndarray) -> np.ndarray:
     return mask
 
 
-def unique_rows(v: np.ndarray, bits: int | None = None) -> np.ndarray:
-    """``np.unique(v, axis=0)`` for an (m, c) int64 array of values below
-    ``2**bits`` (``None``: the width of the largest value).  When a row
-    packs into one int64 key (column 0 most significant, so the key order is
-    the row order) a sort of the keys and a neighbour compare give the same
-    array far faster than the row-wise sort, and than ``np.unique`` of the
-    keys, which numpy 2.3 computes through a hash table."""
-    if not len(v) or v.min() < 0:
-        return np.unique(v, axis=0)
+def row_keys(v: np.ndarray, bits: int | None = None) -> np.ndarray | None:
+    """One int64 key per row of an (m, c) int64 array of values in
+    ``[0, 2**bits)`` (``None``: the width of the largest value), column 0
+    most significant, so the key order is the row order; ``None`` when a
+    row does not pack into 63 bits or a value is negative."""
+    if len(v) and v.min() < 0:
+        return None
     if bits is None:
-        bits = max(int(v.max()).bit_length(), 1)
+        bits = max(int(v.max()).bit_length(), 1) if len(v) else 1
     c = v.shape[1]
     if c * bits > 63:
-        return np.unique(v, axis=0)
+        return None
     key = np.zeros(len(v), np.int64)
     for j in range(c):
         key = (key << bits) | v[:, j]
-    key.sort()
-    key = key[np.concatenate(([True], key[1:] != key[:-1]))]
+    return key
+
+
+def sorted_unique(key: np.ndarray) -> np.ndarray:
+    """The distinct values of ``key``, sorted: a sort and a neighbour
+    compare (not ``np.unique``, slow on numpy 2.3)."""
+    key = np.sort(key)
+    return key[np.concatenate(([True], key[1:] != key[:-1]))] \
+        if len(key) else key
+
+
+def unique_rows(v: np.ndarray, bits: int | None = None) -> np.ndarray:
+    """``np.unique(v, axis=0)`` for an (m, c) int64 array of values below
+    ``2**bits`` (``None``: the width of the largest value).  When a row
+    packs into one int64 key (:func:`row_keys`) a sort of the keys and a
+    neighbour compare give the same array far faster than the row-wise
+    sort, and than ``np.unique`` of the keys, which numpy 2.3 computes
+    through a hash table."""
+    if not len(v):
+        return np.unique(v, axis=0)
+    if bits is None:
+        bits = max(int(v.max()).bit_length(), 1)
+    key = row_keys(v, bits)
+    if key is None:
+        return np.unique(v, axis=0)
+    key = sorted_unique(key)
+    c = v.shape[1]
     mask = (1 << bits) - 1
     return np.stack([(key >> (bits * (c - 1 - j))) & mask for j in range(c)],
                     axis=1)
+
+
+def new_rows(rows: np.ndarray, have: np.ndarray,
+             bits: int | None = None) -> np.ndarray:
+    """The distinct rows of ``rows`` that ``have`` does not hold, sorted
+    (both (m, c) int64 with values below ``2**bits``; ``None``: the width
+    of the largest value in either): the set filter of an additive append,
+    by sorted packed keys and ``np.searchsorted`` instead of a set of
+    tuples."""
+    rows = unique_rows(np.asarray(rows, np.int64), bits)
+    have = np.asarray(have, np.int64).reshape(-1, rows.shape[1])
+    if not len(rows) or not len(have):
+        return rows
+    if bits is None:
+        bits = max(int(max(rows.max(), have.max())).bit_length(), 1)
+    keys, hkeys = row_keys(rows, bits), row_keys(have, bits)
+    if keys is None or hkeys is None:
+        seen = set(map(tuple, have.tolist()))
+        keep = [tuple(r) not in seen for r in rows.tolist()]
+        return rows[np.asarray(keep, bool)]
+    return rows[~sorted_contains(np.sort(hkeys), keys)]
+
+
+def sorted_contains(sorted_keys: np.ndarray, keys: np.ndarray) -> np.ndarray:
+    """Membership of each of ``keys`` in the sorted array ``sorted_keys``."""
+    if not len(sorted_keys):
+        return np.zeros(len(keys), bool)
+    at = np.minimum(np.searchsorted(sorted_keys, keys), len(sorted_keys) - 1)
+    return sorted_keys[at] == keys
 
 
 def normalize_db(db: dict, bits: int) -> dict[str, np.ndarray]:

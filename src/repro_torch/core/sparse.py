@@ -1,10 +1,10 @@
 """CSR-packed sparse frontier engine — O(|E|)-per-iteration fixpoints.
 
-Port of ``repro.core.sparse`` without appends and tile plans.  The packing
-(``_pack_edges``, ``_ell_index``, ``_sliced_ell_index``, ``build_csr``) is a
-numpy copy of the JAX package's, so the packed layout is identical array for
-array; the arrays then land on the caller's device as a :class:`CSRMatrix`
-of tensors with the same field names.
+Port of ``repro.core.sparse``.  The packing (``_pack_edges``,
+``_ell_index``, ``_sliced_ell_index``, ``_tile_plan``, ``build_csr``,
+``csr_append``) is a numpy copy of the JAX package's, so the packed layout
+is identical array for array; the arrays then land on the caller's device
+as a :class:`CSRMatrix` of tensors with the same field names.
 
 Layout (see the JAX module for the full story):
 
@@ -16,8 +16,15 @@ Layout (see the JAX module for the full story):
   sentinel-padded; ``ell_rank`` maps a vertex to its row in the
   slice-concatenated reduce output (dead vertices share the all-sentinel
   row 0);
+* an optional tile-skip plan (``plan_tile``/``plan_chunk``/``plan_first``
+  + ``plan_cfg``, from ``build_csr(kernel_plan=)``): the worklist of
+  (column tile, arc chunk) pairs with a destination hit, the JAX arrays
+  exactly, plus ``plan_unit``, the Hopper kernel's work units over it
+  (``kernels.spmv.csr_minplus_tiled_step``);
 * a COO tail (``tail_src``/``tail_dst``/``tail_val``/``tail_ell``) that
-  ``build_csr`` leaves empty; appends that fill it wait for a later slice.
+  ``csr_append`` fills with appended arcs and folds into the spine once it
+  outgrows ``rebuild_frac`` of it (the fold carries ``ell_cfg`` and
+  ``plan_cfg``).
 
 ``csr_frontier_or``/``_min``/``_max``/``_sum`` are the plain PyTorch steps
 (the CPU path and the oracle the CUDA kernels in ``kernels.spmv`` are held
@@ -34,7 +41,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .query import unique_rows
+from .query import new_rows, sorted_unique, unique_rows
 from .semiring import Semiring, carrier_for
 from .seminaive import (GEN_DTYPE, DenseResult, _ne, additive_max_iters,
                         check_additive_converged, quantize_ladder,
@@ -72,9 +79,10 @@ class CSRMatrix:
     tail_val: torch.Tensor  # (tail_cap,) carrier
     tail_ell: torch.Tensor  # (n_alloc, tail_deg_cap) int32 — tail segment map
     tail_nnz: torch.Tensor  # () int32
-    plan_tile: torch.Tensor | None  # tile-skip worklist: not built by the
-    plan_chunk: torch.Tensor | None  # port (ROADMAP A.3); carried across
-    plan_first: torch.Tensor | None  # from a JAX state unchanged
+    plan_tile: torch.Tensor | None  # (L,) int32 — tile-skip worklist: the
+    plan_chunk: torch.Tensor | None  # items' column tile, arc chunk and
+    plan_first: torch.Tensor | None  # first-visit flag (JAX's arrays)
+    plan_unit: torch.Tensor | None  # (units + 1,) int32 — K7 work units
     n: int  # live domain size at build time
     n_alloc: int  # padded domain
     kind: str  # 'bool' | 'minplus' | 'maxplus' | 'plustimes'
@@ -92,6 +100,10 @@ class CSRMatrix:
     @property
     def capacity(self) -> int:
         return int(self.col_idx.shape[0])
+
+    @property
+    def tail_capacity(self) -> int:
+        return int(self.tail_src.shape[0])
 
     @property
     def deg_cap(self) -> int:
@@ -121,6 +133,20 @@ class CSRMatrix:
         nnz = int(self.nnz)
         return {"slices": slices, "e_alloc": alloc, "nnz": nnz,
                 "waste": alloc / max(nnz, 1)}
+
+    def edges_numpy(self) -> np.ndarray:
+        """The live arcs back as an (m, 2|3) int64 edge list (spine + tail)."""
+        m, t = int(self.nnz), int(self.tail_nnz)
+
+        def live(spine, tail):
+            return np.concatenate([spine[:m].cpu().numpy(),
+                                   tail[:t].cpu().numpy()]).astype(np.int64)
+
+        cols = [live(self.src_idx, self.tail_src),
+                live(self.col_idx, self.tail_dst)]
+        if self.kind != "bool":
+            cols.append(live(self.edge_val, self.tail_val))
+        return np.stack(cols, axis=1)
 
 
 def _pack_edges(edges: np.ndarray, kind: str):
@@ -199,16 +225,79 @@ def _sliced_ell_index(dst: np.ndarray, m: int, n_alloc: int,
     return tuple(tables), rank
 
 
+#: worklist items per K7 work unit: a tile's items are cut into units of at
+#: most this many, one CTA each, so a hub tile (a power-law graph's first
+#: tile collects a hit from almost every arc chunk) spreads over many SMs
+PLAN_UNIT = 256
+
+
+def padded_width(n: int, bn: int = 1) -> int:
+    """The frontier width the JAX tile-skip kernel sees: ``n`` rounded up to
+    ``max(128, bn)`` (``bn`` is a power of two).  Plans cover this width;
+    the port's frontier stays ``n`` wide and K7 masks the rest."""
+    w = max(128, bn)
+    return ((max(n, 1) + w - 1) // w) * w
+
+
+def _pow2_floor(x: int) -> int:
+    return 1 << (max(int(x), 1).bit_length() - 1)
+
+
+def _tile_plan(dst: np.ndarray, m: int, cap: int, n_alloc: int,
+               chunk: int, bn: int):
+    """The tile-skip worklist, array for array the JAX ``_tile_plan``'s:
+    the (column tile, arc chunk) pairs where a live arc's destination lands
+    in the tile, sorted by (tile, chunk), each tile's first item flagged;
+    a tile with no hit keeps one dummy (tile, 0) item; the list pads to a
+    :func:`quantize_rows` bucket by repeating the last item (flag 0).
+
+    Built from the sorted, deduplicated int64 keys ``tile * nchunks +
+    chunk`` of the m live arcs, with no dense (tiles x chunks) matrix and
+    no loop over items."""
+    nt, nchunks = padded_width(n_alloc, bn) // bn, cap // chunk
+    pos = np.arange(m, dtype=np.int64)
+    key = sorted_unique((dst[:m].astype(np.int64) // bn) * nchunks
+                        + pos // chunk)
+    hit = np.zeros(nt, bool)
+    hit[key // nchunks] = True
+    empty = np.nonzero(~hit)[0].astype(np.int64) * nchunks
+    key = np.insert(key, np.searchsorted(key, empty), empty)
+    tiles = (key // nchunks).astype(np.int32)
+    chunks = (key % nchunks).astype(np.int32)
+    first = np.ones(len(key), np.int32)
+    first[1:] = tiles[1:] != tiles[:-1]
+    pad = quantize_rows(len(key), minimum=8) - len(key)
+    return (np.concatenate([tiles, np.full(pad, tiles[-1], np.int32)]),
+            np.concatenate([chunks, np.full(pad, chunks[-1], np.int32)]),
+            np.concatenate([first, np.zeros(pad, np.int32)]))
+
+
+def _plan_units(tiles: np.ndarray, chunks: np.ndarray,
+                first: np.ndarray) -> np.ndarray:
+    """K7's work units over a plan: item offsets at every tile start and
+    every :data:`PLAN_UNIT` items within a tile, then the live item count
+    (the pad items, repeats of the last live item, belong to no unit)."""
+    moved = np.nonzero((tiles != tiles[-1]) | (chunks != chunks[-1]))[0]
+    live = int(moved[-1]) + 2 if len(moved) else 1
+    starts = np.nonzero(first[:live])[0]
+    k = -(-(np.append(starts[1:], live) - starts) // PLAN_UNIT)
+    within = np.arange(int(k.sum())) - np.repeat(np.cumsum(k) - k, k)
+    units = np.repeat(starts, k) + within * PLAN_UNIT
+    return np.append(units, live).astype(np.int32)
+
+
 def _to(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
 def build_csr(edges: np.ndarray, n_alloc: int, kind: str = "bool",
               tail_min: int = 8, ell_cfg: tuple = DEFAULT_ELL_CFG,
-              device=None) -> CSRMatrix:
+              kernel_plan: tuple | None = None, device=None) -> CSRMatrix:
     """Pack an edge list into a :class:`CSRMatrix` over ``n_alloc`` vertices
     on ``device`` (``None``: the card).  The numpy packing is the JAX
-    ``build_csr``'s, without the tile-skip ``kernel_plan``."""
+    ``build_csr``'s; ``kernel_plan=(chunk, bn)`` also builds the tile-skip
+    worklist for those block sizes (chunk clamped to a power of two no
+    larger than the capacity, bn to a power of two)."""
     device = resolve_device(device)
     src, dst, val = _pack_edges(edges, kind)
     m = len(src)
@@ -224,6 +313,15 @@ def build_csr(edges: np.ndarray, n_alloc: int, kind: str = "bool",
     sr = carrier_for(kind)
     pad = cap - m
     slices, rank = _sliced_ell_index(dst, m, n_alloc, cap - 1, tuple(ell_cfg))
+    plan_cfg, plan = None, (None,) * 4
+    if kernel_plan is not None:
+        chunk, bn = kernel_plan
+        chunk = min(_pow2_floor(chunk), cap)  # cap is a power of two
+        bn = _pow2_floor(bn)
+        tiles, chunks, first = _tile_plan(dst, m, cap, n_alloc, chunk, bn)
+        plan = tuple(_to(a, device) for a in (
+            tiles, chunks, first, _plan_units(tiles, chunks, first)))
+        plan_cfg = (chunk, bn)
     src = np.concatenate([src, np.zeros(pad, np.int32)])
     dst = np.concatenate([dst, np.zeros(pad, np.int32)])
     val = np.concatenate([val, np.full(pad, sr.zero, val.dtype)])
@@ -240,9 +338,55 @@ def build_csr(edges: np.ndarray, n_alloc: int, kind: str = "bool",
         tail_ell=torch.full((n_alloc, 1), tail_min - 1, dtype=torch.int32,
                             device=device),
         tail_nnz=torch.tensor(0, dtype=torch.int32, device=device),
-        plan_tile=None, plan_chunk=None, plan_first=None,
-        n=n, n_alloc=n_alloc, kind=kind, ell_cfg=tuple(ell_cfg),
-        plan_cfg=None)
+        plan_tile=plan[0], plan_chunk=plan[1], plan_first=plan[2],
+        plan_unit=plan[3], n=n, n_alloc=n_alloc, kind=kind,
+        ell_cfg=tuple(ell_cfg), plan_cfg=plan_cfg)
+
+
+def tail_will_rebuild(csr: CSRMatrix, n_new: int,
+                      rebuild_frac: float = 0.25) -> bool:
+    """Would appending ``n_new`` arcs fold the COO tail into the spine?  The
+    one predicate shared by :func:`csr_append` and the serving layer (which
+    re-runs the density heuristic at fold time); the floor of 8 only
+    shields tiny spines from thrashing."""
+    total_tail = int(csr.tail_nnz) + n_new
+    return total_tail > max(rebuild_frac * max(int(csr.nnz), 1), 8)
+
+
+def csr_append(csr: CSRMatrix, rows: np.ndarray,
+               rebuild_frac: float = 0.25) -> CSRMatrix:
+    """Monotone append: new arcs land in the COO tail; the spine rebuilds
+    (re-sort and repack, carrying ``ell_cfg`` and ``plan_cfg``) only when
+    the tail outgrows ``rebuild_frac`` of the packed arcs.  The additive
+    carrier keeps set semantics: arcs already resident, or repeated in
+    ``rows``, are dropped first.  Arcs must stay inside ``n_alloc``."""
+    rows = np.asarray(rows, np.int64)
+    if not csr.semiring.idempotent and len(rows):
+        rows = new_rows(rows, csr.edges_numpy())
+    src, dst, val = _pack_edges(rows, csr.kind)
+    if len(src) and int(max(src.max(), dst.max())) >= csr.n_alloc:
+        raise ValueError("appended arcs outgrow n_alloc; rebuild the CSR")
+    t = int(csr.tail_nnz)
+    total_tail = t + len(src)
+    if tail_will_rebuild(csr, len(src), rebuild_frac):
+        merged = np.concatenate([csr.edges_numpy(),
+                                 rows.reshape(len(src), -1)])
+        return build_csr(merged, csr.n_alloc, csr.kind, ell_cfg=csr.ell_cfg,
+                         kernel_plan=csr.plan_cfg, device=csr.device)
+    cap = quantize_rows(total_tail + 1)  # >= 1 sentinel slot for the ELL pads
+    tsrc = np.zeros(cap, np.int32)
+    tdst = np.zeros(cap, np.int32)
+    tval = np.full(cap, csr.semiring.zero, val.dtype)
+    tsrc[:t] = csr.tail_src[:t].cpu().numpy()
+    tdst[:t] = csr.tail_dst[:t].cpu().numpy()
+    tval[:t] = csr.tail_val[:t].cpu().numpy()
+    tsrc[t:total_tail], tdst[t:total_tail], tval[t:total_tail] = src, dst, val
+    tell = _ell_index(tdst, total_tail, csr.n_alloc, cap - 1)
+    dev = csr.device
+    return dataclasses.replace(
+        csr, tail_src=_to(tsrc, dev), tail_dst=_to(tdst, dev),
+        tail_val=_to(tval, dev), tail_ell=_to(tell, dev),
+        tail_nnz=torch.tensor(total_tail, dtype=torch.int32, device=dev))
 
 
 # ---------------------------------------------------------------------------
@@ -480,6 +624,10 @@ def csr_from_state(arrays: dict, meta: dict, device=None) -> CSRMatrix:
     slices = tuple(_to(np.array(arrays[f"ell_slice_{i}"]), device)
                    for i in range(int(meta["n_slices"])))
     plan_cfg = tuple(meta["plan_cfg"]) if meta.get("plan_cfg") else None
+    units = None
+    if plan_cfg is not None:
+        units = _to(_plan_units(*(np.asarray(arrays[k]) for k in (
+            "plan_tile", "plan_chunk", "plan_first"))), device)
     return CSRMatrix(
         row_ptr=t["row_ptr"], col_idx=t["col_idx"], edge_val=t["edge_val"],
         src_idx=t["src_idx"], ell_slices=slices, ell_rank=t["ell_rank"],
@@ -487,7 +635,7 @@ def csr_from_state(arrays: dict, meta: dict, device=None) -> CSRMatrix:
         tail_val=t["tail_val"], tail_ell=t["tail_ell"],
         tail_nnz=t["tail_nnz"],
         plan_tile=t.get("plan_tile"), plan_chunk=t.get("plan_chunk"),
-        plan_first=t.get("plan_first"),
+        plan_first=t.get("plan_first"), plan_unit=units,
         n=int(meta["n"]), n_alloc=int(meta["n_alloc"]),
         kind=str(meta["kind"]), ell_cfg=tuple(meta["ell_cfg"]),
         plan_cfg=plan_cfg)

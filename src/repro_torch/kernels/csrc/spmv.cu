@@ -311,6 +311,165 @@ int csr_step_dispatch(const void* f, int B, int n, const int* src,
                          rank, tail_ell, tdc, tail_src, ptv, pT, pc, pp, po, s);
 }
 
+
+// ---------------------------------------------------------------------------
+// K7 — the min-plus step over a tile-skip plan (csr_minplus_tiled_step).
+//
+//   out[b, v] = min( min_{items (t, c) with v in tile t} min_{p in chunk c,
+//                          col_idx[p] = v} frontier[b, src[p]] + val[p],
+//                    its COO-tail row as in K4 )
+//
+// Replaces: src/repro/kernels/spmv.py, `csr_minplus_spmv_tiled`, as driven
+// by ops._csr_minplus_step on a CSR that carries a plan (plus the untiled
+// tail pass JAX launches after it: here the tail folds into the same
+// step).  The TPU kernel walks the (tile, chunk) worklist in order on one
+// core, revisiting each (B, bn) output block in VMEM and computing a
+// (B, chunk, bn) masked broadcast-min per item.  On Hopper blocks run in
+// no order and nothing carries between them, so:
+//
+//  * Work units, not grid steps: the host cuts each tile's items into units
+//    of at most PLAN_UNIT items (core.sparse._plan_units), one CTA per
+//    (unit, 32 batch rows).  Pad items (repeats of the last live item) lie
+//    past the last unit and are never read.  A power-law graph sends a hit
+//    from almost every arc chunk to its first tile; units spread that tile
+//    over many SMs instead of one.
+//  * A (32, bn) f32 accumulator in shared memory, starting at +inf (row
+//    pitch bn + 1, so the 32 lanes of a warp, one batch row each, hit 32
+//    banks).  A warp takes an item, loads its chunk's destinations 32 at a
+//    time, keeps the arcs whose destination lies in the tile and whose
+//    value is live (a ballot), and for each one gathers the 32 rows'
+//    frontier values in one coalesced access from the transposed frontier
+//    (n, B), as K4 does.  Warps of one CTA can meet at one (row, column),
+//    so the min goes through an order-free atomic min on the f32 bits
+//    (skipped when it would not lower the value).  Min is order-free and
+//    idempotent, so the result is bit-identical to the plain step.
+//  * The tile's first unit also folds the COO tail over tail_ell for the
+//    tile's columns (one warp per column), so a tuned step is one call.
+//  * A unit that covers its whole tile stores its block; the units of a
+//    split tile meet in device memory through the same atomic min, on an
+//    output the wrapper fills with +inf.  Columns at or past n (the plan
+//    covers padded_width(n, bn) columns; the frontier is n wide) are
+//    masked, and tiles starting past n exit at once.
+//
+// What bounds it on the H100: device memory.  The least work reads the
+// frontier once, each live arc and plan entry once, and writes the output
+// once.  The plan is built for the TPU's tiles, so on a graph whose arcs
+// are in (src, dst) order each arc chunk is read once per tile it hits
+// (for the power-law smoke graph about 14M items of 32 arcs for 16M arcs):
+// that re-reading, not the bound, sets its time.  A plan for Hopper's own
+// tile shape (arcs reordered by destination tile) is later work.
+constexpr int TILED_THREADS = 256;  // 8 warps per unit
+constexpr int TILED_ROWS = 32;      // batch rows per CTA (one per lane)
+
+// min on f32 through the integer atomics: non-negative floats order like
+// their int bits, negative ones reverse like their unsigned bits.
+__device__ __forceinline__ void atomic_min_f32(float* addr, float v) {
+  if (v >= 0.0f)
+    atomicMin(reinterpret_cast<int*>(addr), __float_as_int(v));
+  else
+    atomicMax(reinterpret_cast<unsigned*>(addr), __float_as_uint(v));
+}
+
+__global__ void __launch_bounds__(TILED_THREADS)
+minplus_tiled_kernel(const int* __restrict__ plan_tile,
+                     const int* __restrict__ plan_chunk,
+                     const int* __restrict__ plan_first,
+                     const int* __restrict__ plan_unit, int n_units,
+                     int chunk, int bn, int n,
+                     const int* __restrict__ col_idx,
+                     const int* __restrict__ src,
+                     const float* __restrict__ val,
+                     const int* __restrict__ tail_ell, int tdc,
+                     const int* __restrict__ tail_src,
+                     const float* __restrict__ tail_val,
+                     const float* __restrict__ fT, int B,
+                     float* __restrict__ out) {
+  extern __shared__ float acc[];  // TILED_ROWS x (bn + 1)
+  const int u = blockIdx.x;
+  const int lo = plan_unit[u], hi = plan_unit[u + 1];
+  const int tile = plan_tile[lo];
+  const int col0 = tile * bn;
+  if (col0 >= n) return;  // a pad tile of the plan's width: uniform
+  const int pitch = bn + 1;
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int b = blockIdx.y * TILED_ROWS + lane;
+  const bool row_ok = b < B;
+  float* my = acc + lane * pitch;
+  for (int k = threadIdx.x; k < TILED_ROWS * pitch; k += blockDim.x)
+    acc[k] = INFINITY;
+  __syncthreads();
+
+  for (int it = lo + wid; it < hi; it += nwarps) {
+    const long long base = (long long)__ldg(plan_chunk + it) * chunk;
+    for (int c0 = 0; c0 < chunk; c0 += 32) {
+      int s = 0, col = 0;
+      float w = INFINITY;
+      if (c0 + lane < chunk) {
+        const long long p = base + c0 + lane;
+        col = __ldg(col_idx + p) - col0;
+        if (col >= 0 && col < bn) {
+          w = val[p];
+          s = __ldg(src + p);
+        }
+      }
+      unsigned live = __ballot_sync(REPRO_FULL_MASK, w != INFINITY);
+      while (live) {  // uniform across the warp
+        const int j = __ffs(live) - 1;
+        live &= live - 1;
+        const int sj = __shfl_sync(REPRO_FULL_MASK, s, j);
+        const float wj = __shfl_sync(REPRO_FULL_MASK, w, j);
+        const int cj = __shfl_sync(REPRO_FULL_MASK, col, j);
+        if (row_ok) {
+          const float v = __fadd_rn(fT[(size_t)sj * B + b], wj);
+          if (v < my[cj]) atomic_min_f32(my + cj, v);
+        }
+      }
+    }
+  }
+  const int ncols = min(bn, n - col0);
+  if (plan_first[lo]) {  // the tile's first unit folds the COO tail
+    __syncthreads();
+    for (int c = wid; c < ncols; c += nwarps) {
+      const int v = col0 + c;
+      float a = my[c];
+      for (int q0 = 0; q0 < tdc; q0 += 32) {
+        int s = 0;
+        float w = INFINITY;
+        if (q0 + lane < tdc) {
+          const int p = __ldg(tail_ell + (size_t)v * tdc + q0 + lane);
+          s = __ldg(tail_src + p);
+          w = tail_val[p];
+        }
+        unsigned live = __ballot_sync(REPRO_FULL_MASK, w != INFINITY);
+        while (live) {
+          const int j = __ffs(live) - 1;
+          live &= live - 1;
+          const int sj = __shfl_sync(REPRO_FULL_MASK, s, j);
+          const float wj = __shfl_sync(REPRO_FULL_MASK, w, j);
+          if (row_ok) a = fminf(a, __fadd_rn(fT[(size_t)sj * B + b], wj));
+        }
+      }
+      my[c] = a;  // this warp owns column c now; lane owns its row
+    }
+  }
+  __syncthreads();
+  const int L = plan_unit[n_units];
+  const bool whole = plan_first[lo] && (hi == L || plan_first[hi]);
+  const int b0 = blockIdx.y * TILED_ROWS;
+  for (int k = threadIdx.x; k < TILED_ROWS * bn; k += blockDim.x) {
+    const int r = k / bn, c = k - r * bn;
+    if (b0 + r >= B || c >= ncols) continue;
+    const float a = acc[r * pitch + c];
+    float* o = out + (size_t)(b0 + r) * n + col0 + c;
+    if (whole)
+      *o = a;
+    else if (a != INFINITY)
+      atomic_min_f32(o, a);
+  }
+}
+
 }  // namespace
 
 // f: (B, n) frontier; src/val: (cap,) packed arcs; ells[i]: (rows[i],
@@ -361,4 +520,39 @@ extern "C" int repro_csr_plustimes_step(
                                         rows, caps, seg, rank, tail_ell, tdc,
                                         tail_src, tail_val, fT, cat, part, out,
                                         stream);
+}
+
+// K7.  f: (B, n) frontier; col_idx/src/val: (cap,) packed arcs;
+// plan_tile/plan_chunk/plan_first: (L,) worklist; plan_unit: (n_units + 1,)
+// unit offsets into it (the last is the live item count); chunk and bn:
+// the plan's block sizes (bn a power of two); tail_ell: (n, tdc) int32;
+// tail_src/tail_val: (tail_cap,); scratch fT: (n, B); out: (B, n), filled
+// with +inf by the caller.  Any B (32-row passes in the grid).
+extern "C" int repro_csr_minplus_tiled_step(
+    const void* f, int B, int n, const int* col_idx, const int* src,
+    const void* val, const int* plan_tile, const int* plan_chunk,
+    const int* plan_first, const int* plan_unit, int n_units, int chunk,
+    int bn, const int* tail_ell, int tdc, const int* tail_src,
+    const void* tail_val, void* fT, void* out, void* stream) {
+  if (B <= 0 || n <= 0 || n_units <= 0) return 0;
+  if (chunk <= 0 || bn <= 0 || (bn & (bn - 1)) != 0 ||
+      (B + TILED_ROWS - 1) / TILED_ROWS > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  int rc = transpose<float>((const float*)f, (float*)fT, B, n, s);
+  if (rc) return rc;
+  const size_t smem = (size_t)TILED_ROWS * (bn + 1) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        minplus_tiled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((unsigned)n_units, (unsigned)((B + TILED_ROWS - 1) / TILED_ROWS));
+  minplus_tiled_kernel<<<grid, TILED_THREADS, smem, s>>>(
+      plan_tile, plan_chunk, plan_first, plan_unit, n_units, chunk, bn, n,
+      col_idx, src, (const float*)val, tail_ell, tdc, tail_src,
+      (const float*)tail_val, (const float*)fT, B, (float*)out);
+  REPRO_LAUNCH_CHECK();
+  return 0;
 }

@@ -14,7 +14,7 @@ from . import build, ref
 from .boolmm import bool_frontier_matmul
 from .minplus import maxplus_frontier_matmul, minplus_frontier_matmul
 from .spmv import (csr_bool_step, csr_maxplus_step, csr_minplus_step,
-                   csr_plustimes_step)
+                   csr_minplus_tiled_step, csr_plustimes_step)
 
 
 def plustimes_frontier_matmul(frontier: torch.Tensor, w: torch.Tensor
@@ -50,13 +50,22 @@ def frontier_matmul(name: str):
     raise KeyError(name)
 
 
+def _csr_minplus_step(frontier: torch.Tensor, csr) -> torch.Tensor:
+    """The min-plus step: K7 over the tile-skip plan when the CSR carries
+    one (``build_csr(kernel_plan=)``, the autotuner's ``use_kernel``), else
+    K4.  The other carriers' steps ignore a plan, as in the JAX package."""
+    if csr.plan_cfg is not None:
+        return csr_minplus_tiled_step(frontier, csr)
+    return csr_minplus_step(frontier, csr)
+
+
 def csr_frontier_step(kind: str):
     """Kernel-backed segment-semiring step for the sparse engine (``kind``
     is the CSR carrier: 'bool' | 'minplus' | 'maxplus' | 'plustimes')."""
     if kind == "bool":
         return csr_bool_step
     if kind == "minplus":
-        return csr_minplus_step
+        return _csr_minplus_step
     if kind == "maxplus":
         return csr_maxplus_step
     if kind == "plustimes":

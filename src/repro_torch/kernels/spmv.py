@@ -1,5 +1,6 @@
 """K3 / K4 / K5 / K6 — one CSR frontier step on the bool, min-plus,
-plus-times and max-plus carriers, as CUDA kernels for Hopper.
+plus-times and max-plus carriers — and K7, the min-plus step over a
+tile-skip plan, as CUDA kernels for Hopper.
 
 Replace the Pallas kernels ``repro.kernels.spmv.csr_bool_spmv``,
 ``csr_minplus_spmv``, ``csr_plustimes_spmv`` and ``csr_maxplus_spmv`` as the
@@ -12,6 +13,12 @@ max are order-independent, so K3, K4 and K6 are bit-identical to the plain
 step; K5 sums in a fixed order, so it is deterministic, and equals the plain
 step exactly while every partial sum is an integer below 2^24 (integral
 EDBs and path counts).
+
+K7 (``csr_minplus_tiled_step``) replaces ``csr_minplus_spmv_tiled``: it
+walks the CSR's tile-skip worklist (``build_csr(kernel_plan=)``) in work
+units of one tile each, keeps a (32, bn) accumulator per unit in shared
+memory, and folds the COO tail in the same call (``csrc/spmv.cu`` says
+more).  Min is order-free, so it is bit-identical to the plain version.
 
 The wrappers take the CSR itself (``csr_bool_step(frontier, csr)``), not the
 raw arc triple.  On CPU tensors they run the plain step (:data:`plain_bool`,
@@ -31,6 +38,7 @@ plain_bool = ref.csr_bool_step_ref
 plain_minplus = ref.csr_minplus_step_ref
 plain_plustimes = ref.csr_plustimes_step_ref
 plain_maxplus = ref.csr_maxplus_step_ref
+plain_minplus_tiled = ref.csr_minplus_tiled_step_ref
 
 #: positions per warp work item: wider slice rows (power-law hubs) are cut
 #: into SEG-position segments, one warp each, then ⊕-reduced
@@ -44,7 +52,13 @@ _STEP_ARGS = [_VP, _I, _I, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _I, _VP,
 _PROTOTYPES = {"repro_csr_bool_step": _STEP_ARGS,
                "repro_csr_minplus_step": _STEP_ARGS,
                "repro_csr_plustimes_step": _STEP_ARGS,
-               "repro_csr_maxplus_step": _STEP_ARGS}
+               "repro_csr_maxplus_step": _STEP_ARGS,
+               "repro_csr_minplus_tiled_step": [
+                   _VP, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
+                   _VP, _I, _VP, _VP, _VP, _VP, _VP]}
+#: the widest column tile K7 takes: its (32, bn + 1) f32 accumulator must fit
+#: a block's 227 KB of shared memory
+MAX_TILED_BN = 1024
 
 
 def _launch(fn: str, counter: str, dtype: torch.dtype, frontier, csr):
@@ -137,3 +151,51 @@ def csr_maxplus_step(frontier: torch.Tensor, csr) -> torch.Tensor:
         return plain_maxplus(frontier, csr)
     return _launch("repro_csr_maxplus_step", "csr_maxplus_step",
                    torch.float32, frontier, csr)
+
+
+def csr_minplus_tiled_step(frontier: torch.Tensor, csr) -> torch.Tensor:
+    """(B, n_alloc) f32 ⊗_min,+ packed arcs -> (B, n_alloc) f32 over the
+    CSR's tile-skip plan (``csr.plan_cfg``), the COO tail folded in."""
+    plan = (csr.plan_tile, csr.plan_chunk, csr.plan_first, csr.plan_unit)
+    if csr.plan_cfg is None or any(t is None for t in plan):
+        raise ValueError("csr_minplus_tiled_step: the CSR has no tile-skip "
+                         "plan (build_csr(kernel_plan=...))")
+    if not build.on_card("csr_minplus_tiled_step",
+                         *_operands(frontier, csr), csr.col_idx, *plan):
+        return plain_minplus_tiled(frontier, csr)
+    what = "csr_minplus_tiled_step"
+    if frontier.ndim not in (1, 2):
+        raise ValueError(f"{what}: frontier must be (n,) or (B, n)")
+    f = frontier[None, :] if frontier.ndim == 1 else frontier
+    n = csr.n_alloc
+    build.require(f"{what} frontier", f, torch.float32, 2)
+    if f.shape[1] != n:
+        raise ValueError(f"{what}: frontier width {f.shape[1]} != n_alloc {n}")
+    for name in ("col_idx", "src_idx", "tail_src", "tail_ell", "plan_tile",
+                 "plan_chunk", "plan_first", "plan_unit"):
+        t = getattr(csr, name)
+        build.require(f"{what} csr.{name}", t, torch.int32, t.ndim)
+    build.require(f"{what} csr.edge_val", csr.edge_val, torch.float32, 1)
+    build.require(f"{what} csr.tail_val", csr.tail_val, torch.float32, 1)
+    chunk, bn = csr.plan_cfg
+    if bn > MAX_TILED_BN or csr.capacity % chunk:
+        raise ValueError(f"{what}: plan (chunk={chunk}, bn={bn}) does not "
+                         f"fit the kernel (bn <= {MAX_TILED_BN}, chunk "
+                         f"dividing the capacity {csr.capacity})")
+    B = f.shape[0]
+    out = torch.full_like(f, float("inf"))
+    fT = torch.empty((n, B), dtype=torch.float32, device=f.device)
+    lib = build.load("spmv", _PROTOTYPES)
+    with torch.cuda.device(f.device):
+        rc = lib.repro_csr_minplus_tiled_step(
+            f.data_ptr(), B, n, csr.col_idx.data_ptr(),
+            csr.src_idx.data_ptr(), csr.edge_val.data_ptr(),
+            csr.plan_tile.data_ptr(), csr.plan_chunk.data_ptr(),
+            csr.plan_first.data_ptr(), csr.plan_unit.data_ptr(),
+            int(csr.plan_unit.shape[0]) - 1, chunk, bn,
+            csr.tail_ell.data_ptr(), int(csr.tail_ell.shape[1]),
+            csr.tail_src.data_ptr(), csr.tail_val.data_ptr(), fT.data_ptr(),
+            out.data_ptr(), build.stream_handle(f))
+        build.check(lib, rc, what)
+    build.LAUNCHES[what] += 1
+    return out[0] if frontier.ndim == 1 else out

@@ -1,5 +1,5 @@
 """Micro-batching: coalesce B single-source queries into one frontier
-fixpoint (port of ``repro.service.batch`` without mesh, probe and resume).
+fixpoint (port of ``repro.service.batch`` without mesh and probe).
 
 B concurrent queries ``?- tc(s_i, Y)`` on the same decomposable predicate
 share one evaluation: their frontier rows stack into a (B, n) matrix and the
@@ -40,16 +40,30 @@ def _padded_index(srcs: list[int], bp: int) -> np.ndarray:
                            np.full(bp - len(srcs), srcs[0], np.int64)])
 
 
+def _pad_init(init: torch.Tensor, bp: int, zero) -> torch.Tensor:
+    """A caller-built (b, n) seed (append-resume) padded with ⊕-zero rows."""
+    if init.shape[0] >= bp:
+        return init
+    fill = torch.full((bp - init.shape[0], init.shape[1]), zero,
+                      dtype=init.dtype, device=init.device)
+    return torch.cat([init, fill])
+
+
 def run_frontier_batch(sr: Semiring, matrix: torch.Tensor, srcs: list[int],
-                       pads: tuple[int, ...]) -> DenseResult:
+                       pads: tuple[int, ...],
+                       init: torch.Tensor | None = None) -> DenseResult:
     """One batched dense fixpoint answering ``len(srcs)`` single-source
     queries; the table's first ``len(srcs)`` rows are their closure rows
-    (pad rows follow)."""
+    (pad rows follow).  ``init`` overrides the (B, n) seed: an
+    append-resume passes the cached rows ⊕ the post-append seed rows."""
     b = len(srcs)
     bp = pad_batch_size(b, pads)
-    idx = torch.from_numpy(_padded_index(srcs, bp)).to(matrix.device)
-    init = matrix[idx]  # a gather: a fresh tensor, padded in place
-    init[b:] = sr.zero
+    if init is None:
+        idx = torch.from_numpy(_padded_index(srcs, bp)).to(matrix.device)
+        init = matrix[idx]  # a gather: a fresh tensor, padded in place
+        init[b:] = sr.zero
+    else:
+        init = _pad_init(init, bp, sr.zero)
     if not sr.idempotent:
         # additive ⊕ has no masked vector form: the accumulate fixpoint sums
         # init·Aᵏ over path lengths, bounded by the acyclicity budget
@@ -61,15 +75,19 @@ def run_frontier_batch(sr: Semiring, matrix: torch.Tensor, srcs: list[int],
 
 
 def run_frontier_batch_csr(csr: "_sparse.CSRMatrix", srcs: list[int],
-                           pads: tuple[int, ...]) -> DenseResult:
+                           pads: tuple[int, ...],
+                           init: torch.Tensor | None = None) -> DenseResult:
     """CSR twin of :func:`run_frontier_batch`: the same (B, n) batched
     frontier fixpoint, each iteration an O(B·|E|) segment step.  Seeds come
     from one segment step over one-hot rows (``rows_from_sources``), so they
-    go through the CSR kernel too."""
+    go through the CSR kernel too; ``init`` overrides them (append-resume)."""
     b = len(srcs)
-    init = _sparse.rows_from_sources(
-        csr, _padded_index(srcs, pad_batch_size(b, pads)))
-    init[b:] = csr.semiring.zero  # a step's fresh output, padded in place
+    bp = pad_batch_size(b, pads)
+    if init is None:
+        init = _sparse.rows_from_sources(csr, _padded_index(srcs, bp))
+        init[b:] = csr.semiring.zero  # a step's fresh output, padded in place
+    else:
+        init = _pad_init(init, bp, csr.semiring.zero)
     if not csr.semiring.idempotent:
         # fixpoint_csr runs the accumulate form for the additive carrier;
         # the budget is checked here, as on the dense twin

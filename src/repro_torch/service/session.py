@@ -8,10 +8,15 @@ sum<C>)``; an acyclic EDB, else ``FixpointDivergenceError``).  B queries on
 one predicate coalesce into ONE (B, n) frontier fixpoint (``batch.py``) over
 the relation's carrier, a dense matrix or a sliced-ELL CSR picked by the
 density heuristic, and every answer lands in an LRU result cache.
+Monotone EDB appends resume cached closures from the new-fact delta
+(``incremental.py``) instead of recomputing them, and ``tune=`` lays CSR
+relations out by the autotuner (``kernels.autotune``): min-plus relations
+with a tile-skip plan then step through K7.
 
     svc = DatalogService(TC, db={"arc": edges})          # on the card
     svc.ask("tc", (1, None))
     svc.ask_batch([("tc", (s, None)) for s in sources])  # one fixpoint
+    svc.append("arc", [[7, 8]])                          # resume, don't recompute
 
 The service runs on ``cuda`` unless the caller passes ``device="cpu"``; on
 the card every fixpoint iteration is a hand-written CUDA kernel
@@ -20,9 +25,9 @@ the card every fixpoint iteration is a hand-written CUDA kernel
 versions run.
 
 What the JAX service does beyond this path raises ``NotImplementedError``
-naming its ROADMAP item: appends (A.2), ``tune`` (A.3), and the tuple engine
-with the modules built on it — non-frontier queries, ``mesh``, ``probe``,
-``tracer`` and ``durable_dir`` (A.6).
+naming its ROADMAP item: the tuple engine with the modules built on it —
+non-frontier queries, ``mesh``, ``probe``, ``tracer`` and ``durable_dir``
+(A.6).
 """
 from __future__ import annotations
 
@@ -37,10 +42,13 @@ from ..core.magic import (FrontierLowering, detect_frontier_lowering,
                           frontier_query_source)
 from ..core.parser import parse_program
 from ..core.query import (PlanError, as_query_literal, normalize_db,
-                          query_row_mask, unique_rows)
+                          query_row_mask, row_keys, sorted_contains,
+                          unique_rows)
 from ..core.semiring import BOOL, MIN_PLUS, carrier_for, edge_arity
 from ..device import resolve_device
+from ..kernels import autotune as _at
 from . import batch as _batch
+from . import incremental as _inc
 from .cache import CacheEntry, LRUCache
 
 
@@ -58,6 +66,9 @@ class ServiceStats:
     csr_fixpoints: int = 0  # ... of which ran the CSR-packed sparse engine
     batched_queries: int = 0  # queries answered by those fixpoints
     fixpoint_iterations: int = 0  # loop trips summed over those fixpoints
+    appends: int = 0
+    resumed_rows: int = 0  # cached closures refreshed by append-resume
+    dropped_cold: int = 0  # cold entries evicted instead of resumed
 
 
 def _freeze(res):
@@ -70,20 +81,45 @@ def _freeze(res):
 
 class _DenseRelation:
     """Carrier state for one decomposable predicate: dense matrix OR CSR,
-    packed once per service on the service's device.  ``svc.sparse`` forces
-    a representation; ``None`` lets the density heuristic pick (below
-    ``sparse_threshold`` the CSR segment engine replaces the
-    ``n_align``-rounded O(n²) matrix behind the same batching interface)."""
+    packed on the service's device and maintained under appends.
+    ``svc.sparse`` forces a representation; ``None`` lets the density
+    heuristic pick (below ``sparse_threshold`` the CSR segment engine
+    replaces the ``n_align``-rounded O(n²) matrix behind the same batching
+    interface).  The choice is re-made at every rebuild (domain growth, a
+    tail fold), which may flip the carrier."""
 
     def __init__(self, svc: "DatalogService", low: FrontierLowering):
         self.low = low
         self.sr = carrier_for(low.kind)
-        edges = svc.db.get(low.edb, np.zeros((0, edge_arity(low.kind)),
-                                             np.int64))
-        if not self.sr.idempotent and len(edges):
+        self.n = 0
+        self.n_alloc = 0
+        self.matrix = None
+        self.csr = None
+        self.flips = 0  # representation changes across rebuilds
+        self.last_flip: str | None = None
+        self.tuning: dict | None = None  # autotuner report (tune= on)
+        self.last_delta = np.zeros((0, edge_arity(low.kind)), np.int64)
+        self._rebuild(svc)
+
+    @property
+    def is_csr(self) -> bool:
+        return self.csr is not None
+
+    def _rebuild(self, svc: "DatalogService"):
+        prev = None if (self.matrix is None and self.csr is None) else \
+            ("csr" if self.is_csr else "dense")
+        edges = svc.db.get(self.low.edb, np.zeros((0, edge_arity(self.low.kind)),
+                                                  np.int64))
+        if not self.sr.idempotent:
             # additive ⊕ is set-semantics over arcs: exact duplicate facts
-            # collapse before they can double-count
-            edges = unique_rows(edges, svc.bits)
+            # collapse before they can double-count, and the arc set filters
+            # appends down to genuinely new arcs: sorted packed keys, or a
+            # set of rows where a row does not pack into 63 bits
+            if len(edges):
+                edges = unique_rows(edges, svc.bits)
+            self._keys = row_keys(edges, svc.bits)
+            self._set = None if self._keys is not None else \
+                set(map(tuple, edges.tolist()))
         n = int(edges[:, :2].max()) + 1 if len(edges) else 0
         align = svc.n_align
         self.n = n
@@ -94,8 +130,13 @@ class _DenseRelation:
             use_csr = _sparse.prefer_csr(len(edges), n, svc.sparse_threshold)
         self.matrix = self.csr = None
         if use_csr:
-            self.csr = _sparse.build_csr(edges, self.n_alloc, low.kind,
-                                         device=svc.device)
+            cfg = svc._tuned_config(self, edges)
+            if cfg is None:
+                self.csr = _sparse.build_csr(edges, self.n_alloc,
+                                             self.low.kind, device=svc.device)
+            else:
+                self.csr = _at.build_tuned(edges, self.n_alloc, self.low.kind,
+                                           cfg, device=svc.device)
         elif self.sr is BOOL:
             adj = np.zeros((self.n_alloc, self.n_alloc), bool)
             if len(edges):
@@ -112,22 +153,94 @@ class _DenseRelation:
                 scatter.at(w, (edges[:, 0], edges[:, 1]),
                            edges[:, 2].astype(np.float32))
             self.matrix = torch.from_numpy(w).to(svc.device)
+        now = "csr" if use_csr else "dense"
+        if prev is not None and prev != now:
+            self.flips += 1
+            self.last_flip = f"{prev}->{now}"
 
-    @property
-    def is_csr(self) -> bool:
-        return self.csr is not None
+    def seed_rows(self, srcs) -> torch.Tensor:
+        """The (B, n_alloc) frontier rows ``A[srcs]`` in the carrier (on the
+        card, a CSR's go through its step kernel)."""
+        if self.is_csr:
+            return _sparse.rows_from_sources(self.csr, srcs)
+        idx = torch.from_numpy(np.asarray(srcs, np.int64)).to(self.matrix.device)
+        return self.matrix[idx]
 
-    def run_batch(self, svc: "DatalogService", srcs: list[int]):
-        """One batched frontier fixpoint over this relation's carrier."""
+    def run_batch(self, svc: "DatalogService", srcs: list[int], init=None):
+        """One batched frontier fixpoint over this relation's carrier
+        (``init`` overrides the seed: append-resume)."""
         if self.is_csr:
             return _batch.run_frontier_batch_csr(self.csr, srcs,
-                                                 svc.batch_pads)
+                                                 svc.batch_pads, init=init)
         return _batch.run_frontier_batch(self.sr, self.matrix, srcs,
-                                         svc.batch_pads)
+                                         svc.batch_pads, init=init)
+
+    def append(self, svc: "DatalogService", rows: np.ndarray) -> bool:
+        """Fold appended arcs in; True when the domain outgrew the
+        allocation (a rebuild: cached rows need re-padding).  For the
+        additive carrier the rows are first cut to the genuinely new arcs,
+        kept on :attr:`last_delta` for the increment replay."""
+        if not self.sr.idempotent:
+            rows = self._new_arcs(svc, rows)
+        self.last_delta = rows
+        new_n = max(self.n, int(rows[:, :2].max()) + 1 if len(rows) else 0)
+        if new_n > self.n_alloc:
+            self._rebuild(svc)  # svc.db already holds the appended relation
+            return True
+        self.n = new_n
+        if not len(rows):
+            return False
+        if not self.sr.idempotent:
+            new = row_keys(rows, svc.bits)
+            if new is None:
+                self._set.update(map(tuple, rows.tolist()))
+            else:
+                self._keys = np.insert(self._keys,
+                                       np.searchsorted(self._keys, new), new)
+        if self.is_csr:
+            if _sparse.tail_will_rebuild(self.csr, len(rows),
+                                         svc.csr_rebuild_frac):
+                # the tail outgrew the spine: a full rebuild, which re-runs
+                # the density heuristic (a densified graph flips back to the
+                # dense matrix) and the tuned config
+                self._rebuild(svc)
+            else:
+                self.csr = _sparse.csr_append(self.csr, rows,
+                                              svc.csr_rebuild_frac)
+            return False
+        # the dense matrix is updated in place on its device
+        dev = self.matrix.device
+        r = torch.from_numpy(rows[:, 0]).to(dev)
+        c = torch.from_numpy(rows[:, 1]).to(dev)
+        if self.sr is BOOL:
+            self.matrix[r, c] = True
+        elif self.sr.idempotent:
+            vals = torch.from_numpy(rows[:, 2].astype(np.float32)).to(dev)
+            self.matrix.view(-1).scatter_reduce_(
+                0, r * self.n_alloc + c, vals,
+                "amin" if self.sr is MIN_PLUS else "amax")
+        else:  # the rows are distinct new arcs: each adds once
+            vals = torch.from_numpy(rows[:, 2].astype(np.float32)).to(dev)
+            self.matrix.index_put_((r, c), vals, accumulate=True)
+        return False
+
+    def _new_arcs(self, svc: "DatalogService", rows: np.ndarray) -> np.ndarray:
+        """Set-semantics append filter for additive carriers: the distinct
+        rows not resident yet (sorted packed keys, ``np.searchsorted``)."""
+        rows = np.asarray(rows, np.int64).reshape(-1, 3)
+        if not len(rows):
+            return rows
+        uniq = unique_rows(rows, svc.bits)
+        if self._keys is None:
+            keep = [tuple(r) not in self._set for r in uniq.tolist()]
+            return uniq[np.asarray(keep, bool)]
+        return uniq[~sorted_contains(self._keys, row_keys(uniq, svc.bits))]
 
     def report(self) -> dict:
         rep = {"n": self.n, "n_alloc": self.n_alloc, "semiring": self.sr.name,
                "repr": "csr" if self.is_csr else "dense"}
+        if self.flips:
+            rep.update(flips=self.flips, last_flip=self.last_flip)
         if self.is_csr:
             rep.update(nnz=int(self.csr.nnz) + int(self.csr.tail_nnz),
                        density=self.csr.density(), e_alloc=self.csr.e_alloc,
@@ -149,33 +262,50 @@ class DatalogService:
                       plain versions on the CPU).
     ``batch_pads``    batch-size quantization levels (⊕-zero pad rows), as
                       in the JAX service, so iteration counts agree with it.
-    ``n_align``       dense domain-size alignment.
+    ``n_align``       dense domain-size alignment (appends that stay under
+                      the allocation keep the carrier's shape).
+    ``resume_min_hits``  eviction-aware append resume: cached entries that
+                      served fewer queries than this since their last
+                      (re)compute are dropped on append instead of resumed
+                      (0 = resume everything).
+    ``resume_max_bytes``  per append, entries resume hottest-first until
+                      their resident bytes exceed this budget; the rest
+                      drop (0 = no budget).
     ``sparse``        True forces the CSR carrier, False the dense matrix,
                       None (default) picks per relation by density
                       (< ``sparse_threshold`` -> CSR).
     ``sparse_threshold``  the heuristic's |E|/n² cut (None = library
                       default, ``core.sparse.DEFAULT_SPARSE_THRESHOLD``).
+    ``csr_rebuild_frac``  appended arcs fold from the CSR's COO tail into
+                      the spine when the tail outgrows this fraction of it.
+    ``tune``          CSR layout tuning (``kernels.autotune``): ``True``
+                      runs the measured search at every CSR (re)build
+                      (cached per graph-shape signature), a pinned
+                      :class:`~repro_torch.kernels.autotune.KernelConfig`
+                      applies as it is, ``None``/``False`` keeps the
+                      library layout.  A config with ``use_kernel`` gives
+                      min-plus relations a tile-skip plan, served by K7.
 
-    ``mesh``, ``probe``, ``tune``, ``tracer`` and ``durable_dir`` exist for
-    signature parity with the JAX service and raise until ported.
+    ``mesh``, ``probe``, ``tracer`` and ``durable_dir`` exist for signature
+    parity with the JAX service and raise until ported.
     """
 
     def __init__(self, program, db: dict[str, np.ndarray], *, bits: int = 18,
                  constants: dict[str, int] | None = None,
                  result_cache: int = 1024, matmul=None, mesh=None,
                  batch_pads: tuple[int, ...] = (1, 8, 32, 128),
-                 n_align: int = 128, sparse: bool | None = None,
-                 sparse_threshold: float | None = None, tune=None,
-                 tracer=None, probe: bool = False, durable_dir=None,
-                 device=None):
+                 n_align: int = 128, resume_min_hits: int = 0,
+                 resume_max_bytes: int = 0, sparse: bool | None = None,
+                 sparse_threshold: float | None = None,
+                 csr_rebuild_frac: float = 0.25, tune=None, tracer=None,
+                 probe: bool = False, durable_dir=None, device=None):
         if matmul not in (None, "pallas"):
             raise ValueError(f"matmul must be None or 'pallas', got {matmul!r}")
         for name, value, item in (("mesh", mesh is not None, "A.6"),
                                   ("probe", probe, "A.6"),
                                   ("tracer", bool(tracer), "A.6"),
                                   ("durable_dir", durable_dir is not None,
-                                   "A.6"),
-                                  ("tune", bool(tune), "A.3")):
+                                   "A.6")):
             if value:
                 raise _not_ported(f"DatalogService({name}=...)", item)
         self.device = resolve_device(device)
@@ -185,10 +315,14 @@ class DatalogService:
         self.bits = bits
         self.batch_pads = tuple(batch_pads)
         self.n_align = n_align
+        self.resume_min_hits = resume_min_hits
+        self.resume_max_bytes = resume_max_bytes
         self.sparse = sparse
         self.sparse_threshold = (sparse_threshold
                                  if sparse_threshold is not None
                                  else _sparse.DEFAULT_SPARSE_THRESHOLD)
+        self.csr_rebuild_frac = csr_rebuild_frac
+        self.tune = tune
         self.db = normalize_db(db, bits)
         self.epoch = 0
         self.stats = ServiceStats()
@@ -215,7 +349,10 @@ class DatalogService:
         for i, q in enumerate(qlits):
             ent = self.cache.get(self._cache_key(q))
             if ent is not None:
-                out[i] = ent.result
+                if ent.epoch != self.epoch:
+                    raise RuntimeError("a stale cache entry survived an "
+                                       "append")
+                out[i] = self._entry_result(ent)
             elif q.pred in self.db:  # EDB query: a pure selection
                 rows = self.db[q.pred]
                 out[i] = rows[query_row_mask(q, rows)]
@@ -227,18 +364,41 @@ class DatalogService:
                 out[i] = answers[src]
         return out
 
-    def append(self, rel: str, rows):
-        raise _not_ported("DatalogService.append", "A.2")
+    def append(self, rel: str, rows) -> "DatalogService":
+        """Monotone EDB append: add facts, keep serving.  Cached closures of
+        the predicates over ``rel`` resume from their pre-append rows
+        (``incremental.py``) and stay warm; under ``resume_min_hits`` /
+        ``resume_max_bytes`` the cold tail is dropped instead."""
+        if rel not in self.db:
+            raise ValueError(
+                f"{rel!r} is not an EDB relation of this service "
+                f"(known: {sorted(self.db)}); appends are EDB-only")
+        rows = _inc.validate_append(rows, self.db[rel].shape[1], self.bits)
+        # EDB relations stay sets under appends
+        self.db[rel] = unique_rows(np.concatenate([self.db[rel], rows]),
+                                   self.bits)
+        self.epoch += 1
+        self.stats.appends += 1
+        for _, e in self.cache.items():
+            if e.kind == "dense" and self._lowering(e.pred).edb != rel:
+                e.epoch = self.epoch  # untouched base relation: still valid
+        for pred, ds in self._dense.items():
+            if ds.low.edb == rel:
+                self._refresh_dense(pred, ds, rows)
+        return self
 
     # -- introspection -------------------------------------------------------
 
     def explain(self) -> dict:
         """Introspection report, in the JAX service's schema: ``epoch``,
         ``service`` counters, ``cache`` counters, ``templates`` (always
-        empty: no tuple engine yet) and per-predicate carrier reports under
-        ``relations`` (``{n, n_alloc, semiring, repr}`` plus ``nnz``/
-        ``density``/``e_alloc``/``padding`` for CSR)."""
-        return {
+        empty: no tuple engine yet), per-predicate carrier reports under
+        ``relations`` (``{n, n_alloc, semiring, repr}`` plus ``flips``/
+        ``last_flip`` after a representation flip and ``nnz``/``density``/
+        ``e_alloc``/``padding`` for CSR) and ``kernels``, which holds a
+        ``tuning`` entry per tuned predicate when ``tune=`` is on (the
+        roofline attribution of the JAX service comes with A.6)."""
+        rep = {
             "epoch": self.epoch,
             "service": dataclasses.asdict(self.stats),
             "cache": {"entries": len(self.cache), "hits": self.cache.hits,
@@ -246,7 +406,12 @@ class DatalogService:
                       "evictions": self.cache.evictions},
             "templates": [],
             "relations": {p: ds.report() for p, ds in self._dense.items()},
+            "kernels": {},
         }
+        tuning = {p: ds.tuning for p, ds in self._dense.items() if ds.tuning}
+        if tuning:
+            rep["kernels"]["tuning"] = tuning
+        return rep
 
     # -- internals -----------------------------------------------------------
 
@@ -297,6 +462,74 @@ class DatalogService:
         if pred not in self._dense:
             self._dense[pred] = _DenseRelation(self, self._lowering(pred))
         return self._dense[pred]
+
+    def _tuned_config(self, ds: _DenseRelation, edges):
+        """The kernel config of a CSR (re)build under ``tune=``: a pinned
+        :class:`~repro_torch.kernels.autotune.KernelConfig` as it is,
+        ``True`` the measured search on this service's device (cached per
+        graph-shape signature); None when tuning is off."""
+        if not self.tune:
+            ds.tuning = None
+            return None
+        if isinstance(self.tune, _at.KernelConfig):
+            ds.tuning = {"config": self.tune.as_dict(), "pinned": True}
+            return self.tune
+        res = _at.autotune(edges, ds.n_alloc, ds.low.kind, device=self.device)
+        ds.tuning = {**res.as_dict(), "pinned": False}
+        return res.config
+
+    def _entry_result(self, ent: CacheEntry):
+        if ent.result is None:  # append-resumed entry: format on first serve
+            ent.result = _freeze(self._format(self._dense_state(ent.pred),
+                                              ent.src, ent.raw))
+        return ent.result
+
+    def _refresh_dense(self, pred: str, ds: _DenseRelation,
+                       new_rows: np.ndarray):
+        """Fold an append into ``pred``'s carrier, then resume its cached
+        closures as ONE batched fixpoint (idempotent carriers: from prev ⊕
+        the new seed rows; the additive one: the increment replay, added to
+        prev) and refresh the entries; cold ones drop under the resume
+        policy."""
+        grown = ds.append(self, new_rows)
+        entries, cold = _inc.partition_resumable(
+            [(k, e) for k, e in self.cache.items()
+             if e.kind == "dense" and e.pred == pred], self.resume_min_hits,
+            self.resume_max_bytes)
+        if cold:
+            cold_keys = {k for k, _ in cold}
+            self.stats.dropped_cold += self.cache.drop_where(
+                lambda k, e: k in cold_keys)
+        if not entries:
+            return
+        srcs = [e.src for _, e in entries]
+        prev = torch.from_numpy(np.stack([e.raw for _, e in entries])).to(
+            self.device)
+        if grown:
+            prev = _inc.pad_rows(prev, ds.n_alloc, ds.sr.zero)
+        res = None
+        if ds.sr.idempotent:
+            res = ds.run_batch(self, srcs, init=_inc.resume_init(
+                ds.sr, prev, ds.seed_rows(srcs)))
+            table = res.table[:len(srcs)]
+        elif not len(ds.last_delta):
+            # additive, nothing genuinely new (exact-duplicate appends): set
+            # semantics keeps every total; revalidate only
+            table = prev
+        else:
+            res = ds.run_batch(self, srcs, init=_inc.replay_init(
+                ds.sr, prev, srcs, ds.last_delta, ds.n_alloc))
+            table = prev + res.table[:len(srcs)]
+        if res is not None:
+            self.stats.dense_fixpoints += 1
+            self.stats.csr_fixpoints += 1 if ds.is_csr else 0
+            self.stats.fixpoint_iterations += res.iterations
+        self.stats.resumed_rows += len(entries)
+        table = table.cpu().numpy()
+        for j, (key, e) in enumerate(entries):
+            # result=None: the answer is formatted at the entry's next hit
+            self.cache.replace(key, CacheEntry(
+                "dense", pred, None, self.epoch, src=e.src, raw=table[j]))
 
     def _format(self, ds: _DenseRelation, src: int, row: np.ndarray):
         if ds.low.kind == "bool":

@@ -295,7 +295,8 @@ def test_wrappers_route_by_device():
         minplus.maxplus_matmul(f.float(), a.float().to("meta"))
     assert set(before) == {"bool_matmul", "minplus_matmul", "maxplus_matmul",
                            "csr_bool_step", "csr_minplus_step",
-                           "csr_maxplus_step", "csr_plustimes_step"}
+                           "csr_maxplus_step", "csr_plustimes_step",
+                           "csr_minplus_tiled_step"}
     assert build.SOURCES == ("boolmm", "minplus", "spmv")
 
 

@@ -250,18 +250,25 @@ def test_tuple_path_queries_raise_not_implemented(query):
 @pytest.mark.parametrize("kw,item", [({"mesh": object()}, "A.6"),
                                      ({"probe": True}, "A.6"),
                                      ({"tracer": True}, "A.6"),
-                                     ({"durable_dir": "x"}, "A.6"),
-                                     ({"tune": True}, "A.3")])
+                                     ({"durable_dir": "x"}, "A.6")])
 def test_unported_options_raise_not_implemented(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         TService(TC, db={"arc": np.array([[0, 1]])}, device="cpu", **kw)
 
 
 def test_append_and_bad_matmul_raise():
+    """Appends to a relation that is not in the EDB, and rows of the wrong
+    arity or outside the packed domain, raise as in the JAX service; so
+    does an unknown ``matmul``."""
     tsvc = TService(TC, db={"arc": np.array([[0, 1]])}, device="cpu",
                     matmul="pallas")
-    with pytest.raises(NotImplementedError, match="A.2"):
-        tsvc.append("arc", np.array([[1, 2]]))
+    jsvc = JService(TC, db={"arc": np.array([[0, 1]])}, default_cap=2048)
+    for rel, rows in (("tc", [[1, 2]]), ("arc", [[1, 2, 3]]),
+                      ("arc", [[1, 1 << 18]])):
+        with pytest.raises(ValueError):
+            jsvc.append(rel, np.array(rows))
+        with pytest.raises(ValueError):
+            tsvc.append(rel, np.array(rows))
     with pytest.raises(ValueError, match="matmul"):
         TService(TC, db={"arc": np.array([[0, 1]])}, device="cpu",
                  matmul="xla")
