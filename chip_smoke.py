@@ -36,7 +36,9 @@ a non-zero exit and prints no result):
    (tile-skip plan (32, 128)), the same traffic; K7 must launch once per
    iteration plus one seed step per fixpoint and K4 never; the plan's
    length, padding and host build time; K7 timed beside its plain version,
-   its bound and K4 at the same frontier.  Then two appends to that
+   its bound and K4 at the same frontier, then K7 against K4 (equal
+   exactly, and timed) at a frontier with every value finite.  Then two
+   appends to that
    service: 10,000 arcs (to the COO tail) and 4,100,000 (past
    ``csr_rebuild_frac``: a fold that rebuilds the pinned layout and its
    plan), each resuming every cached source, the resumed iterations beside
@@ -953,11 +955,12 @@ def dag_phase(results, csr_edges):
 
 
 def _k7_bound(torch, csr, f):
-    """K7's bound at frontier ``f``: the CSR steps' least work
-    (:func:`_csr_seed_work`) plus the plan's four arrays read once."""
+    """K7's bound at frontier ``f``: K4's (the same function,
+    :func:`_csr_seed_work`) plus the plan entries the kernel must read, the
+    live items' chunk indices and the unit offsets (pad items are never
+    read; each unit reads its tile and first flags once, a few KB)."""
     bytes_, ops = _csr_seed_work(torch, csr, f, torch.isfinite(f), 4)
-    plan = sum(4 * t.numel() for t in (csr.plan_tile, csr.plan_chunk,
-                                        csr.plan_first, csr.plan_unit))
+    plan = 4 * (int(csr.plan_unit[-1]) + csr.plan_unit.numel())
     return _bound(bytes_ + plan, ops, F32_OPS_S)
 
 
@@ -1036,7 +1039,20 @@ def tuned_phase(results, wedges, oracle):
         torch, lambda: spmv.csr_minplus_step(f, csr), 10)
     say(f"K4 csr_minplus_step at the same frontier and CSR: "
         f"{phase['k4_ms_same_frontier']:.3f} ms")
-    del f
+    # a frontier with every value finite: K7 and K4 agree exactly there too
+    g = torch.Generator(device=f.device).manual_seed(SEED)
+    fd = torch.randint(0, 64, f.shape, generator=g, device=f.device,
+                       dtype=torch.float32)
+    check(torch.equal(spmv.csr_minplus_tiled_step(fd, csr),
+                      spmv.csr_minplus_step(fd, csr)),
+          "K7 != K4 at a finite frontier")
+    phase["dense_frontier_ms"] = {
+        "k7": time_ms(torch, lambda: spmv.csr_minplus_tiled_step(fd, csr), 10),
+        "k4": time_ms(torch, lambda: spmv.csr_minplus_step(fd, csr), 10)}
+    say(f"K7 / K4 at a finite {tuple(fd.shape)} frontier: "
+        f"{phase['dense_frontier_ms']['k7']:.3f} / "
+        f"{phase['dense_frontier_ms']['k4']:.3f} ms")
+    del f, fd
 
     # appends: a tail append, then one past csr_rebuild_frac (a fold)
     appended = [wedges]

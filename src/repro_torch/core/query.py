@@ -102,32 +102,69 @@ def unique_rows(v: np.ndarray, bits: int | None = None) -> np.ndarray:
     key = row_keys(v, bits)
     if key is None:
         return np.unique(v, axis=0)
-    key = sorted_unique(key)
-    c = v.shape[1]
+    return _unpack(sorted_unique(key), bits, v.shape[1])
+
+
+def _unpack(key: np.ndarray, bits: int, c: int) -> np.ndarray:
+    """The (m, c) rows of :func:`row_keys`' keys."""
     mask = (1 << bits) - 1
     return np.stack([(key >> (bits * (c - 1 - j))) & mask for j in range(c)],
                     axis=1)
+
+
+class RowSet:
+    """A set of (m, c) int64 rows with values below ``2**bits``: the set
+    filter of an additive append.  Sorted packed keys (:func:`row_keys`,
+    membership by ``np.searchsorted``), or a set of tuples where a row does
+    not pack into 63 bits."""
+
+    def __init__(self, rows: np.ndarray, bits: int):
+        rows = np.asarray(rows, np.int64)
+        self.bits, self.width = bits, rows.shape[1]
+        keys = row_keys(rows, bits)
+        self.keys = None if keys is None else np.sort(keys)
+        self.tuples = None if keys is not None else \
+            set(map(tuple, rows.tolist()))
+
+    def _held(self) -> set:
+        if self.tuples is None:  # a row to test does not pack: unpack all
+            self.tuples = set(map(tuple, _unpack(self.keys, self.bits,
+                                                 self.width).tolist()))
+            self.keys = None
+        return self.tuples
+
+    def new(self, rows: np.ndarray) -> np.ndarray:
+        """The distinct rows of ``rows`` the set does not hold, sorted."""
+        rows = np.asarray(rows, np.int64).reshape(-1, self.width)
+        rows = unique_rows(rows, self.bits) if len(rows) else rows
+        keys = None if self.keys is None else row_keys(rows, self.bits)
+        if keys is not None:
+            return rows[~sorted_contains(self.keys, keys)]
+        held = self._held()
+        return rows[np.asarray([tuple(r) not in held for r in rows.tolist()],
+                               bool).reshape(-1)]
+
+    def add(self, rows: np.ndarray) -> None:
+        """Hold ``rows`` too (distinct rows the set does not hold yet)."""
+        keys = None if self.keys is None else row_keys(rows, self.bits)
+        if keys is None:
+            self._held().update(map(tuple, rows.tolist()))
+        else:
+            self.keys = np.insert(self.keys, np.searchsorted(self.keys, keys),
+                                  keys)
 
 
 def new_rows(rows: np.ndarray, have: np.ndarray,
              bits: int | None = None) -> np.ndarray:
     """The distinct rows of ``rows`` that ``have`` does not hold, sorted
     (both (m, c) int64 with values below ``2**bits``; ``None``: the width
-    of the largest value in either): the set filter of an additive append,
-    by sorted packed keys and ``np.searchsorted`` instead of a set of
-    tuples."""
-    rows = unique_rows(np.asarray(rows, np.int64), bits)
+    of the largest value in either), through a :class:`RowSet`."""
+    rows = np.asarray(rows, np.int64)
     have = np.asarray(have, np.int64).reshape(-1, rows.shape[1])
-    if not len(rows) or not len(have):
-        return rows
     if bits is None:
-        bits = max(int(max(rows.max(), have.max())).bit_length(), 1)
-    keys, hkeys = row_keys(rows, bits), row_keys(have, bits)
-    if keys is None or hkeys is None:
-        seen = set(map(tuple, have.tolist()))
-        keep = [tuple(r) not in seen for r in rows.tolist()]
-        return rows[np.asarray(keep, bool)]
-    return rows[~sorted_contains(np.sort(hkeys), keys)]
+        top = max([int(a.max()) for a in (rows, have) if a.size], default=0)
+        bits = max(top.bit_length(), 1)
+    return RowSet(have, bits).new(rows)
 
 
 def sorted_contains(sorted_keys: np.ndarray, keys: np.ndarray) -> np.ndarray:

@@ -363,6 +363,15 @@ def csr_append(csr: CSRMatrix, rows: np.ndarray,
     rows = np.asarray(rows, np.int64)
     if not csr.semiring.idempotent and len(rows):
         rows = new_rows(rows, csr.edges_numpy())
+    return csr_append_new(csr, rows, rebuild_frac)
+
+
+def csr_append_new(csr: CSRMatrix, rows: np.ndarray,
+                   rebuild_frac: float = 0.25) -> CSRMatrix:
+    """:func:`csr_append` without the additive set filter, for a caller
+    that keeps its own arc set (the service): ``rows`` are distinct and not
+    resident."""
+    rows = np.asarray(rows, np.int64)
     src, dst, val = _pack_edges(rows, csr.kind)
     if len(src) and int(max(src.max(), dst.max())) >= csr.n_alloc:
         raise ValueError("appended arcs outgrow n_alloc; rebuild the CSR")

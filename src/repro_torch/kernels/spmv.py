@@ -61,20 +61,30 @@ _PROTOTYPES = {"repro_csr_bool_step": _STEP_ARGS,
 MAX_TILED_BN = 1024
 
 
-def _launch(fn: str, counter: str, dtype: torch.dtype, frontier, csr):
+def _checked(what: str, dtype: torch.dtype, frontier, csr,
+             index: tuple[str, ...]) -> torch.Tensor:
+    """The frontier as (B, n_alloc), after checking it and the CSR arrays a
+    kernel reads (``index``: its int32 arrays) for device, dtype and
+    layout."""
     if frontier.ndim not in (1, 2):
-        raise ValueError(f"{counter}: frontier must be (n,) or (B, n)")
+        raise ValueError(f"{what}: frontier must be (n,) or (B, n)")
     f = frontier[None, :] if frontier.ndim == 1 else frontier
-    n = csr.n_alloc
-    build.require(f"{counter} frontier", f, dtype, 2)
-    if f.shape[1] != n:
-        raise ValueError(f"{counter}: frontier width {f.shape[1]} != "
-                         f"n_alloc {n}")
-    for name in ("src_idx", "ell_rank", "tail_src", "tail_ell"):
+    build.require(f"{what} frontier", f, dtype, 2)
+    if f.shape[1] != csr.n_alloc:
+        raise ValueError(f"{what}: frontier width {f.shape[1]} != "
+                         f"n_alloc {csr.n_alloc}")
+    for name in index:
         t = getattr(csr, name)
-        build.require(f"{counter} csr.{name}", t, torch.int32, t.ndim)
-    build.require(f"{counter} csr.edge_val", csr.edge_val, dtype, 1)
-    build.require(f"{counter} csr.tail_val", csr.tail_val, dtype, 1)
+        build.require(f"{what} csr.{name}", t, torch.int32, t.ndim)
+    build.require(f"{what} csr.edge_val", csr.edge_val, dtype, 1)
+    build.require(f"{what} csr.tail_val", csr.tail_val, dtype, 1)
+    return f
+
+
+def _launch(fn: str, counter: str, dtype: torch.dtype, frontier, csr):
+    f = _checked(counter, dtype, frontier, csr,
+                 ("src_idx", "ell_rank", "tail_src", "tail_ell"))
+    n = csr.n_alloc
     for t in csr.ell_slices:
         build.require(f"{counter} csr.ell_slices", t, torch.int32, 2)
     slices = csr.ell_slices
@@ -164,25 +174,20 @@ def csr_minplus_tiled_step(frontier: torch.Tensor, csr) -> torch.Tensor:
                          *_operands(frontier, csr), csr.col_idx, *plan):
         return plain_minplus_tiled(frontier, csr)
     what = "csr_minplus_tiled_step"
-    if frontier.ndim not in (1, 2):
-        raise ValueError(f"{what}: frontier must be (n,) or (B, n)")
-    f = frontier[None, :] if frontier.ndim == 1 else frontier
+    f = _checked(what, torch.float32, frontier, csr,
+                 ("col_idx", "src_idx", "tail_src", "tail_ell", "plan_tile",
+                  "plan_chunk", "plan_first", "plan_unit"))
     n = csr.n_alloc
-    build.require(f"{what} frontier", f, torch.float32, 2)
-    if f.shape[1] != n:
-        raise ValueError(f"{what}: frontier width {f.shape[1]} != n_alloc {n}")
-    for name in ("col_idx", "src_idx", "tail_src", "tail_ell", "plan_tile",
-                 "plan_chunk", "plan_first", "plan_unit"):
-        t = getattr(csr, name)
-        build.require(f"{what} csr.{name}", t, torch.int32, t.ndim)
-    build.require(f"{what} csr.edge_val", csr.edge_val, torch.float32, 1)
-    build.require(f"{what} csr.tail_val", csr.tail_val, torch.float32, 1)
     chunk, bn = csr.plan_cfg
     if bn > MAX_TILED_BN or csr.capacity % chunk:
         raise ValueError(f"{what}: plan (chunk={chunk}, bn={bn}) does not "
                          f"fit the kernel (bn <= {MAX_TILED_BN}, chunk "
                          f"dividing the capacity {csr.capacity})")
     B = f.shape[0]
+    # +inf under the split tiles' atomic min.  Filling the whole output
+    # costs one fast pass; a kernel pass that fills only split tiles timed
+    # 0.04-0.05 ms slower a step on the power-law graph of chip_smoke.py,
+    # where most tiles are split (scripts/k7_ab.py, on an H100).
     out = torch.full_like(f, float("inf"))
     fT = torch.empty((n, B), dtype=torch.float32, device=f.device)
     lib = build.load("spmv", _PROTOTYPES)

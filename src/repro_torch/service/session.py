@@ -41,9 +41,8 @@ from ..core.ir import Const, Literal
 from ..core.magic import (FrontierLowering, detect_frontier_lowering,
                           frontier_query_source)
 from ..core.parser import parse_program
-from ..core.query import (PlanError, as_query_literal, normalize_db,
-                          query_row_mask, row_keys, sorted_contains,
-                          unique_rows)
+from ..core.query import (PlanError, RowSet, as_query_literal, normalize_db,
+                          query_row_mask, unique_rows)
 from ..core.semiring import BOOL, MIN_PLUS, carrier_for, edge_arity
 from ..device import resolve_device
 from ..kernels import autotune as _at
@@ -113,13 +112,10 @@ class _DenseRelation:
         if not self.sr.idempotent:
             # additive ⊕ is set-semantics over arcs: exact duplicate facts
             # collapse before they can double-count, and the arc set filters
-            # appends down to genuinely new arcs: sorted packed keys, or a
-            # set of rows where a row does not pack into 63 bits
+            # appends down to genuinely new arcs
             if len(edges):
                 edges = unique_rows(edges, svc.bits)
-            self._keys = row_keys(edges, svc.bits)
-            self._set = None if self._keys is not None else \
-                set(map(tuple, edges.tolist()))
+            self._arcs = RowSet(edges, svc.bits)
         n = int(edges[:, :2].max()) + 1 if len(edges) else 0
         align = svc.n_align
         self.n = n
@@ -181,7 +177,7 @@ class _DenseRelation:
         additive carrier the rows are first cut to the genuinely new arcs,
         kept on :attr:`last_delta` for the increment replay."""
         if not self.sr.idempotent:
-            rows = self._new_arcs(svc, rows)
+            rows = self._arcs.new(rows)
         self.last_delta = rows
         new_n = max(self.n, int(rows[:, :2].max()) + 1 if len(rows) else 0)
         if new_n > self.n_alloc:
@@ -191,12 +187,7 @@ class _DenseRelation:
         if not len(rows):
             return False
         if not self.sr.idempotent:
-            new = row_keys(rows, svc.bits)
-            if new is None:
-                self._set.update(map(tuple, rows.tolist()))
-            else:
-                self._keys = np.insert(self._keys,
-                                       np.searchsorted(self._keys, new), new)
+            self._arcs.add(rows)
         if self.is_csr:
             if _sparse.tail_will_rebuild(self.csr, len(rows),
                                          svc.csr_rebuild_frac):
@@ -204,9 +195,9 @@ class _DenseRelation:
                 # the density heuristic (a densified graph flips back to the
                 # dense matrix) and the tuned config
                 self._rebuild(svc)
-            else:
-                self.csr = _sparse.csr_append(self.csr, rows,
-                                              svc.csr_rebuild_frac)
+            else:  # the additive rows are filtered already
+                self.csr = _sparse.csr_append_new(self.csr, rows,
+                                                  svc.csr_rebuild_frac)
             return False
         # the dense matrix is updated in place on its device
         dev = self.matrix.device
@@ -223,18 +214,6 @@ class _DenseRelation:
             vals = torch.from_numpy(rows[:, 2].astype(np.float32)).to(dev)
             self.matrix.index_put_((r, c), vals, accumulate=True)
         return False
-
-    def _new_arcs(self, svc: "DatalogService", rows: np.ndarray) -> np.ndarray:
-        """Set-semantics append filter for additive carriers: the distinct
-        rows not resident yet (sorted packed keys, ``np.searchsorted``)."""
-        rows = np.asarray(rows, np.int64).reshape(-1, 3)
-        if not len(rows):
-            return rows
-        uniq = unique_rows(rows, svc.bits)
-        if self._keys is None:
-            keep = [tuple(r) not in self._set for r in uniq.tolist()]
-            return uniq[np.asarray(keep, bool)]
-        return uniq[~sorted_contains(self._keys, row_keys(uniq, svc.bits))]
 
     def report(self) -> dict:
         rep = {"n": self.n, "n_alloc": self.n_alloc, "semiring": self.sr.name,

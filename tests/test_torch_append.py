@@ -16,6 +16,8 @@ from repro.core.semiring import BY_NAME as JSR
 from repro.data import graphs as jgraphs
 from repro.service import DatalogService as JService
 from repro.service import incremental as jinc
+from repro_torch.core import query as tquery
+from repro_torch.core import sparse as tsparse
 from repro_torch.core.semiring import BY_NAME as TSR
 from repro_torch.service import DatalogService as TService
 from repro_torch.service import incremental as tinc
@@ -213,6 +215,65 @@ def test_duplicate_counting_append_is_a_noop(sparse):
     mixed = np.concatenate([edges[:3], [[0, 60, 1], [0, 60, 1], [9, 61, 2]]])
     for svc in (jsvc, tsvc):
         svc.append("d", mixed)
+    _same_answers(tsvc.ask_batch(q), jsvc.ask_batch(q))
+    _same_stats(tsvc, jsvc)
+
+
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "csr"])
+def test_wide_counting_rows_filter_through_tuples_like_jax(sparse):
+    """At bits=22 a 3-column row does not pack into 63 bits: the additive
+    set filter holds tuples, with the same answers and stats as JAX's."""
+    edges = _arcs(64, 0.06, 5, 2, True)
+    jsvc, tsvc = _pair(CPATH, {"d": edges}, sparse=sparse, bits=22)
+    q = [_q("cpath", 2, 0), _q("cpath", 2, 7)]
+    _same_answers(tsvc.ask_batch(q), jsvc.ask_batch(q))
+    assert tsvc._dense_state("cpath")._arcs.keys is None
+    mixed = np.concatenate([edges[:5], [[1, 62, 2], [1, 62, 2], [7, 63, 1]]])
+    for _ in range(2):  # the repeat is a no-op
+        for svc in (jsvc, tsvc):
+            svc.append("d", mixed)
+        _same_answers(tsvc.ask_batch(q), jsvc.ask_batch(q))
+    _same_stats(tsvc, jsvc)
+
+
+@pytest.mark.parametrize("bits", [8, 22], ids=["packed", "tuples"])
+def test_row_set_filters_like_a_set_of_tuples(bits):
+    """``RowSet.new`` / ``add`` and ``new_rows`` against Python sets, on
+    rows that pack into one key and rows that do not."""
+    rng = np.random.default_rng(bits)
+    top = (1 << bits) - 1
+    held, rows, more = (rng.integers(0, 4, (k, 3)) * (top // 3)
+                        for k in (30, 40, 20))
+    want = sorted(set(map(tuple, rows.tolist()))
+                  - set(map(tuple, held.tolist())))
+    rs = tquery.RowSet(held, bits)
+    assert (rs.keys is None) == (bits == 22)
+    new = rs.new(rows)
+    assert new.tolist() == [list(r) for r in want]
+    assert np.array_equal(tquery.new_rows(rows, held, bits), new)
+    rs.add(new)
+    assert len(rs.new(rows)) == 0 and len(rs.new(rows[:0])) == 0
+    seen = set(map(tuple, np.concatenate([held, rows]).tolist()))
+    assert rs.new(more).tolist() == sorted(
+        map(list, set(map(tuple, more.tolist())) - seen))
+
+
+def test_csr_counting_append_reads_no_arcs_back(monkeypatch):
+    """The service filters an additive CSR append once, against its own
+    arc set: it never copies the CSR's arcs back to the host."""
+    edges = _arcs(64, 0.06, 3, 2, True)
+    jsvc, tsvc = _pair(CPATH, {"d": edges}, sparse=True)
+    q = [_q("cpath", 2, 0)]
+    _same_answers(tsvc.ask_batch(q), jsvc.ask_batch(q))
+
+    def refuse(self):
+        raise AssertionError("the CSR's arcs were read back")
+    monkeypatch.setattr(tsparse.CSRMatrix, "edges_numpy", refuse)
+    rows = np.concatenate([edges[:3], [[0, 61, 1]]])
+    for svc in (jsvc, tsvc):
+        svc.append("d", rows)
+    assert tsvc._dense_state("cpath").is_csr
+    assert int(tsvc._dense_state("cpath").csr.tail_nnz) == 1
     _same_answers(tsvc.ask_batch(q), jsvc.ask_batch(q))
     _same_stats(tsvc, jsvc)
 
