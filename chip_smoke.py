@@ -21,6 +21,9 @@ a non-zero exit and prints no result):
    (64, 128), (32, 256) and (16, 64) and B = 3, 32 and 130, on a graph with
    empty column tiles, an allocation no tile width divides, a hub tile
    split into several work units and a COO tail made by ``csr_append``;
+   then K8 (the fused relaxation step) against its plain version at n = 1,
+   50, 130, 1000 and 1025, with Δ masks all true, all false and random with
+   a whole 64-row tile false, and a ``d`` with whole +inf rows;
 4. dense main path: ``DatalogService`` TC and SPATH on ``gnp_graph(10_000,
    0.1)`` (the paper's Table-6 Gn-p family; density 0.1 picks the dense
    carrier), ``ask_batch`` of 100 sources, a second batch of 100, a repeat
@@ -59,7 +62,24 @@ a non-zero exit and prints no result):
    with src > dst (a DAG of about 13.2M arcs, hub in-degrees near 183k);
    then a 3-cycle CPATH on both carriers must raise
    ``FixpointDivergenceError`` and cache nothing;
-7. checks: the chosen carriers (and semirings), every kernel's launch count
+7. the dense all-pairs path on the paper's Table-6 G10K,
+   ``gnp_graph(10_000, 0.001)`` (about 100k arcs, SSSP weights 1..9), as
+   (n, n) matrices on the card: APSP three ways, ``shortest_paths_dense``
+   (the linear form, K2 at M = n), the relaxation loop ``d, mask =
+   ops.relax(d, w, mask)`` from ``d = w`` (K8, one launch per trip) and
+   the nonlinear form (K2, log depth), whose tables must be equal and the
+   first two's iteration counts too, 64 rows against scipy's Dijkstra;
+   ``transitive_closure_dense`` (K1), 64 rows against scipy's BFS;
+   ``same_generation_dense`` (the sandwich form, K1 twice an iteration)
+   against the same fixpoint with the plain boolean product on the card;
+   ``connected_components_dense`` (K2 with B = 1) against scipy's
+   components, each labelled by its least vertex.  Per path: iterations,
+   wall time and K1, K2 and K8 launches.  K8 is timed at the loop's first
+   step and at its last step's input, held to its plain version in row
+   blocks of 1,024 (the plain version cannot run whole at this width),
+   beside one K2 linear step with its merge and changed test at the same
+   inputs; K1 and K2 are timed at M = n;
+8. checks: the chosen carriers (and semirings), every kernel's launch count
    during its path (counts reset just before each path and read just
    after), and the answers of 4 sources per path against oracles that
    share no code with either package: scipy's csgraph for TC and SPATH
@@ -137,6 +157,8 @@ KERNELS = {
                          "src/repro/kernels/spmv.py:297"),
     "csr_minplus_tiled_step": ("src/repro_torch/kernels/csrc/spmv.cu",
                                "src/repro/kernels/spmv.py:359"),
+    "relax_step": ("src/repro_torch/kernels/csrc/relax.cu",
+                   "src/repro/kernels/relax.py:75"),
 }
 #: K7's ragged cases: (chunk, bn) plans and batch sizes (130 crosses the
 #: 32-row passes more than four times)
@@ -145,6 +167,11 @@ K7_BATCHES = (3, 32, 130)
 TAIL_APPEND, FOLD_APPEND = 10_000, 4_100_000
 #: the vertex the dense append phase adds: past n_alloc 10,112 (Gn-p 10k)
 DENSE_GROW = 10_200
+#: K8's ragged sizes (1025: a last row tile of one row)
+K8_SIZES = (1, 50, 130, 1000, 1025)
+#: the all-pairs phase: the paper's Table-6 G10K (Gn-p, n = 10,000,
+#: p = 0.001), rows sampled against scipy, and the plain versions' row block
+AP_N, AP_P, AP_SAMPLE, ROW_BLOCK = 10_000, 0.001, 64, 1024
 
 
 def say(msg: str) -> None:
@@ -368,7 +395,33 @@ def k7_ragged_parity():
         f"(plans {list(K7_PLANS)}, B {list(K7_BATCHES)}, n_alloc {n_alloc})")
 
 
-# -- phases 4-6: the main path ------------------------------------------------
+def k8_ragged_parity():
+    """K8 against its plain version, exactly, at every size of
+    :data:`K8_SIZES`: a ``d`` with whole +inf rows, and Δ masks all true,
+    all false (every row tile runs no K loop) and random with rows 64..127
+    false (one whole row tile without a Δ row)."""
+    import torch
+    from repro_torch.kernels import relax
+    rng = np.random.default_rng(SEED + 9)
+    cases = 0
+    for n in K8_SIZES:
+        d = _rand_dist(rng, (n, n), 0.3)
+        d[::7] = np.inf
+        a = _rand_dist(rng, (n, n), 0.05)
+        some = rng.random(n) < 0.5
+        some[64:128] = False
+        for mask in (np.ones(n, bool), np.zeros(n, bool), some):
+            args = [torch.from_numpy(x).to(DEVICE) for x in (d, a, mask)]
+            got, want = relax.relax_step(*args), relax.plain(*args)
+            for g, w in zip(got, want):
+                equal_and_err(torch, g, w)
+            cases += 1
+    torch.cuda.synchronize()
+    say(f"parity (K8, ragged): {cases} cases exactly equal to plain "
+        f"(n {list(K8_SIZES)}; masks all, none, random with a false tile)")
+
+
+# -- phases 4-7: the main path ------------------------------------------------
 
 
 def _weighted(rng, edges):
@@ -954,6 +1007,233 @@ def dag_phase(results, csr_edges):
     results["dag_phase"] = phase
 
 
+def measure_rows(torch, name, kernel, plain, args, rows, calls, bound):
+    """:func:`measure` for a kernel whose plain version cannot run whole at
+    this width: the plain version runs on blocks of :data:`ROW_BLOCK` rows
+    (``rows(r0, r1)`` gives its arguments for one block), each block is
+    held to the kernel's rows, and its time is that of all the blocks."""
+    got = kernel(*args)
+    got = got if isinstance(got, tuple) else (got,)
+    n = got[0].shape[0]
+    blocks = [(r0, min(r0 + ROW_BLOCK, n)) for r0 in range(0, n, ROW_BLOCK)]
+    err = 0.0
+    for r0, r1 in blocks:
+        want = plain(*rows(r0, r1))
+        for g, w in zip(got, want if isinstance(want, tuple) else (want,)):
+            err = max(err, equal_and_err(torch, g[r0:r1], w))
+        del want
+    del got
+    torch.cuda.synchronize()
+    ms = time_ms(torch, lambda: kernel(*args), calls)
+
+    def plain_all():
+        for r0, r1 in blocks:
+            plain(*rows(r0, r1))
+
+    plain_ms = time_ms(torch, plain_all, 1, rounds=2)
+    bound_ms, bound_by = bound
+    say(f"{name}: {ms:.3f} ms (plain in {len(blocks)} row blocks "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by}) at "
+        f"{[tuple(a.shape) for a in args]}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def _k8_bound(torch, d, a, mask):
+    """K8's bound at (d, a, mask): an add and a min per live candidate (a
+    finite d[m, k] of a Δ row m against a finite a[k, j]) and a min and a
+    compare per output; bytes: d, a and dnew at 4 bytes, the mask and the
+    flags at 1."""
+    n = d.shape[0]
+    fin = torch.isfinite
+    live = float(((fin(d) & mask[:, None]).double()
+                  @ fin(a).sum(1).double()).sum())
+    return _bound(3 * 4 * n * n + 2 * n, 2 * live + 2 * n * n, F32_OPS_S)
+
+
+def _check_rows(label, table, srcs, oracle):
+    """Rows ``srcs`` of an all-pairs table against the single-source
+    oracle (Dijkstra distances, or BFS reachability for a bool table)."""
+    rows = table[srcs].cpu().numpy()
+    for s, row in zip(srcs, rows):
+        dst, vals = oracle.answer(s)
+        got = np.nonzero(np.isfinite(row) if oracle.weighted else row)[0]
+        check(np.array_equal(got, dst), f"{label}: row {s} reaches "
+              f"{len(got)} vertices, the oracle {len(dst)}")
+        if oracle.weighted:
+            check(np.array_equal(row[got].astype(np.int64), vals),
+                  f"{label}: row {s}: distances differ")
+    say(f"{label}: {len(srcs)} sampled rows equal the "
+        f"{'Dijkstra' if oracle.weighted else 'BFS'} oracle")
+
+
+def allpairs_phase(results):
+    """The dense all-pairs path on G10K (module docstring, phase 7): each
+    path driven alone between launch-count reads, then K8, K2 and K1 timed
+    at its shapes."""
+    import torch
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import connected_components
+    from repro_torch.core import seminaive as sn
+    from repro_torch.core.semiring import MIN_PLUS
+    from repro_torch.data import gnp_graph
+    from repro_torch.kernels import boolmm, minplus, ops, relax
+    rng = np.random.default_rng(SEED + 8)
+    n = AP_N
+    t0 = time.perf_counter()
+    edges = gnp_graph(n, AP_P, seed=SEED)
+    wedges = _weighted(rng, edges)
+    src = torch.from_numpy(edges[:, 0]).to(DEVICE)
+    dst = torch.from_numpy(edges[:, 1]).to(DEVICE)
+    adj = torch.zeros((n, n), dtype=torch.bool, device=DEVICE)
+    adj[src, dst] = True
+    w = torch.full((n, n), float("inf"), device=DEVICE)
+    w[src, dst] = torch.from_numpy(wedges[:, 2].astype(np.float32)).to(DEVICE)
+    del src, dst
+    say(f"all-pairs graph (G10K): gnp_graph({n}, {AP_P}): {len(edges)} arcs,"
+        f" (n, n) bool and f32 matrices on the card "
+        f"({time.perf_counter() - t0:.1f} s)")
+    sample = [int(s) for s in rng.permutation(n)[:AP_SAMPLE]]
+    phase = {}
+
+    def path(label, fn, iterations, want):
+        """Drive one path between launch-count reads; ``want`` maps each
+        counted kernel to its launches as a function of the iterations."""
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        it = iterations(out)
+        say(f"{label}: {it} iterations, {secs:.2f} s; launches K1 "
+            f"{counts['bool_matmul']}, K2 {counts['minplus_matmul']}, K8 "
+            f"{counts['relax_step']}")
+        expect = {k: 0 for k in counts}
+        expect.update({k: f(it) for k, f in want.items()})
+        check(counts == expect, f"{label}: launches {counts}, expected "
+              f"{ {k: v for k, v in expect.items() if v} }")
+        phase[label] = {"iterations": it, "seconds": secs,
+                        "launches": {k: v for k, v in counts.items() if v}}
+        return out
+
+    # (a) APSP three ways
+    lin = path("APSP linear", lambda: sn.shortest_paths_dense(w),
+               lambda r: r.iterations, {"minplus_matmul": lambda i: i})
+
+    def k8_loop():
+        d, mask, trips, last = w, torch.ones(n, dtype=torch.bool,
+                                             device=DEVICE), 0, None
+        while bool(mask.any()):
+            last = (d, mask)
+            d, mask = ops.relax(d, w, mask)
+            trips += 1
+        return d, trips, last
+
+    d8, trips, last = path("APSP K8 loop", k8_loop, lambda r: r[1],
+                           {"relax_step": lambda i: i})
+    results["relax_step"] = {"launches": trips}
+    check(trips == lin.iterations, f"K8 loop: {trips} trips, the linear "
+          f"form {lin.iterations} iterations")
+    check(torch.equal(d8, lin.table), "K8 loop table != shortest_paths_dense")
+    del d8
+    nonlin = path("APSP nonlinear",
+                  lambda: sn.fixpoint_dense(MIN_PLUS, w, w, form="nonlinear"),
+                  lambda r: r.iterations,
+                  {"minplus_matmul": lambda i: 2 * i})
+    check(torch.equal(nonlin.table, lin.table),
+          "nonlinear APSP table != the linear form's")
+    del nonlin
+    _check_rows("APSP", lin.table, sample, Oracle(wedges, n, True))
+    phase["APSP linear"]["finite_pairs"] = int(torch.isfinite(lin.table).sum())
+    del lin
+
+    # (b) TC through K1
+    tc = path("TC", lambda: sn.transitive_closure_dense(adj),
+              lambda r: r.iterations, {"bool_matmul": lambda i: i})
+    _check_rows("TC", tc.table, sample, Oracle(edges, n, False))
+    phase["TC"]["pairs"] = int(tc.table.sum())
+    del tc
+
+    # (c) SG: the sandwich form, K1 twice an iteration
+    sg = path("SG", lambda: sn.same_generation_dense(adj),
+              lambda r: r.iterations, {"bool_matmul": lambda i: 2 * i})
+    t0 = time.perf_counter()
+    sg_plain = sn.same_generation_dense(adj, matmul=boolmm.plain)
+    torch.cuda.synchronize()
+    phase["SG"].update(pairs=int(sg.table.sum()),
+                       plain_seconds=time.perf_counter() - t0)
+    check(torch.equal(sg.table, sg_plain.table)
+          and (sg.iterations, sg.generated)
+          == (sg_plain.iterations, sg_plain.generated),
+          "SG != its run with the plain boolean product")
+    say(f"SG: {phase['SG']['pairs']} pairs; equal to its plain-product run "
+        f"({phase['SG']['plain_seconds']:.2f} s)")
+    del sg, sg_plain
+
+    # (d) CC: K2 with B = 1
+    cc = path("CC", lambda: sn.connected_components_dense(adj),
+              lambda r: r.iterations, {"minplus_matmul": lambda i: i})
+    k, lab = connected_components(
+        csr_matrix((np.ones(len(edges)), (edges[:, 0], edges[:, 1])),
+                   shape=(n, n)), directed=False)
+    least = np.full(k, n)
+    np.minimum.at(least, lab, np.arange(n))
+    check(np.array_equal(cc.table.cpu().numpy(), least[lab].astype(np.float32)),
+          "CC labels != scipy's components")
+    phase["CC"]["components"] = int(k)
+    say(f"CC: {k} components, equal to scipy's")
+    del cc
+
+    # K8 at the loop's first step and at its last step's input, beside one
+    # K2 linear step with its merge and changed test at the same inputs
+    def k2_step(d, mask):
+        dm = torch.where(mask[:, None], d, float("inf"))
+        dn = torch.minimum(d, minplus.minplus_matmul(dm, w))
+        return dn, sn._ne(MIN_PLUS, dn, d).any(-1)
+
+    timed = {}
+    for label, (d, mask) in (("first", (w, torch.ones(n, dtype=torch.bool,
+                                                       device=DEVICE))),
+                             ("last", last)):
+        got, ref = relax.relax_step(d, w, mask), k2_step(d, mask)
+        check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+              f"K8 != K2 + merge at the {label} step")
+        del got, ref
+        timed[label] = measure_rows(
+            torch, f"K8 relax_step ({label} step, {int(mask.sum())} Δ rows)",
+            relax.relax_step, relax.plain, (d, w, mask),
+            lambda r0, r1: (d[r0:r1], w, mask[r0:r1]), 3,
+            _k8_bound(torch, d, w, mask))
+        timed[label]["delta_rows"] = int(mask.sum())
+        timed[label]["k2_merge_ms"] = time_ms(
+            torch, lambda: k2_step(d, mask), 3)
+        say(f"K2 + merge + changed ({label} step): "
+            f"{timed[label]['k2_merge_ms']:.3f} ms")
+    results["relax_step"].update(
+        {k: timed["first"][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by", "library_ms")})
+    phase["k8_timed"] = timed
+    del last
+
+    # K2 and K1 at M = n: the first linear APSP and TC steps
+    fin = torch.isfinite
+    live_ops = 2 * float((fin(w).double() @ fin(w).sum(1).double()).sum())
+    phase["k2_full"] = measure_rows(
+        torch, "K2 minplus_matmul (M = n)", minplus.minplus_matmul,
+        minplus.plain, (w, w), lambda r0, r1: (w[r0:r1], w), 3,
+        _bound(4 * 3 * n * n, live_ops, F32_OPS_S))
+    live_ops = 2 * float((adj.double() @ adj.sum(1).double()).sum())
+    phase["k1_full"] = measure(
+        torch, "K1 bool_matmul (M = n)", boolmm.bool_matmul, boolmm.plain,
+        (adj, adj), 3, _bound(3 * n * n, live_ops, INT8_OPS_S),
+        library=_matmul_call(torch, adj, adj))
+    results["allpairs_phase"] = phase
+    del adj, w
+    torch.cuda.empty_cache()
+
+
 def _k7_bound(torch, csr, f):
     """K7's bound at frontier ``f``: K4's (the same function,
     :func:`_csr_seed_work`) plus the plan entries the kernel must read, the
@@ -1123,12 +1403,15 @@ def main():
     import torch
     ragged_parity()
     k7_ragged_parity()
+    k8_ragged_parity()
     results: dict = {}
     dense_phase(results)
     edges, wedges, sp_oracle = csr_phase(results)
     tuned_phase(results, wedges, sp_oracle)
     del wedges, sp_oracle
     dag_phase(results, edges)
+    del edges
+    allpairs_phase(results)
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          **{k: results[name][k] for k in (
@@ -1137,7 +1420,8 @@ def main():
         for name, (src, rep) in KERNELS.items()]}
     say("phases: " + json.dumps({k: results[k]
                                  for k in ("dense_phase", "csr_phase",
-                                           "tuned_phase", "dag_phase")}))
+                                           "tuned_phase", "dag_phase",
+                                           "allpairs_phase")}))
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(card)
     say(json.dumps(line))

@@ -1,15 +1,19 @@
-"""Semi-naive dense frontier fixpoints over torch tensors.
+"""Semi-naive dense fixpoints over torch tensors.
 
 Port of the dense half of ``repro.core.seminaive``.  Each iteration is one
-⊕.⊗ product, with semi-naive evaluation realized as delta-row masking
-(idempotent ⊕) or delta accumulation (additive ⊕).  ``lax.while_loop``
-becomes a host loop: the convergence test (``any(mask)``, or
-``any(delta != 0)`` for the accumulate form) syncs the host once per
-iteration, and the loop reproduces the JAX loop's ``iterations`` and
-``generated`` exactly.
+⊕.⊗ product (two for the nonlinear and sandwich forms), with semi-naive
+evaluation realized as delta-row masking (idempotent ⊕) or delta
+accumulation (additive ⊕).  ``lax.while_loop`` becomes a host loop: the
+convergence test (``any(mask)``, or ``any(delta != 0)`` for the accumulate
+form) syncs the host once per iteration, and the loop reproduces the JAX
+loop's ``iterations`` and ``generated`` exactly.
 
-The default ⊗ is ``kernels.ops.frontier_matmul``: the CUDA kernel on a CUDA
-tensor, the plain version on a CPU tensor.
+The default ⊗ is ``kernels.ops.semiring_matmul``: the CUDA kernel (K1 for
+bool, K2 for min-plus and max-plus) on a CUDA tensor, the plain version on a
+CPU tensor.  The all-pairs front-ends (transitive closure, shortest paths,
+same generation, connected components) and the single-source ones run on
+it; the fused relaxation step K8 is reached through ``kernels.ops.relax``,
+as in the JAX package.
 """
 from __future__ import annotations
 
@@ -43,6 +47,13 @@ def _zero_like(sr: Semiring, D: torch.Tensor) -> torch.Tensor:
     return torch.tensor(sr.zero, dtype=D.dtype, device=D.device)
 
 
+def _transpose_arc(sr: Semiring, arc: torch.Tensor) -> torch.Tensor:
+    return arc.T.contiguous()
+
+
+FORMS = ("linear", "nonlinear", "vector", "sandwich", "accumulate")
+
+
 def fixpoint_dense(
     sr: Semiring,
     arc: torch.Tensor,
@@ -55,21 +66,23 @@ def fixpoint_dense(
 
     form:
       'linear'      D <- D ⊕ (Δmask·D) ⊗ arc          (tc r2 / dpath r2')
-      'vector'      d <- d ⊕ arcᵀ-propagate(d)        (a (B, n) init runs B
+      'nonlinear'   D <- D ⊕ D ⊗ D                    (dpath r5; log-depth;
+                                                       semi-naive as
+                                                       Δ⊗D ⊕ D⊗Δ)
+      'vector'      d <- d ⊕ arcᵀ-propagate(d)        (CC label propagation;
+                                                       a (B, n) init runs B
                                                        frontiers as one
                                                        batched fixpoint with
                                                        per-row convergence
                                                        masking)
+      'sandwich'    S <- S ⊕ arcᵀ ⊗ (S ⊗ arc)         (same-generation)
       'accumulate'  C = Σ Δ;  Δ <- Δ ⊗ arc             (path counting, +,×)
-    The nonlinear and sandwich forms wait for the tuple/graph engines
-    (ROADMAP A.6).
     """
-    if form not in ("linear", "vector", "accumulate"):
-        raise NotImplementedError(
-            f"fixpoint_dense form={form!r} is not ported yet (ROADMAP A.6)")
+    if form not in FORMS:
+        raise ValueError(form)
     if matmul is None:
         from ..kernels import ops
-        matmul = ops.frontier_matmul(sr.name)
+        matmul = ops.semiring_matmul(sr.name)
     # domain size is the LAST dim: a batched (B, n) vector init must iterate
     # to the domain's depth, not the batch's
     n = init.shape[-1]
@@ -91,13 +104,21 @@ def fixpoint_dense(
             it += 1
         return DenseResult(total, it, int(gen))
 
+    # the sandwich form's arcᵀ, made contiguous once (the kernels take
+    # contiguous operands; XLA hoists the JAX package's per-step transpose)
+    arc_t = _transpose_arc(sr, arc) if form == "sandwich" else None
+
     def step(D, mask):
         rmask = mask if D.ndim == 1 else mask[:, None]
-        dm = torch.where(rmask, D, zero)
+        Dm = torch.where(rmask, D, zero)
         if D.ndim == 1:  # vector form over a single frontier
-            upd = matmul(dm[None, :], arc)[0]
-        else:
-            upd = matmul(dm, arc)
+            upd = matmul(Dm[None, :], arc)[0]
+        elif form in ("linear", "vector"):
+            upd = matmul(Dm, arc)
+        elif form == "nonlinear":
+            upd = sr.add(matmul(Dm, D), matmul(D, Dm))
+        else:  # sandwich
+            upd = matmul(arc_t, matmul(Dm, arc))
         return sr.add(D, upd), upd
 
     D = init
@@ -159,6 +180,62 @@ def check_additive_converged(res: DenseResult, max_iters: int,
             "cyclic, so the (+,×) carrier has no finite fixpoint — additive "
             "aggregates in recursion require an acyclic EDB")
     return res
+
+
+# convenience graph front-ends ------------------------------------------------
+
+
+def transitive_closure_dense(adj: torch.Tensor, matmul=None) -> DenseResult:
+    """tc(X,Y) over the boolean semiring; adj is (n,n) bool."""
+    return fixpoint_dense(BOOL, adj, adj, form="linear", matmul=matmul)
+
+
+def shortest_paths_dense(w: torch.Tensor, matmul=None) -> DenseResult:
+    """All-pairs spath (Examples 2/3). w: (n,n) float32 with +inf for no arc."""
+    return fixpoint_dense(MIN_PLUS, w, w, form="linear", matmul=matmul)
+
+
+def same_generation_dense(adj: torch.Tensor, matmul=None) -> DenseResult:
+    """sg(X,Y) (Example 11): exit = AᵀA \\ id, recurse S <- Aᵀ S A.
+
+    Only the exit rule carries X != Y (the paper's r1); the recursive rule may
+    re-derive diagonal entries (possible when the graph has self-loops).  The
+    exit rule's AᵀA is a plain f32 product, as in the JAX package; it is
+    exact on the card too (0/1 inputs, integer sums below 2^24)."""
+    a = adj.to(torch.float32)
+    exit_ = (a.T @ a) > 0
+    exit_ &= ~torch.eye(adj.shape[0], dtype=torch.bool, device=adj.device)
+    return fixpoint_dense(BOOL, adj, exit_, form="sandwich", matmul=matmul)
+
+
+def connected_components_dense(adj: torch.Tensor) -> DenseResult:
+    """connComp (Example 7 r7.3/r7.4): min-label propagation, undirected
+    view; one (n,) label row through the min-plus ⊗ (K2 with B = 1)."""
+    n = adj.shape[0]
+    sym = adj | adj.T
+    prop = torch.where(sym, 0.0, float("inf")).to(torch.float32)
+    labels = torch.arange(n, dtype=torch.float32, device=adj.device)
+    return fixpoint_dense(MIN_PLUS, prop, labels, form="vector")
+
+
+# magic-restricted single-source fast paths ----------------------------------
+# A query binding the pivot argument of a decomposable program reduces the
+# matrix fixpoint to a *vector* fixpoint seeded with the query frontier row.
+
+
+def reachable_from_dense(adj: torch.Tensor, src: int,
+                         matmul=None) -> DenseResult:
+    """``?- tc(src, Y)``: one-frontier reachability."""
+    return fixpoint_dense(BOOL, adj, adj[src], form="vector", matmul=matmul)
+
+
+def single_source_distances_dense(w: torch.Tensor, src: int,
+                                  matmul=None) -> DenseResult:
+    """``?- spath(src, Z, D)``: single-source min-plus distances."""
+    return fixpoint_dense(MIN_PLUS, w, w[src], form="vector", matmul=matmul)
+
+
+# batched front-ends (the serving layer's hot path) ----------------------------
 
 
 def _as_index(srcs, device) -> torch.Tensor:

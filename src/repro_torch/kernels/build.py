@@ -23,7 +23,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("boolmm", "minplus", "spmv")
+SOURCES = ("boolmm", "minplus", "spmv", "relax")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -31,7 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: kernel, and nowhere else
 LAUNCHES = {"bool_matmul": 0, "minplus_matmul": 0, "maxplus_matmul": 0,
             "csr_bool_step": 0, "csr_minplus_step": 0, "csr_maxplus_step": 0,
-            "csr_plustimes_step": 0, "csr_minplus_tiled_step": 0}
+            "csr_plustimes_step": 0, "csr_minplus_tiled_step": 0,
+            "relax_step": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

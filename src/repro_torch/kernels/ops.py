@@ -11,8 +11,10 @@ from __future__ import annotations
 import torch
 
 from . import build, ref
-from .boolmm import bool_frontier_matmul
-from .minplus import maxplus_frontier_matmul, minplus_frontier_matmul
+from .boolmm import bool_frontier_matmul, bool_matmul
+from .minplus import (maxplus_frontier_matmul, minplus_frontier_matmul,
+                      minplus_matmul)
+from .relax import relax_step
 from .spmv import (csr_bool_step, csr_maxplus_step, csr_minplus_step,
                    csr_minplus_tiled_step, csr_plustimes_step)
 
@@ -34,6 +36,46 @@ def plustimes_frontier_matmul(frontier: torch.Tensor, w: torch.Tensor
             "torch.set_float32_matmul_precision); path counts need full f32 "
             "— set the precision to 'highest'")
     return ref.plustimes_ref(frontier, w)
+
+
+def _tiles(what: str, kw: dict) -> None:
+    """Accept the JAX kernels' block sizes (one kwargs dict drives both
+    packages); the Hopper kernels keep their own tiles, so they change
+    nothing.  Any other keyword raises."""
+    extra = set(kw) - {"bm", "bn", "bk"}
+    if extra:
+        raise TypeError(f"{what}: unexpected keyword(s) {sorted(extra)}")
+
+
+def minplus(a: torch.Tensor, b: torch.Tensor, **kw) -> torch.Tensor:
+    """The full (m, k) ⊗_min,+ (k, n) product: K2."""
+    _tiles("minplus", kw)
+    return minplus_matmul(a, b)
+
+
+def boolmm(a: torch.Tensor, b: torch.Tensor, **kw) -> torch.Tensor:
+    """The full (m, k) ⊗_bool (k, n) product: K1."""
+    _tiles("boolmm", kw)
+    return bool_matmul(a, b)
+
+
+def relax(d: torch.Tensor, a: torch.Tensor, delta_mask: torch.Tensor, **kw):
+    """One fused min-plus relaxation step, ``(d_new, changed)``: K8."""
+    return relax_step(d, a, delta_mask, **kw)
+
+
+def semiring_matmul(name: str):
+    """Kernel-backed ⊗ of the dense engine (semiring name): the all-pairs
+    forms' full (n, n) products and the vector form's (1, n) row."""
+    if name == "bool":
+        return boolmm
+    if name == "min_plus":
+        return minplus
+    if name == "max_plus":
+        return maxplus_frontier_matmul
+    if name == "plus_times":
+        return plustimes_frontier_matmul
+    raise KeyError(name)
 
 
 def frontier_matmul(name: str):

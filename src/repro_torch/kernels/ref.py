@@ -32,6 +32,18 @@ def plustimes_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a @ b
 
 
+def relax_ref(d: torch.Tensor, a: torch.Tensor, delta_mask: torch.Tensor):
+    """One fused semi-naive min-plus step: ``U = Δ-masked d ⊗_min,+ a``,
+    ``d' = min(d, U)``, ``changed = any(d' < d)`` per row.  Returns
+    ``(d', changed)``.  Row by row: each output row depends only on its own
+    row of ``d`` and mask, so ``d`` may be a (r, n) block of rows."""
+    d = d.to(torch.float32)
+    dm = torch.where(delta_mask[:, None], d,
+                     torch.tensor(float("inf"), device=d.device))
+    merged = torch.minimum(d, minplus_ref(dm, a))
+    return merged, (merged < d).any(1)
+
+
 #: one CSR frontier step per carrier (spine + COO tail)
 csr_bool_step_ref = csr_frontier_or
 csr_minplus_step_ref = csr_frontier_min
