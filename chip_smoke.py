@@ -74,8 +74,8 @@ a non-zero exit and prints no result):
    against the same fixpoint with the plain boolean product on the card;
    ``connected_components_dense`` (K2 with B = 1) against scipy's
    components, each labelled by its least vertex.  Per path: iterations,
-   wall time and K1, K2 and K8 launches.  K8 is timed at the loop's first
-   step and at its last step's input, held to its plain version in row
+   wall time and K1, K2 and K8 launches.  K8 is timed at the inputs of the
+   loop's first, middle and last steps, held to its plain version in row
    blocks of 1,024 (the plain version cannot run whole at this width),
    beside one K2 linear step with its merge and changed test at the same
    inputs; K1 and K2 are timed at M = n;
@@ -1011,7 +1011,8 @@ def measure_rows(torch, name, kernel, plain, args, rows, calls, bound):
     """:func:`measure` for a kernel whose plain version cannot run whole at
     this width: the plain version runs on blocks of :data:`ROW_BLOCK` rows
     (``rows(r0, r1)`` gives its arguments for one block), each block is
-    held to the kernel's rows, and its time is that of all the blocks."""
+    held to the kernel's rows, and its time is that of one more pass over
+    all the blocks (the checked pass warmed it up; a pass takes seconds)."""
     got = kernel(*args)
     got = got if isinstance(got, tuple) else (got,)
     n = got[0].shape[0]
@@ -1025,12 +1026,14 @@ def measure_rows(torch, name, kernel, plain, args, rows, calls, bound):
     del got
     torch.cuda.synchronize()
     ms = time_ms(torch, lambda: kernel(*args), calls)
-
-    def plain_all():
-        for r0, r1 in blocks:
-            plain(*rows(r0, r1))
-
-    plain_ms = time_ms(torch, plain_all, 1, rounds=2)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for r0, r1 in blocks:
+        plain(*rows(r0, r1))
+    stop.record()
+    stop.synchronize()
+    plain_ms = start.elapsed_time(stop)
     bound_ms, bound_by = bound
     say(f"{name}: {ms:.3f} ms (plain in {len(blocks)} row blocks "
         f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by}) at "
@@ -1123,16 +1126,18 @@ def allpairs_phase(results):
                lambda r: r.iterations, {"minplus_matmul": lambda i: i})
 
     def k8_loop():
-        d, mask, trips, last = w, torch.ones(n, dtype=torch.bool,
-                                             device=DEVICE), 0, None
+        d, mask = w, torch.ones(n, dtype=torch.bool, device=DEVICE)
+        inputs = []  # each trip's (d, mask), kept to time K8 at them
         while bool(mask.any()):
-            last = (d, mask)
+            inputs.append((d, mask))
             d, mask = ops.relax(d, w, mask)
-            trips += 1
-        return d, trips, last
+        return d, len(inputs), inputs
 
-    d8, trips, last = path("APSP K8 loop", k8_loop, lambda r: r[1],
-                           {"relax_step": lambda i: i})
+    d8, trips, inputs = path("APSP K8 loop", k8_loop, lambda r: r[1],
+                             {"relax_step": lambda i: i})
+    steps = {"first": inputs[0], "middle": inputs[trips // 2],
+             "last": inputs[-1]}
+    del inputs
     results["relax_step"] = {"launches": trips}
     check(trips == lin.iterations, f"K8 loop: {trips} trips, the linear "
           f"form {lin.iterations} iterations")
@@ -1186,17 +1191,15 @@ def allpairs_phase(results):
     say(f"CC: {k} components, equal to scipy's")
     del cc
 
-    # K8 at the loop's first step and at its last step's input, beside one
-    # K2 linear step with its merge and changed test at the same inputs
+    # K8 at the loop's first, middle and last steps' inputs, beside one K2
+    # linear step with its merge and changed test at the same inputs
     def k2_step(d, mask):
         dm = torch.where(mask[:, None], d, float("inf"))
         dn = torch.minimum(d, minplus.minplus_matmul(dm, w))
         return dn, sn._ne(MIN_PLUS, dn, d).any(-1)
 
     timed = {}
-    for label, (d, mask) in (("first", (w, torch.ones(n, dtype=torch.bool,
-                                                       device=DEVICE))),
-                             ("last", last)):
+    for label, (d, mask) in steps.items():
         got, ref = relax.relax_step(d, w, mask), k2_step(d, mask)
         check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
               f"K8 != K2 + merge at the {label} step")
@@ -1215,7 +1218,7 @@ def allpairs_phase(results):
         {k: timed["first"][k] for k in ("max_abs_err", "ms", "plain_ms",
                                         "bound_ms", "bound_by", "library_ms")})
     phase["k8_timed"] = timed
-    del last
+    del steps, d, mask
 
     # K2 and K1 at M = n: the first linear APSP and TC steps
     fin = torch.isfinite

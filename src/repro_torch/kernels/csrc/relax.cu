@@ -23,8 +23,13 @@
 //    shared memory;
 //  * the Δ mask is applied at load: row m of d enters the A tile as +inf
 //    when delta[m] is false, so no masked (n, n) copy is ever built (400 MB
-//    a step at n = 10,000).  A row tile whose Δ rows are all false runs no
-//    K loop: its epilogue copies the dcur tile to dnew and raises no flag;
+//    a step at n = 10,000).  Each thread reads the mask of its 8 A-tile
+//    rows once, into a bitmask in one register, and its fully unrolled
+//    loads test a bit (a first version read a shared-memory row mask in a
+//    rolled load loop, with the K loop inside a branch, and took about 1.4
+//    times K2's time on the same step; PERF.md).  A row tile whose Δ rows
+//    are all false runs no K loop: its epilogue copies the dcur tile to
+//    dnew and raises no flag;
 //  * a K stage whose A tile is all +inf skips its B load and its compute
 //    (__syncthreads_or), as in K2;
 //  * the epilogue runs while the tile is in registers: it reads the dcur
@@ -60,6 +65,7 @@ constexpr int BK = 32;
 constexpr int THREADS = 256;              // 32 column groups x 8 row groups
 constexpr int RPT = BM / (THREADS / 32);  // rows per thread (8)
 constexpr int CPT = BN / 32;              // columns per thread (4)
+constexpr int LOADS = BM * BK / THREADS;  // A-tile loads per thread (8)
 
 __global__ void __launch_bounds__(THREADS)
 relax_kernel(const float* __restrict__ d, const float* __restrict__ a,
@@ -67,7 +73,6 @@ relax_kernel(const float* __restrict__ d, const float* __restrict__ a,
              uint8_t* __restrict__ changed, int n) {
   __shared__ __align__(16) float a_s[BM][BK];   // 8 KB
   __shared__ __align__(16) float b_s[BK][BN];   // 16 KB
-  __shared__ uint8_t in_delta[BM];
 
   const int tid = threadIdx.x;
   const int cg = tid & 31;  // column group: columns 4*cg .. 4*cg+3
@@ -81,55 +86,59 @@ relax_kernel(const float* __restrict__ d, const float* __restrict__ a,
 #pragma unroll
     for (int c = 0; c < CPT; ++c) acc[r][c] = INFINITY;
 
-  int any_delta = 0;
-  if (tid < BM) {
-    const int gr = row0 + tid;
-    const uint8_t v = (gr < n) ? delta[gr] : (uint8_t)0;
-    in_delta[tid] = v;
-    any_delta = (v != 0);
+  // Load j of the A tile gives this thread row (tid + j*THREADS) / BK of
+  // the tile; bit j of in_delta says whether that row is in Δ.
+  unsigned in_delta = 0;
+#pragma unroll
+  for (int j = 0; j < LOADS; ++j) {
+    const int gr = row0 + (tid + j * THREADS) / BK;
+    if (gr < n && delta[gr]) in_delta |= 1u << j;
   }
-  if (__syncthreads_or(any_delta)) {  // else: no Δ row here, no K loop
-    for (int k0 = 0; k0 < n; k0 += BK) {
-      int live = 0;
-      for (int i = tid; i < BM * BK; i += THREADS) {
-        const int r = i / BK, kk = i % BK;
-        const int gk = k0 + kk;
-        const float v = (in_delta[r] && gk < n)
-                            ? d[(size_t)(row0 + r) * n + gk] : INFINITY;
-        a_s[r][kk] = v;
-        live |= (v != INFINITY);
-      }
-      if (!__syncthreads_or(live)) continue;  // the whole A tile is +inf
+  // a row tile with no Δ row runs no K loop
+  const int k_end = __syncthreads_or(in_delta != 0) ? n : 0;
 
-      for (int i = tid; i < BK * BN; i += THREADS) {
-        const int kk = i / BN, c = i % BN;
-        const int gk = k0 + kk, gc = col0 + c;
-        b_s[kk][c] = (gk < n && gc < n) ? a[(size_t)gk * n + gc] : INFINITY;
-      }
-      __syncthreads();
+  for (int k0 = 0; k0 < k_end; k0 += BK) {
+    int live = 0;
+#pragma unroll
+    for (int j = 0; j < LOADS; ++j) {
+      const int i = tid + j * THREADS;
+      const int r = i / BK, kk = i % BK;
+      const int gk = k0 + kk;
+      const float v = ((in_delta >> j) & 1u) && gk < n
+                          ? d[(size_t)(row0 + r) * n + gk] : INFINITY;
+      a_s[r][kk] = v;
+      live |= (v != INFINITY);
+    }
+    if (!__syncthreads_or(live)) continue;  // the whole A tile is +inf
+
+    for (int i = tid; i < BK * BN; i += THREADS) {
+      const int kk = i / BN, c = i % BN;
+      const int gk = k0 + kk, gc = col0 + c;
+      b_s[kk][c] = (gk < n && gc < n) ? a[(size_t)gk * n + gc] : INFINITY;
+    }
+    __syncthreads();
 
 #pragma unroll
-      for (int kk = 0; kk < BK; kk += 4) {
-        float4 bv[4];
+    for (int kk = 0; kk < BK; kk += 4) {
+      float4 bv[4];
 #pragma unroll
-        for (int u = 0; u < 4; ++u)
-          bv[u] = *reinterpret_cast<const float4*>(&b_s[kk + u][CPT * cg]);
+      for (int u = 0; u < 4; ++u)
+        bv[u] = *reinterpret_cast<const float4*>(&b_s[kk + u][CPT * cg]);
 #pragma unroll
-        for (int r = 0; r < RPT; ++r) {
-          const float4 av =
-              *reinterpret_cast<const float4*>(&a_s[rg * RPT + r][kk]);
-          const float as[4] = {av.x, av.y, av.z, av.w};
+      for (int r = 0; r < RPT; ++r) {
+        const float4 av =
+            *reinterpret_cast<const float4*>(&a_s[rg * RPT + r][kk]);
+        const float as[4] = {av.x, av.y, av.z, av.w};
 #pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            acc[r][0] = fminf(acc[r][0], __fadd_rn(as[u], bv[u].x));
-            acc[r][1] = fminf(acc[r][1], __fadd_rn(as[u], bv[u].y));
-            acc[r][2] = fminf(acc[r][2], __fadd_rn(as[u], bv[u].z));
-            acc[r][3] = fminf(acc[r][3], __fadd_rn(as[u], bv[u].w));
-          }
+        for (int u = 0; u < 4; ++u) {
+          acc[r][0] = fminf(acc[r][0], __fadd_rn(as[u], bv[u].x));
+          acc[r][1] = fminf(acc[r][1], __fadd_rn(as[u], bv[u].y));
+          acc[r][2] = fminf(acc[r][2], __fadd_rn(as[u], bv[u].z));
+          acc[r][3] = fminf(acc[r][3], __fadd_rn(as[u], bv[u].w));
         }
       }
-      __syncthreads();
     }
+    __syncthreads();
   }
 
   // epilogue: merge with the dcur tile and raise the per-row flags
