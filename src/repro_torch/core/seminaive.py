@@ -47,13 +47,6 @@ def _zero_like(sr: Semiring, D: torch.Tensor) -> torch.Tensor:
     return torch.tensor(sr.zero, dtype=D.dtype, device=D.device)
 
 
-def _transpose_arc(sr: Semiring, arc: torch.Tensor) -> torch.Tensor:
-    return arc.T.contiguous()
-
-
-FORMS = ("linear", "nonlinear", "vector", "sandwich", "accumulate")
-
-
 def fixpoint_dense(
     sr: Semiring,
     arc: torch.Tensor,
@@ -78,7 +71,7 @@ def fixpoint_dense(
       'sandwich'    S <- S ⊕ arcᵀ ⊗ (S ⊗ arc)         (same-generation)
       'accumulate'  C = Σ Δ;  Δ <- Δ ⊗ arc             (path counting, +,×)
     """
-    if form not in FORMS:
+    if form not in ("linear", "nonlinear", "vector", "sandwich", "accumulate"):
         raise ValueError(form)
     if matmul is None:
         from ..kernels import ops
@@ -106,7 +99,7 @@ def fixpoint_dense(
 
     # the sandwich form's arcᵀ, made contiguous once (the kernels take
     # contiguous operands; XLA hoists the JAX package's per-step transpose)
-    arc_t = _transpose_arc(sr, arc) if form == "sandwich" else None
+    arc_t = arc.T.contiguous() if form == "sandwich" else None
 
     def step(D, mask):
         rmask = mask if D.ndim == 1 else mask[:, None]

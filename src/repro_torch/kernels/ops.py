@@ -38,24 +38,18 @@ def plustimes_frontier_matmul(frontier: torch.Tensor, w: torch.Tensor
     return ref.plustimes_ref(frontier, w)
 
 
-def _tiles(what: str, kw: dict) -> None:
-    """Accept the JAX kernels' block sizes (one kwargs dict drives both
-    packages); the Hopper kernels keep their own tiles, so they change
-    nothing.  Any other keyword raises."""
-    extra = set(kw) - {"bm", "bn", "bk"}
-    if extra:
-        raise TypeError(f"{what}: unexpected keyword(s) {sorted(extra)}")
-
-
-def minplus(a: torch.Tensor, b: torch.Tensor, **kw) -> torch.Tensor:
-    """The full (m, k) ⊗_min,+ (k, n) product: K2."""
-    _tiles("minplus", kw)
+def minplus(a: torch.Tensor, b: torch.Tensor, *, bm=None, bn=None, bk=None
+            ) -> torch.Tensor:
+    """The full (m, k) ⊗_min,+ (k, n) product: K2.  ``bm``, ``bn`` and
+    ``bk`` are the JAX kernel's block sizes, accepted so that one kwargs
+    dict drives both packages; K2 keeps its own tile."""
     return minplus_matmul(a, b)
 
 
-def boolmm(a: torch.Tensor, b: torch.Tensor, **kw) -> torch.Tensor:
-    """The full (m, k) ⊗_bool (k, n) product: K1."""
-    _tiles("boolmm", kw)
+def boolmm(a: torch.Tensor, b: torch.Tensor, *, bm=None, bn=None, bk=None
+           ) -> torch.Tensor:
+    """The full (m, k) ⊗_bool (k, n) product: K1 (block sizes as
+    :func:`minplus`)."""
     return bool_matmul(a, b)
 
 
