@@ -1083,7 +1083,7 @@ def allpairs_phase(results):
     from repro_torch.kernels import boolmm, minplus, ops, relax
     rng = np.random.default_rng(SEED + 8)
     n = AP_N
-    t0 = time.perf_counter()
+    t_phase = t0 = time.perf_counter()
     edges = gnp_graph(n, AP_P, seed=SEED)
     wedges = _weighted(rng, edges)
     src = torch.from_numpy(edges[:, 0]).to(DEVICE)
@@ -1232,6 +1232,8 @@ def allpairs_phase(results):
         torch, "K1 bool_matmul (M = n)", boolmm.bool_matmul, boolmm.plain,
         (adj, adj), 3, _bound(3 * n * n, live_ops, INT8_OPS_S),
         library=_matmul_call(torch, adj, adj))
+    phase["seconds"] = time.perf_counter() - t_phase
+    say(f"all-pairs phase: {phase['seconds']:.1f} s")
     results["allpairs_phase"] = phase
     del adj, w
     torch.cuda.empty_cache()
