@@ -79,7 +79,29 @@ a non-zero exit and prints no result):
    blocks of 1,024 (the plain version cannot run whole at this width),
    beside one K2 linear step with its merge and changed test at the same
    inputs; K1 and K2 are timed at M = n;
-8. checks: the chosen carriers (and semirings), every kernel's launch count
+8. the LM serving path: RecurrentGemma-2B (``recurrentgemma-2b``) at its
+   published widths and depth (26 layers, 18 ``rg`` and 8 ``local``,
+   d_model 2560, vocab 256,000; 2.89 × 10^9 parameters drawn on the card
+   from a seeded generator, 11.6 GB of f32 masters) prefills 2 × 4,096
+   tokens through ``make_prefill_step`` (cut from ``prefill_32k``, 32,768 ×
+   32: its every-position bf16 logits alone would be 537 GB; S = 4,096 is
+   twice the window, so K9 skips kv tiles on both sides): K9 must launch 8
+   times and K10 18, and nothing else; the prefill's wall time, tokens a
+   second and a ``torch.profiler`` breakdown of its device time (K9, K10,
+   GEMMs, the rest; the idle share).  K9 and K10 are held to their plain
+   versions at the inputs captured from the first ``local`` and ``rg``
+   blocks (K9 within the tolerance of :data:`K9_ATOL`, K10 exactly), timed
+   beside them, their bounds and, for K9, ``scaled_dot_product_attention``
+   on the same tensors (kv repeated, a boolean mask); then at ragged
+   shapes (K9: sq = sk in 1, 63, 130, 2049 across windows (all-masked
+   rows too), softcaps, causal or not, GQA repeats 1/2/10, head dims
+   16/128/256, f32 and bf16; K10: B 1/3, S 1/255/4097, W 1/130/2560).  Then ``launch.serve``'s loop
+   through ``make_serve_step``: batch 4, a 64-token prompt fed token by
+   token, 16 generated; ms a token, every logit finite, and the logits at
+   the prompt's last position against the prefill's on the same tokens
+   (:data:`DECODE_MAX_FRAC`, :data:`DECODE_MEAN_FRAC`), and a profiled
+   decode step;
+9. checks: the chosen carriers (and semirings), every kernel's launch count
    during its path (counts reset just before each path and read just
    after), and the answers of 4 sources per path against oracles that
    share no code with either package: scipy's csgraph for TC and SPATH
@@ -118,6 +140,7 @@ CSR_N, CSR_M, CSR_ALPHA, CSR_BATCH = 2 ** 20, 16_000_000, 0.8, 32
 HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
 INT8_OPS_S = 1979e12
+BF16_OPS_S = 989e12
 
 TC = """
 tc(X,Y) <- arc(X,Y).
@@ -159,6 +182,10 @@ KERNELS = {
                                "src/repro/kernels/spmv.py:359"),
     "relax_step": ("src/repro_torch/kernels/csrc/relax.cu",
                    "src/repro/kernels/relax.py:75"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:95"),
+    "rglru_scan": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
+                   "src/repro/kernels/rglru_scan.py:49"),
 }
 #: K7's ragged cases: (chunk, bn) plans and batch sizes (130 crosses the
 #: 32-row passes more than four times)
@@ -1401,6 +1428,329 @@ def tuned_phase(results, wedges, oracle):
     results["tuned_phase"] = phase
 
 
+# -- phase 8: the LM serving path ----------------------------------------------
+
+#: RecurrentGemma-2B at its published widths and depth; the prefill is cut
+#: from ``prefill_32k`` (32,768 x 32) to B x S (module docstring, phase 8)
+LM_ARCH, LM_BATCH, LM_SEQ = "recurrentgemma-2b", 2, 4096
+DECODE_BATCH, DECODE_PROMPT, DECODE_GEN = 4, 64, 16
+#: K9's ragged cases: sq = sk, windows (0 and -3: causal rows with no
+#: valid key, which softmax to the uniform row, and non-causal windows that
+#: admit only keys past q + 0 or q + 3), softcaps (with a scale of 0.1, as
+#: gemma2 passes ``attn_scale`` beside its softcap), causal or not, GQA
+#: repeats, head dims, f32 and bf16
+K9_SEQS = (1, 63, 130, 2049)
+K9_WINDOWS = (None, 64, 2048, 0, -3)
+K9_SOFTCAPS = (None, 50.0)
+K9_REPS = (1, 2, 10)
+K9_DIMS = (16, 128, 256)
+#: K10's ragged cases: B, S and W
+K10_BATCHES, K10_SEQS, K10_WIDTHS = (1, 3), (1, 255, 4097), (1, 130, 2560)
+#: decode's logits at the prompt's last position against the prefill's on
+#: the same tokens: max |Δ| within DECODE_MAX_FRAC of the largest |logit|,
+#: mean |Δ| within DECODE_MEAN_FRAC.  The two paths compute the same
+#: function, but round bf16 activations after GEMMs of other shapes (M =
+#: 256 rows in the prefill, 4 in a decode step: other kernels, other sum
+#: orders), and the differences compound over 26 layers (the JAX package's
+#: own decode test allows 0.15 on logits near 0.6 for 4-5 layers)
+DECODE_MAX_FRAC, DECODE_MEAN_FRAC = 0.1, 0.02
+#: K9's tolerance against its plain version (the same f32 arithmetic: the
+#: 256-term dots and the softmax sums are taken in another order, and the
+#: online softmax rescales; a bf16 output adds one rounding step of bf16,
+#: 2^-7 of the value): |got - want| <= K9_ATOL * max(1, max|v|) + (bf16
+#: only) 2^-7 * |want|
+K9_ATOL = 5e-5
+
+
+def flash_err(torch, got, want, v) -> float:
+    """K9's output against its plain version's, within :data:`K9_ATOL`
+    (and a bf16 rounding step): returns the max abs error."""
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{got.dtype}{tuple(got.shape)} vs {want.dtype}{tuple(want.shape)}")
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    tol = K9_ATOL * max(1.0, float(v.float().abs().max()))
+    if got.dtype == torch.bfloat16:
+        tol = tol + w.abs() * 2.0 ** -7
+    err = float(diff.max()) if diff.numel() else 0.0
+    check(bool(torch.isfinite(g).all()) and bool((diff <= tol).all()),
+          f"K9 != plain beyond tolerance (max abs err {err})")
+    return err
+
+
+def k9_ragged_parity():
+    """K9 against its plain version within :func:`flash_err`'s tolerance at
+    every case of the ``K9_*`` grids (sq = sk)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 15)
+    t0 = time.perf_counter()
+    cases, worst = 0, {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for s in K9_SEQS:
+        b = 1 if s > 1024 else 2
+        for rep in K9_REPS:
+            hkv = 1 if rep == 10 else 2
+            for d in K9_DIMS:
+                for dtype in (torch.float32, torch.bfloat16):
+                    q, k, v = (torch.randn((b, h, s, d), generator=gen,
+                                           device=DEVICE).to(dtype)
+                               for h in (hkv * rep, hkv, hkv))
+                    for causal in (True, False):
+                        for window in K9_WINDOWS:
+                            for cap in K9_SOFTCAPS:
+                                kw = dict(causal=causal, window=window,
+                                          softcap=cap,
+                                          scale=None if cap is None else 0.1)
+                                err = flash_err(
+                                    torch, fa.flash_attention(q, k, v, **kw),
+                                    fa.plain(q, k, v, **kw), v)
+                                worst[dtype] = max(worst[dtype], err)
+                                cases += 1
+    torch.cuda.synchronize()
+    say(f"parity (K9, ragged): {cases} cases within tolerance (sq = sk "
+        f"{list(K9_SEQS)}, windows {list(K9_WINDOWS)}, softcaps "
+        f"{list(K9_SOFTCAPS)}, causal and not, rep {list(K9_REPS)}, d "
+        f"{list(K9_DIMS)}, f32 and bf16); max abs err f32 "
+        f"{worst[torch.float32]:.3e}, bf16 {worst[torch.bfloat16]:.3e} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
+def k10_ragged_parity():
+    """K10 against its plain version, exactly, at every (B, S, W) of the
+    ``K10_*`` grids."""
+    import torch
+    from repro_torch.kernels import rglru_scan as rg
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 16)
+    cases = 0
+    for b in K10_BATCHES:
+        for s in K10_SEQS:
+            for w in K10_WIDTHS:
+                a = torch.rand((b, s, w), generator=gen, device=DEVICE)
+                a = 0.5 + 0.49 * a
+                x = torch.randn((b, s, w), generator=gen, device=DEVICE)
+                equal_and_err(torch, rg.rglru_scan(a, x), rg.plain(a, x))
+                cases += 1
+    torch.cuda.synchronize()
+    say(f"parity (K10, ragged): {cases} cases exactly equal to plain (B "
+        f"{list(K10_BATCHES)}, S {list(K10_SEQS)}, W {list(K10_WIDTHS)})")
+
+
+#: kernel-name fragments of the device-time breakdown, in the order tried
+KERNEL_CLASSES = (("K9", ("flash_kernel",)), ("K10", ("rglru_scan_kernel",)),
+                  ("GEMM", ("gemm", "nvjet", "xmma", "cutlass")))
+
+
+def profile_breakdown(torch, label, fn, top=6):
+    """Device time of one call of ``fn`` by kernel class (K9, K10, GEMM,
+    the rest), the top kernels by name and the device's idle share of the
+    synced wall time, from ``torch.profiler``.  Returns None (and says
+    "not measured") when the trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        kernels[e.key] = (kernels.get(e.key, (0.0, 0))[0] + us / 1e3,
+                          kernels.get(e.key, (0.0, 0))[1] + e.count)
+    busy = sum(ms for ms, _ in kernels.values())
+    if busy <= 0:
+        say(f"{label} breakdown: not measured (no device time in the trace)")
+        return None
+    classes = {}
+    for name, (ms, _) in kernels.items():
+        cls = next((c for c, frags in KERNEL_CLASSES
+                    if any(f in name.lower() for f in frags)), "other")
+        classes[cls] = classes.get(cls, 0.0) + ms
+    tops = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:top]
+    out = {"wall_ms": wall_ms, "device_ms": busy,
+           "idle_share": max(0.0, 1.0 - busy / wall_ms),
+           "classes_ms": classes,
+           "top": [(name[:80], ms, n) for name, (ms, n) in tops]}
+    say(f"{label} breakdown (torch.profiler, traced): wall {wall_ms:.2f} ms, "
+        f"device {busy:.2f} ms, idle {out['idle_share']:.3f}; "
+        + ", ".join(f"{c} {ms:.2f} ms" for c, ms in sorted(
+            classes.items(), key=lambda kv: -kv[1])))
+    for name, ms, n in out["top"]:
+        say(f"  {ms:9.3f} ms  {n:5d} x  {name}")
+    return out
+
+
+def _spy(captured, name, fn):
+    """``fn``, recording the arguments of its first call under ``name``."""
+    def spy(*args, **kw):
+        captured.setdefault(name, (args, kw))
+        return fn(*args, **kw)
+    return spy
+
+
+def _k9_bound(torch, q, k, v, kw):
+    """K9's bound: 4·d flops a live (query, key) pair of every (batch, q
+    head) over the bf16 tensor-core peak, against q, k, v and o read or
+    written once."""
+    b, hq, sq, d = q.shape
+    qp = torch.arange(sq, device=q.device)[:, None]
+    kp = torch.arange(k.shape[2], device=q.device)[None, :]
+    ok = torch.ones((sq, k.shape[2]), dtype=torch.bool, device=q.device)
+    if kw.get("causal", True):
+        ok &= qp >= kp
+    if kw.get("window") is not None:
+        ok &= (qp - kp) < kw["window"]
+    live = int(ok.sum())
+    bytes_ = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    return _bound(bytes_, 4 * b * hq * d * live, BF16_OPS_S), live, ok
+
+
+def _k9_at_path(torch, q, k, v, kw):
+    """K9 at the prefill's first ``local`` block inputs: held to its plain
+    version within :func:`flash_err`'s tolerance, timed beside it, its
+    bound and ``scaled_dot_product_attention`` (kv heads repeated, a
+    boolean causal/window mask; timed only)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    err = flash_err(torch, fa.flash_attention(q, k, v, **kw),
+                    fa.plain(q, k, v, **kw), v)
+    (bound_ms, bound_by), live, ok = _k9_bound(torch, q, k, v, kw)
+    ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, **kw), 10)
+    plain_ms = time_ms(torch, lambda: fa.plain(q, k, v, **kw), 2)
+    rep = q.shape[1] // k.shape[1]
+    kx, vx = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, kx, vx, attn_mask=ok, scale=kw.get("scale")), 10)
+    say(f"flash_attention (K9): {ms:.3f} ms (plain {plain_ms:.3f} ms, "
+        f"sdpa {lib_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by}; "
+        f"{live} live pairs a head) at q {tuple(q.shape)} {q.dtype}, kv "
+        f"{tuple(k.shape)}, {kw}; max abs err {err:.3e}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def lm_phase(results):
+    """The LM serving path (module docstring, phase 8)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rglru_scan as rg
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.model import Model
+    from repro_torch.train import make_prefill_step, make_serve_step
+    t_phase = t0 = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    model = Model(cfg, device=DEVICE).init(
+        torch.Generator(device=DEVICE).manual_seed(SEED))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    say(f"{LM_ARCH}: {len(model.layers)} layers ({model.ltypes.count('rg')} "
+        f"rg, {model.ltypes.count('local')} local), d_model {cfg.d_model}, "
+        f"vocab {model.vocab}: {n_params} parameters, "
+        f"{n_params * 4 / 1e9:.2f} GB f32, drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED)
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab, (LM_BATCH, LM_SEQ))).to(DEVICE)}
+    prefill = make_prefill_step(model)
+
+    # a first prefill, its K9/K10 inputs captured; then the counted run
+    captured = {}
+    flash, rglru = ops.flash, ops.rglru
+    ops.flash = _spy(captured, "flash", flash)
+    ops.rglru = _spy(captured, "rglru", rglru)
+    try:
+        t0 = time.perf_counter()
+        prefill(batch)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+    finally:
+        ops.flash, ops.rglru = flash, rglru
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    last = prefill(batch)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    n_local, n_rg = model.ltypes.count("local"), model.ltypes.count("rg")
+    check(counts["flash_attention"] == n_local and counts["rglru_scan"] == n_rg,
+          f"prefill launches K9 {counts['flash_attention']} (want {n_local}), "
+          f"K10 {counts['rglru_scan']} (want {n_rg})")
+    check(not any(v for k, v in counts.items()
+                  if k not in ("flash_attention", "rglru_scan")),
+          f"prefill launched other kernels: {counts}")
+    check(last.shape == (LM_BATCH, model.vocab)
+          and bool(torch.isfinite(last.float()).all()),
+          f"prefill logits {tuple(last.shape)} not all finite")
+    tokens = LM_BATCH * LM_SEQ
+    say(f"prefill ({LM_BATCH} x {LM_SEQ} tokens): {secs:.3f} s synced, "
+        f"{tokens / secs:.0f} tokens/s (first call {cold:.3f} s); launches "
+        f"K9 {counts['flash_attention']}, K10 {counts['rglru_scan']}; peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    del last
+    phase = {"prefill_s": secs, "prefill_cold_s": cold,
+             "prefill_tokens_per_s": tokens / secs, "params": n_params,
+             "prefill_breakdown": profile_breakdown(
+                 torch, "prefill", lambda: prefill(batch))}
+
+    # the kernels at the path's inputs, then at ragged shapes
+    (q, k, v), kw = captured["flash"]
+    results["flash_attention"] = {
+        "launches": counts["flash_attention"], **_k9_at_path(torch, q, k, v,
+                                                             kw)}
+    (a, b), _ = captured["rglru"]
+    results["rglru_scan"] = {
+        "launches": counts["rglru_scan"],
+        **measure(torch, "rglru_scan (K10)", rg.rglru_scan, rg.plain, (a, b),
+                  20, _bound(12 * a.numel(), 2 * a.numel(), F32_OPS_S))}
+    del captured, q, k, v, a, b
+    k9_ragged_parity()
+    k10_ragged_parity()
+
+    # decode: the serve loop, checked against the prefill on its prompt
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (DECODE_BATCH, DECODE_PROMPT))).to(DEVICE)
+    want = prefill({"tokens": prompts}).float()
+    out = generate(model, prompts, DECODE_GEN)
+    check(bool(torch.isfinite(out["logits"].float()).all()),
+          "decode logits not all finite")
+    got = out["logits"][:, DECODE_PROMPT - 1].float()
+    diff = (got - want).abs()
+    scale = float(want.abs().max())
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    check(float(diff.max()) <= DECODE_MAX_FRAC * scale
+          and float(diff.mean()) <= DECODE_MEAN_FRAC * scale,
+          f"decode vs prefill logits: max {float(diff.max())}, mean "
+          f"{float(diff.mean())}, largest |logit| {scale}")
+    ms_tok = out["seconds"] / DECODE_GEN * 1e3
+    say(f"decode (batch {DECODE_BATCH}, {DECODE_PROMPT}-token prompt fed "
+        f"token by token, {DECODE_GEN} generated): {ms_tok:.2f} ms a token "
+        f"({DECODE_BATCH * 1e3 / ms_tok:.0f} tokens/s); prompt-end logits "
+        f"vs prefill: max |d| {float(diff.max()):.4f}, mean "
+        f"{float(diff.mean()):.5f} (largest |logit| {scale:.3f}), argmax "
+        f"agrees on {agree:.2f} of rows")
+    serve = make_serve_step(model)
+    cache = model.init_cache(DECODE_BATCH, DECODE_PROMPT + 1)
+    for t in range(DECODE_PROMPT):
+        _, _, cache = serve(cache, prompts[:, t], t)
+    phase["decode_breakdown"] = profile_breakdown(
+        torch, "decode step", lambda: serve(cache, prompts[:, 0],
+                                            DECODE_PROMPT))
+    phase.update(decode_ms_per_token=ms_tok, decode_max_abs=float(diff.max()),
+                 decode_mean_abs=float(diff.mean()), logit_scale=scale,
+                 argmax_agree=agree, seconds=time.perf_counter() - t_phase)
+    say(f"LM phase: {phase['seconds']:.1f} s")
+    del model, prefill, serve, out, cache
+    torch.cuda.empty_cache()
+    results["lm_phase"] = phase
+
+
 def main():
     t_start = time.perf_counter()
     card = check_device()
@@ -1417,6 +1767,7 @@ def main():
     dag_phase(results, edges)
     del edges
     allpairs_phase(results)
+    lm_phase(results)
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          **{k: results[name][k] for k in (
@@ -1426,7 +1777,7 @@ def main():
     say("phases: " + json.dumps({k: results[k]
                                  for k in ("dense_phase", "csr_phase",
                                            "tuned_phase", "dag_phase",
-                                           "allpairs_phase")}))
+                                           "allpairs_phase", "lm_phase")}))
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(card)
     say(json.dumps(line))

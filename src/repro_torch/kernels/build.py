@@ -23,7 +23,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("boolmm", "minplus", "spmv", "relax")
+SOURCES = ("boolmm", "minplus", "spmv", "relax", "flash_attention",
+           "rglru_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -32,7 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES = {"bool_matmul": 0, "minplus_matmul": 0, "maxplus_matmul": 0,
             "csr_bool_step": 0, "csr_minplus_step": 0, "csr_maxplus_step": 0,
             "csr_plustimes_step": 0, "csr_minplus_tiled_step": 0,
-            "relax_step": 0}
+            "relax_step": 0, "flash_attention": 0, "rglru_scan": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -12,9 +12,11 @@ import torch
 
 from . import build, ref
 from .boolmm import bool_frontier_matmul, bool_matmul
+from .flash_attention import flash_attention
 from .minplus import (maxplus_frontier_matmul, minplus_frontier_matmul,
                       minplus_matmul)
 from .relax import relax_step
+from .rglru_scan import rglru_scan
 from .spmv import (csr_bool_step, csr_maxplus_step, csr_minplus_step,
                    csr_minplus_tiled_step, csr_plustimes_step)
 
@@ -56,6 +58,17 @@ def boolmm(a: torch.Tensor, b: torch.Tensor, *, bm=None, bn=None, bk=None
 def relax(d: torch.Tensor, a: torch.Tensor, delta_mask: torch.Tensor, **kw):
     """One fused min-plus relaxation step, ``(d_new, changed)``: K8."""
     return relax_step(d, a, delta_mask, **kw)
+
+
+def flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, **kw
+          ) -> torch.Tensor:
+    """Forward GQA attention in the JAX kernel layout (b, h, s, d): K9."""
+    return flash_attention(q, k, v, **kw)
+
+
+def rglru(a: torch.Tensor, b: torch.Tensor, **kw) -> torch.Tensor:
+    """The RG-LRU recurrence ``h_t = a_t h_{t-1} + b_t``, (B, S, W): K10."""
+    return rglru_scan(a, b, **kw)
 
 
 def semiring_matmul(name: str):

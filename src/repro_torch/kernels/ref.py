@@ -1,6 +1,9 @@
 """Plain PyTorch versions of the CUDA kernels: the CPU path and the oracles
-the kernels are held to on the card (exact equality)."""
+the kernels are held to on the card (exact equality; K9 within a stated
+tolerance, its f32 sums being taken in another order)."""
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -42,6 +45,56 @@ def relax_ref(d: torch.Tensor, a: torch.Tensor, delta_mask: torch.Tensor):
                      torch.tensor(float("inf"), device=d.device))
     merged = torch.minimum(d, minplus_ref(dm, a))
     return merged, (merged < d).any(1)
+
+
+#: the masked-logit value of the attention kernels (not -inf: a row whose
+#: keys are all masked softmaxes to a uniform row, as in the JAX package)
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int | None = None,
+                        softcap: float | None = None,
+                        scale: float | None = None) -> torch.Tensor:
+    """q: (b, hq, sq, d); k/v: (b, hkv, sk, d) -> (b, hq, sq, d) in
+    ``q.dtype``.  GQA by repeating each kv head ``hq // hkv`` times; f32
+    scores, a logit softcap ``cap·tanh(s/cap)`` before the causal/window
+    mask (``-1e30``, positions ``arange(sq)`` and ``arange(sk)``), softmax
+    and the f32 value product, as the JAX ``ref.flash_attention_ref``."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    scale = scale or (1.0 / math.sqrt(d))
+    kx = k.repeat_interleave(rep, dim=1).to(torch.float32)
+    vx = v.repeat_interleave(rep, dim=1).to(torch.float32)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32) * scale, kx)
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    qp = torch.arange(sq, device=q.device)[:, None]
+    kp = torch.arange(sk, device=q.device)[None, :]
+    ok = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= qp >= kp
+    if window is not None:
+        ok &= (qp - kp) < window
+    s = torch.where(ok, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vx).to(q.dtype)
+
+
+def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a, b: (B, S, W) -> h (B, S, W) f32, ``h_t = a_t·h_{t-1} + b_t`` from
+    ``h_0 = 0``: the sequential recurrence in f32, one rounded product and
+    one rounded sum a step, as the Pallas body computes it (the JAX
+    package's own oracle is an associative scan, equal within rounding)."""
+    a = a.to(torch.float32)
+    b = b.to(torch.float32)
+    out = torch.empty_like(a)
+    h = torch.zeros_like(a[:, 0])
+    for t in range(a.shape[1]):
+        h = torch.add(torch.mul(a[:, t], h), b[:, t])
+        out[:, t] = h
+    return out
 
 
 #: one CSR frontier step per carrier (spine + COO tail)

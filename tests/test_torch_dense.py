@@ -296,8 +296,10 @@ def test_wrappers_route_by_device():
     assert set(before) == {"bool_matmul", "minplus_matmul", "maxplus_matmul",
                            "csr_bool_step", "csr_minplus_step",
                            "csr_maxplus_step", "csr_plustimes_step",
-                           "csr_minplus_tiled_step", "relax_step"}
-    assert build.SOURCES == ("boolmm", "minplus", "spmv", "relax")
+                           "csr_minplus_tiled_step", "relax_step",
+                           "flash_attention", "rglru_scan"}
+    assert build.SOURCES == ("boolmm", "minplus", "spmv", "relax",
+                             "flash_attention", "rglru_scan")
 
 
 @pytest.mark.parametrize("name", ["bool", "min_plus", "max_plus",
