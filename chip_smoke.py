@@ -23,7 +23,12 @@ a non-zero exit and prints no result):
    split into several work units and a COO tail made by ``csr_append``;
    then K8 (the fused relaxation step) against its plain version at n = 1,
    50, 130, 1000 and 1025, with Δ masks all true, all false and random with
-   a whole 64-row tile false, and a ``d`` with whole +inf rows;
+   a whole 64-row tile false, and a ``d`` with whole +inf rows; then the
+   JAX API's raw-triple CSR entries (``ops.csr_bool``, ``csr_minplus``,
+   ``csr_maxplus``, ``csr_plustimes``, ``csr_minplus_tiled``) against
+   their plain versions, exactly, on the spine and on the COO-tail arrays
+   of a CSR with a hub, each call launching its kernel (K3, K4, K6, K5,
+   K7) once;
 4. dense main path: ``DatalogService`` TC and SPATH on ``gnp_graph(10_000,
    0.1)`` (the paper's Table-6 Gn-p family; density 0.1 picks the dense
    carrier), ``ask_batch`` of 100 sources, a second batch of 100, a repeat
@@ -86,7 +91,8 @@ a non-zero exit and prints no result):
    tokens through ``make_prefill_step`` (cut from ``prefill_32k``, 32,768 ×
    32: its every-position bf16 logits alone would be 537 GB; S = 4,096 is
    twice the window, so K9 skips kv tiles on both sides): K9 must launch 8
-   times and K10 18, and nothing else; the prefill's wall time, tokens a
+   times on its tensor-core route (bf16) and K10 18, and nothing else (its
+   f32 route included); the prefill's wall time, tokens a
    second and a ``torch.profiler`` breakdown of its device time (K9, K10,
    GEMMs, the rest; the idle share).  K9 and K10 are held to their plain
    versions at the inputs captured from the first ``local`` and ``rg``
@@ -95,7 +101,9 @@ a non-zero exit and prints no result):
    on the same tensors (kv repeated, a boolean mask); then at ragged
    shapes (K9: sq = sk in 1, 63, 130, 2049 across windows (all-masked
    rows too), softcaps, causal or not, GQA repeats 1/2/10, head dims
-   16/128/256, f32 and bf16; K10: B 1/3, S 1/255/4097, W 1/130/2560).  Then ``launch.serve``'s loop
+   16/128/256, bf16 on the tensor-core route and f32 on the CUDA-core
+   route, each case checked to launch its route; K10: B 1/3, S
+   1/255/4097, W 1/130/2560).  Then ``launch.serve``'s loop
    through ``make_serve_step``: batch 4, a 64-token prompt fed token by
    token, 16 generated; ms a token, every logit finite, and the logits at
    the prompt's last position against the prefill's on the same tokens
@@ -446,6 +454,82 @@ def k8_ragged_parity():
     torch.cuda.synchronize()
     say(f"parity (K8, ragged): {cases} cases exactly equal to plain "
         f"(n {list(K8_SIZES)}; masks all, none, random with a false tile)")
+
+
+def _counted(counter: str, fn):
+    """``fn()``, checked to have launched the kernel counted by ``counter``
+    once and no other kernel."""
+    from repro_torch.kernels import ops
+    before = ops.launch_counts()
+    out = fn()
+    after = ops.launch_counts()
+    moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    check(moved == {counter: 1}, f"launched {moved}, want {counter} once")
+    return out
+
+
+def raw_entry_parity():
+    """The JAX API's raw-triple CSR entries (``ops.csr_bool``,
+    ``csr_minplus``, ``csr_maxplus``, ``csr_plustimes``: K3, K4, K6, K5;
+    ``csr_minplus_tiled``: K7) against their plain versions, exactly, each
+    call launching its kernel once: on the spine arrays (sentinel pads
+    included) and on the COO-tail arrays of a CSR whose vertex 1 has
+    in-degree 2,500 (a hub), B = 32; K7 at plans (32, 128) and (16, 64)
+    of the spine, also against the untiled plain step.  Plus-times counts
+    are small integers, so its sums are exact integers below 2^24."""
+    import torch
+    from repro_torch.core import sparse
+    from repro_torch.kernels import ops, ref
+    rng = np.random.default_rng(SEED + 17)
+    n, B = 3000, 32
+    edges, tail = _ragged_graph(rng, n, 20000, 2500)
+    cases = 0
+    for kind, entry, counter, hi, frontier in (
+            ("bool", ops.csr_bool, "csr_bool_step", 0,
+             lambda: rng.random((B, n)) < 0.1),
+            ("minplus", ops.csr_minplus, "csr_minplus_step", 10,
+             lambda: _rand_dist(rng, (B, n), 0.1)),
+            ("maxplus", ops.csr_maxplus, "csr_maxplus_step", 10,
+             lambda: _neg_inf(_rand_dist(rng, (B, n), 0.1))),
+            ("plustimes", ops.csr_plustimes, "csr_plustimes_step", 4,
+             lambda: _rand_count(rng, (B, n), 0.1))):
+        rows, trows = edges, tail
+        if hi:
+            rows = np.concatenate([edges, rng.integers(1, hi, (len(edges),
+                                                               1))], 1)
+            trows = np.concatenate([tail, rng.integers(1, hi, (len(tail),
+                                                               1))], 1)
+        csr = _hand_tailed_csr(kind, n, rows, trows, DEVICE)
+        f = torch.from_numpy(frontier()).to(DEVICE)
+        for arcs in ((csr.src_idx, csr.col_idx, csr.edge_val),
+                     (csr.tail_src, csr.tail_dst, csr.tail_val)):
+            got = _counted(counter, lambda: entry(f, *arcs))
+            equal_and_err(torch, got, ref.csr_raw_ref(kind, f, *arcs))
+            if kind == "plustimes":
+                check(bool((got == got.round()).all())
+                      and float(got.max()) < 2 ** 24,
+                      "csr_plustimes: sums not exact integers below 2^24")
+            cases += 1
+    weighted = np.concatenate([edges, rng.integers(1, 10, (len(edges), 1))],
+                              1)
+    for plan in ((32, 128), (16, 64)):
+        csr = sparse.build_csr(weighted, n, "minplus", kernel_plan=plan,
+                               device=DEVICE)
+        f = torch.from_numpy(_rand_dist(rng, (B, n), 0.1)).to(DEVICE)
+        arcs = (csr.src_idx, csr.col_idx, csr.edge_val)
+        chunk, bn = csr.plan_cfg
+        got = _counted("csr_minplus_tiled_step", lambda: ops.csr_minplus_tiled(
+            f, *arcs, csr.plan_tile, csr.plan_chunk, csr.plan_first,
+            chunk=chunk, bn=bn))
+        equal_and_err(torch, got, ref.csr_raw_minplus_tiled_ref(
+            f, *arcs, csr.plan_tile, csr.plan_chunk, chunk, bn))
+        equal_and_err(torch, got, ref.csr_raw_ref("minplus", f, *arcs))
+        cases += 1
+    torch.cuda.synchronize()
+    say(f"parity (raw-triple CSR entries): {cases} cases exactly equal to "
+        f"plain, each launching its kernel (K3/K4/K6/K5 on spine and tail "
+        f"arrays, K7 at plans (32, 128) and (16, 64); n {n}, B {B}, a hub "
+        f"of in-degree 2500)")
 
 
 # -- phases 4-7: the main path ------------------------------------------------
@@ -1480,7 +1564,9 @@ def flash_err(torch, got, want, v) -> float:
 
 def k9_ragged_parity():
     """K9 against its plain version within :func:`flash_err`'s tolerance at
-    every case of the ``K9_*`` grids (sq = sk)."""
+    every case of the ``K9_*`` grids (sq = sk): bf16 cases on the
+    tensor-core kernel, f32 cases on the CUDA-core kernel, each call
+    checked to have launched its dtype's kernel."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 15)
@@ -1492,6 +1578,7 @@ def k9_ragged_parity():
             hkv = 1 if rep == 10 else 2
             for d in K9_DIMS:
                 for dtype in (torch.float32, torch.bfloat16):
+                    counter = fa.ROUTES[dtype][1]
                     q, k, v = (torch.randn((b, h, s, d), generator=gen,
                                            device=DEVICE).to(dtype)
                                for h in (hkv * rep, hkv, hkv))
@@ -1501,18 +1588,20 @@ def k9_ragged_parity():
                                 kw = dict(causal=causal, window=window,
                                           softcap=cap,
                                           scale=None if cap is None else 0.1)
-                                err = flash_err(
-                                    torch, fa.flash_attention(q, k, v, **kw),
-                                    fa.plain(q, k, v, **kw), v)
+                                got = _counted(counter, lambda: (
+                                    fa.flash_attention(q, k, v, **kw)))
+                                err = flash_err(torch, got,
+                                                fa.plain(q, k, v, **kw), v)
                                 worst[dtype] = max(worst[dtype], err)
                                 cases += 1
     torch.cuda.synchronize()
     say(f"parity (K9, ragged): {cases} cases within tolerance (sq = sk "
         f"{list(K9_SEQS)}, windows {list(K9_WINDOWS)}, softcaps "
         f"{list(K9_SOFTCAPS)}, causal and not, rep {list(K9_REPS)}, d "
-        f"{list(K9_DIMS)}, f32 and bf16); max abs err f32 "
-        f"{worst[torch.float32]:.3e}, bf16 {worst[torch.bfloat16]:.3e} "
-        f"({time.perf_counter() - t0:.1f} s)")
+        f"{list(K9_DIMS)}; {cases // 2} f32 cases on the CUDA cores, "
+        f"{cases // 2} bf16 on the tensor cores); max abs err f32 (CUDA "
+        f"cores) {worst[torch.float32]:.3e}, bf16 (tensor cores) "
+        f"{worst[torch.bfloat16]:.3e} ({time.perf_counter() - t0:.1f} s)")
 
 
 def k10_ragged_parity():
@@ -1615,11 +1704,13 @@ def _k9_at_path(torch, q, k, v, kw):
     """K9 at the prefill's first ``local`` block inputs: held to its plain
     version within :func:`flash_err`'s tolerance, timed beside it, its
     bound and ``scaled_dot_product_attention`` (kv heads repeated, a
-    boolean causal/window mask; timed only)."""
+    boolean causal/window mask; timed only).  Says which route ran."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
-    err = flash_err(torch, fa.flash_attention(q, k, v, **kw),
-                    fa.plain(q, k, v, **kw), v)
+    route = fa.ROUTES[q.dtype][1]
+    got = _counted(route, lambda: fa.flash_attention(q, k, v, **kw))
+    err = flash_err(torch, got, fa.plain(q, k, v, **kw), v)
+    del got
     (bound_ms, bound_by), live, ok = _k9_bound(torch, q, k, v, kw)
     ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, **kw), 10)
     plain_ms = time_ms(torch, lambda: fa.plain(q, k, v, **kw), 2)
@@ -1627,10 +1718,10 @@ def _k9_at_path(torch, q, k, v, kw):
     kx, vx = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
     lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
         q, kx, vx, attn_mask=ok, scale=kw.get("scale")), 10)
-    say(f"flash_attention (K9): {ms:.3f} ms (plain {plain_ms:.3f} ms, "
-        f"sdpa {lib_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by}; "
-        f"{live} live pairs a head) at q {tuple(q.shape)} {q.dtype}, kv "
-        f"{tuple(k.shape)}, {kw}; max abs err {err:.3e}")
+    say(f"flash_attention (K9, route {route}): {ms:.3f} ms (plain "
+        f"{plain_ms:.3f} ms, sdpa {lib_ms:.3f} ms, bound {bound_ms:.4f} ms "
+        f"by {bound_by}; {live} live pairs a head) at q {tuple(q.shape)} "
+        f"{q.dtype}, kv {tuple(k.shape)}, {kw}; max abs err {err:.3e}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
 
@@ -1679,9 +1770,12 @@ def lm_phase(results):
     secs = time.perf_counter() - t0
     counts = ops.launch_counts()
     n_local, n_rg = model.ltypes.count("local"), model.ltypes.count("rg")
+    # K9's bf16 inputs take the tensor-core route (counter
+    # "flash_attention"); its f32 route ("flash_attention_f32") is one of
+    # the other kernels, which must not launch
     check(counts["flash_attention"] == n_local and counts["rglru_scan"] == n_rg,
-          f"prefill launches K9 {counts['flash_attention']} (want {n_local}), "
-          f"K10 {counts['rglru_scan']} (want {n_rg})")
+          f"prefill launches K9 {counts['flash_attention']} on the tensor "
+          f"cores (want {n_local}), K10 {counts['rglru_scan']} (want {n_rg})")
     check(not any(v for k, v in counts.items()
                   if k not in ("flash_attention", "rglru_scan")),
           f"prefill launched other kernels: {counts}")
@@ -1691,7 +1785,8 @@ def lm_phase(results):
     tokens = LM_BATCH * LM_SEQ
     say(f"prefill ({LM_BATCH} x {LM_SEQ} tokens): {secs:.3f} s synced, "
         f"{tokens / secs:.0f} tokens/s (first call {cold:.3f} s); launches "
-        f"K9 {counts['flash_attention']}, K10 {counts['rglru_scan']}; peak "
+        f"K9 {counts['flash_attention']} (tensor cores), K10 "
+        f"{counts['rglru_scan']}; peak "
         f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
     del last
     phase = {"prefill_s": secs, "prefill_cold_s": cold,
@@ -1759,6 +1854,7 @@ def main():
     ragged_parity()
     k7_ragged_parity()
     k8_ragged_parity()
+    raw_entry_parity()
     results: dict = {}
     dense_phase(results)
     edges, wedges, sp_oracle = csr_phase(results)

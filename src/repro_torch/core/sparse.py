@@ -496,6 +496,19 @@ def csr_frontier_sum(frontier: torch.Tensor, csr: CSRMatrix) -> torch.Tensor:
     return out[0] if frontier.ndim == 1 else out
 
 
+_FRONTIER_STEPS = {"bool": csr_frontier_or, "minplus": csr_frontier_min,
+                   "maxplus": csr_frontier_max, "plustimes": csr_frontier_sum}
+
+
+def csr_frontier_step(kind: str) -> Callable:
+    """The plain step of a carrier (``kind``: 'bool' | 'minplus' |
+    'maxplus' | 'plustimes'), as the JAX module's; an unknown kind raises
+    :class:`~repro_torch.core.semiring.CarrierError`.  The kernel-backed
+    steps are ``kernels.ops.csr_frontier_step``."""
+    carrier_for(kind)
+    return _FRONTIER_STEPS[kind]
+
+
 def rows_from_sources(csr: CSRMatrix, srcs, spmv: Callable | None = None
                       ) -> torch.Tensor:
     """The adjacency rows ``A[srcs]`` without materializing A: seed a ⊗-one
@@ -583,6 +596,20 @@ def fixpoint_csr_cached(csr: CSRMatrix, init: torch.Tensor,
     if max_iters is None:
         max_iters = _default_max_iters(csr, init)
     return fixpoint_csr(csr, init, spmv=spmv, max_iters=max_iters)
+
+
+def reachable_batch_csr(csr: CSRMatrix, srcs, spmv=None,
+                        max_iters: int | None = None) -> DenseResult:
+    """``?- tc(s, Y)`` for a batch of sources over packed arcs."""
+    return fixpoint_csr_cached(csr, rows_from_sources(csr, srcs, spmv),
+                               spmv=spmv, max_iters=max_iters)
+
+
+def distances_batch_csr(csr: CSRMatrix, srcs, spmv=None,
+                        max_iters: int | None = None) -> DenseResult:
+    """``?- spath(s, Z, D)`` for a batch of sources (min-plus carrier)."""
+    return fixpoint_csr_cached(csr, rows_from_sources(csr, srcs, spmv),
+                               spmv=spmv, max_iters=max_iters)
 
 
 def counts_batch_csr(csr: CSRMatrix, srcs, spmv=None,

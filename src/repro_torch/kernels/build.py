@@ -33,7 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES = {"bool_matmul": 0, "minplus_matmul": 0, "maxplus_matmul": 0,
             "csr_bool_step": 0, "csr_minplus_step": 0, "csr_maxplus_step": 0,
             "csr_plustimes_step": 0, "csr_minplus_tiled_step": 0,
-            "relax_step": 0, "flash_attention": 0, "rglru_scan": 0}
+            "relax_step": 0, "flash_attention": 0, "flash_attention_f32": 0,
+            "rglru_scan": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -1,4 +1,4 @@
-// K9 — forward attention with an online softmax, on the CUDA cores:
+// K9 — forward attention with an online softmax:
 //
 //   o[g, i] = Σ_j softmax_j(mask(cap·tanh(scale·q[g,i]·k[kv(g),j] / cap))) · v[kv(g), j]
 //
@@ -10,60 +10,96 @@
 // Replaces: src/repro/kernels/flash_attention.py, `flash_attention` /
 // `_flash_kernel`, the TPU kernel that carries (m, l, acc) in VMEM scratch
 // across an in-order KV grid axis, one (b·hq row, q tile, kv tile) grid step
-// at a time, over every kv tile of the row.
+// at a time, over every kv tile of the row.  The TPU kernel is f32 from end
+// to end: q, k and v cast to f32, f32 dots, an f32 p in P·V.
+//
+// Two kernels, one per input dtype:
+//
+//  * flash_kernel_tc (bf16 q, k, v: the prefill's path) — on the tensor
+//    cores, `mma.sync.m16n8k16` with bf16 operands and f32 accumulators;
+//  * flash_kernel (f32 q, k, v) — on the CUDA cores in f32, the first
+//    version of this kernel, kept for f32 inputs (a bf16 split of f32 q and
+//    k would not hold the scores to f32).
 //
 // What bounds it on the H100: operations.  At the prefill shape of
 // RecurrentGemma-2B (b = 2, hq = 10, MQA, s = 4096, window 2048, head_dim
 // 256) the live (query, key) pairs are 6.29 M a head, 4·d flops each:
 // 1.29·10^11 flops a layer, 0.13 ms at the 989 TFLOP/s of bf16 tensor
-// cores, against 92 MB of q, k, v and o (0.027 ms at 3.35 TB/s).  This
-// first kernel runs in f32 on the CUDA cores (67 TFLOP/s peak), as the
-// Pallas body computes (inputs cast to f32 at load, f32 dots): bf16
-// mma/wgmma with a bf16 P is a later redesign.
+// cores, against 92 MB of q, k, v and o (0.027 ms at 3.35 TB/s).  The f32
+// kernel runs at the 67 TFLOP/s of the CUDA cores (60x the bound); the
+// tensor-core kernel does 6·d flops a live pair (the split below) through
+// `mma.sync`, which reaches about two thirds of the `wgmma` peak, and each
+// warp reads the whole K and V tile from shared memory (ldmatrix) for its 16
+// rows, so shared-memory bandwidth sits beside the MMA rate as its limit.
 //
-// Design:
-//  * a block (8 warps) owns one (b·hq row, 64-query tile) and loops over
-//    32-key tiles inside, carrying (m, l, acc) in registers: each warp owns
-//    8 query rows, each lane one key of the tile for the scores and the
-//    columns lane, lane + 32, … of the output (acc is 8 × d/32 a thread);
-//    the TPU's sequential kv grid axis becomes this loop;
+// The tensor-core kernel's numbers (why it holds the f32 kernel's
+// tolerance):
+//  * S = Q·Kᵀ: bf16 × bf16 products are exact in f32 and accumulate in f32,
+//    so the scores differ from the f32 kernel's only in summation order.
+//    `scale` multiplies the f32 scores after the product (q is never scaled
+//    in bf16, which would round it whenever scale is not a power of two);
+//    softcap, mask, row max, exp and the row sum l are f32, as before.
+//  * P·V with P split in two: P_hi = bf16(p), P_lo = bf16(p − P_hi), and
+//    acc += P_hi·V + P_lo·V, two MMAs into one f32 accumulator.  V is bf16,
+//    so exact; |p − P_hi − P_lo| ≤ 2^-16·p, so the output is within about
+//    1.5e-5·max|v| of an f32 P·V (a single bf16 P would give 2^-8·p: about
+//    1e-3 on a row whose output nearly cancels).  The split costs one more
+//    MMA per P·V step: 6·d flops a live pair in place of 4·d.
+//  * The m16n8 C fragment of S is, element for element, the A fragment of
+//    the m16n8k16 P·V product, so P never leaves registers; V's B fragments
+//    come through `ldmatrix.trans`, K's and Q's through `ldmatrix`.
+//
+// Tiles and registers (tensor-core kernel, head_dim 256):
+//  * a block of 8 warps owns one (b·hq row, 128-query tile); each warp owns
+//    16 query rows whole, so its row max and row sum are two shuffles in a
+//    quad.  Its f32 accumulator is 16 × 256: 128 registers a thread, the
+//    budget everything else is fitted around — the 64-key score tile adds
+//    32, the split P of one 16-key step 8, Q is re-read from shared memory
+//    (ldmatrix) for each kv tile rather than held (it would take 64 more);
+//  * 64-key tiles of K and V, double-buffered in shared memory through
+//    `cp.async` (the next tile loads while this one is computed); Q is
+//    staged once.  Rows are padded by 16 bytes, so the eight 16-byte rows
+//    an ldmatrix reads fall in distinct banks.  At head_dim 256 that is
+//    Q 66 KB + K, V 2 × 2 × 33 KB = 198 KB of dynamic shared memory, one
+//    block an SM; the grid at the prefill shape is 20 × 32 = 640 blocks;
+//  * head dims are padded in shared memory to 32, 64, 128 or 256 (one
+//    instantiation each); a head_dim that is not a multiple of 8, or a
+//    pointer that is not 16-byte aligned, loads through plain stores
+//    instead of `cp.async` (same layout, zero-filled).
+//
+// Shared by both kernels:
 //  * GQA by index: the block reads its kv row through kv(g), as the TPU
 //    kernel's index map does, and no repeated head is materialized
 //    (RecurrentGemma has rep = 10);
 //  * only the kv tiles that hold a valid key for some row of the q tile
 //    are visited: none past the causal diagonal, none wholly outside the
-//    window (at the prefill shape, at most 2,144 of 4,096 keys a q tile:
-//    67 tiles of 32).  This is exact: once a tile with a valid key has set
-//    a row's running max m, a masked logit's exp(−1e30 − m) is 0 in f32,
-//    and the terms a row gathered before its first valid key are
-//    multiplied by exp(−1e30 − m) = 0.  A q tile with a row that has no
-//    valid key at all (a causal window of 0 or less, or a window that
-//    starts past the last key) visits every tile, so that row softmaxes to
-//    the uniform row, as the TPU kernel's;
-//  * the q tile is staged once in shared memory (f32, times scale); each
-//    kv tile's K (rows padded to an odd float4 stride: conflict-free float4
-//    reads across lanes) and V (lane-strided columns) are staged per tile;
-//    q rows are broadcast float4 reads.  At head_dim 256 that is 128.5 KB
-//    of dynamic shared memory (cudaFuncSetAttribute above 48 KB) and one
-//    block an SM;
-//  * row max and row sum are warp shuffles (a warp owns its rows whole);
-//    P·V broadcasts each lane's p to the warp with a shuffle;
+//    window.  This is exact: once a tile with a valid key has set a row's
+//    running max m, a masked logit's exp(−1e30 − m) is 0 in f32, and the
+//    terms a row gathered before its first valid key are multiplied by
+//    exp(−1e30 − m) = 0.  A q tile with a row that has no valid key at all
+//    (a causal window of 0 or less, or a window that starts past the last
+//    key) visits every tile, so that row softmaxes to the uniform row, as
+//    the TPU kernel's;
 //  * ragged sq and sk are masked in the kernel (out-of-range keys are −inf,
 //    so they drop out even of an all-masked row; out-of-range queries are
-//    not stored), and any head_dim up to 256 is zero-padded to a multiple
-//    of 4 (the TPU kernel asserts divisibility).  The template on d/32
-//    rounded up sizes the accumulator.
+//    not stored), and any head_dim up to 256 is zero-padded (the TPU kernel
+//    asserts divisibility).
+//
+// The f32 kernel's design: a block (8 warps) owns one (b·hq row, 64-query
+// tile) and loops over 32-key tiles, carrying (m, l, acc) in registers:
+// each warp owns 8 query rows, each lane one key of the tile for the scores
+// and the columns lane, lane + 32, … of the output (acc is 8 × d/32 a
+// thread); the q tile is staged once in shared memory (f32, times scale);
+// each kv tile's K (rows padded to an odd float4 stride: conflict-free
+// float4 reads across lanes) and V (lane-strided columns) are staged per
+// tile, 128.5 KB of shared memory at head_dim 256; row max and row sum are
+// warp shuffles, and P·V broadcasts each lane's p with a shuffle.
 #include "common.cuh"
 
 #include <cuda_bf16.h>
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BK = 32;
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int RPW = BQ / WARPS;  // query rows per warp (8)
 constexpr float MASKED = -1e30f;
 
 struct Params {
@@ -72,14 +108,43 @@ struct Params {
   float softcap, scale;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// The kv tiles [t_lo, t_hi] of width bk that hold a valid key for some row
+// of the q tile starting at q0 (all tiles when some row has none).
+__device__ __forceinline__ void kv_tiles(const Params& p, int q0, int bq,
+                                         int bk, int& t_lo, int& t_hi) {
+  const int q_last = min(q0 + bq, p.sq) - 1;
+  const int k_hi = p.causal ? min(q_last, p.sk - 1) : p.sk - 1;
+  t_lo = 0;
+  t_hi = (p.sk - 1) / bk;
+  const bool empty_row = p.has_window && (q_last - p.window + 1 > k_hi);
+  if (!empty_row) {
+    t_hi = k_hi / bk;
+    if (p.has_window) t_lo = max(0, q0 - p.window + 1) / bk;
+  }
 }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
+
+// A score after scale and softcap, then the mask: −inf past the last key,
+// MASKED outside the causal/window band.
+__device__ __forceinline__ float masked_logit(const Params& p, float s, int qi,
+                                              int kj) {
+  float x = s;
+  if (p.has_softcap) x = p.softcap * tanhf(x / p.softcap);
+  if (kj >= p.sk) return -INFINITY;
+  if ((p.causal && qi < kj) || (p.has_window && qi - kj >= p.window))
+    return MASKED;
+  return x;
 }
+
+// ---------------------------------------------------------------------------
+// The f32 kernel (CUDA cores).
+
+namespace f32 {
+
+constexpr int BQ = 64;
+constexpr int BK = 32;
+constexpr int WARPS = 8;
+constexpr int THREADS = WARPS * 32;
+constexpr int RPW = BQ / WARPS;  // query rows per warp (8)
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -95,10 +160,10 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T, int CPL>
+template <int CPL>
 __global__ void __launch_bounds__(THREADS)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, Params p) {
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ o, Params p) {
   constexpr int DV = 32 * CPL;        // V row width: the lanes' columns
   extern __shared__ __align__(16) float smem[];
   const int dq = (p.d + 3) & ~3;      // q and K row width, float4-aligned
@@ -113,28 +178,21 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * BQ;
   const int rep = p.hq / p.hkv;
   const int kv = (g / p.hq) * p.hkv + (g % p.hq) / rep;
-  const T* qg = q + (size_t)g * p.sq * p.d;
-  const T* kg = k + (size_t)kv * p.sk * p.d;
-  const T* vg = v + (size_t)kv * p.sk * p.d;
-  T* og = o + (size_t)g * p.sq * p.d;
+  const float* qg = q + (size_t)g * p.sq * p.d;
+  const float* kg = k + (size_t)kv * p.sk * p.d;
+  const float* vg = v + (size_t)kv * p.sk * p.d;
+  float* og = o + (size_t)g * p.sq * p.d;
 
   // the q tile in f32, times scale (as the TPU kernel scales q), padded
   for (int r = warp; r < BQ; r += WARPS) {
     const int qi = q0 + r;
     for (int c = lane; c < dq; c += 32)
       q_s[r * dq + c] = (qi < p.sq && c < p.d)
-          ? to_f32(qg[(size_t)qi * p.d + c]) * p.scale : 0.0f;
+          ? qg[(size_t)qi * p.d + c] * p.scale : 0.0f;
   }
 
-  // the kv tiles that hold a valid key for some row of this q tile
-  const int q_last = min(q0 + BQ, p.sq) - 1;
-  const int k_hi = p.causal ? min(q_last, p.sk - 1) : p.sk - 1;
-  int t_lo = 0, t_hi = (p.sk - 1) / BK;
-  const bool empty_row = p.has_window && (q_last - p.window + 1 > k_hi);
-  if (!empty_row) {
-    t_hi = k_hi / BK;
-    if (p.has_window) t_lo = max(0, q0 - p.window + 1) / BK;
-  }
+  int t_lo, t_hi;
+  kv_tiles(p, q0, BQ, BK, t_lo, t_hi);
 
   float m[RPW], l[RPW], acc[RPW][CPL];
 #pragma unroll
@@ -152,11 +210,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int kj = k0 + r;
       const bool in = kj < p.sk;
       for (int c = lane; c < dq; c += 32)
-        k_s[r * ks + c] = (in && c < p.d)
-            ? to_f32(kg[(size_t)kj * p.d + c]) : 0.0f;
+        k_s[r * ks + c] = (in && c < p.d) ? kg[(size_t)kj * p.d + c] : 0.0f;
       for (int c = lane; c < DV; c += 32)
-        v_s[r * DV + c] = (in && c < p.d)
-            ? to_f32(vg[(size_t)kj * p.d + c]) : 0.0f;
+        v_s[r * DV + c] = (in && c < p.d) ? vg[(size_t)kj * p.d + c] : 0.0f;
     }
     __syncthreads();
 
@@ -184,13 +240,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < RPW; ++i) {
       const int qi = q0 + warp * RPW + i;
-      float x = s[i];
-      if (p.has_softcap) x = p.softcap * tanhf(x / p.softcap);
-      if (kj >= p.sk)
-        x = -INFINITY;
-      else if ((p.causal && qi < kj) ||
-               (p.has_window && qi - kj >= p.window))
-        x = MASKED;
+      const float x = masked_logit(p, s[i], qi, kj);
       const float m_new = fmaxf(m[i], warp_max(x));
       const float alpha = expf(m[i] - m_new);
       const float e = expf(x - m_new);
@@ -224,12 +274,12 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int t = 0; t < CPL; ++t) {
       const int c = lane + 32 * t;
-      if (c < p.d) store(og + (size_t)qi * p.d + c, acc[i][t] / den);
+      if (c < p.d) og[(size_t)qi * p.d + c] = acc[i][t] / den;
     }
   }
 }
 
-template <typename T, int CPL>
+template <int CPL>
 int launch(const void* q, const void* k, const void* v, void* o, int bh,
            const Params& p, cudaStream_t stream) {
   const int dq = (p.d + 3) & ~3;
@@ -237,50 +287,358 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
                                        (size_t)BK * (dq + 4) +
                                        (size_t)BK * 32 * CPL);
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_kernel<T, CPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_kernel<CPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((p.sq + BQ - 1) / BQ, bh);
-  flash_kernel<T, CPL><<<grid, THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, p);
+  flash_kernel<CPL><<<grid, THREADS, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, p);
   REPRO_LAUNCH_CHECK();
   return 0;
 }
 
-template <typename T>
 int dispatch(const void* q, const void* k, const void* v, void* o, int bh,
              const Params& p, cudaStream_t stream) {
   switch ((p.d + 31) / 32) {
-    case 1: return launch<T, 1>(q, k, v, o, bh, p, stream);
-    case 2: return launch<T, 2>(q, k, v, o, bh, p, stream);
-    case 3: return launch<T, 3>(q, k, v, o, bh, p, stream);
-    case 4: return launch<T, 4>(q, k, v, o, bh, p, stream);
-    case 5: return launch<T, 5>(q, k, v, o, bh, p, stream);
-    case 6: return launch<T, 6>(q, k, v, o, bh, p, stream);
-    case 7: return launch<T, 7>(q, k, v, o, bh, p, stream);
-    case 8: return launch<T, 8>(q, k, v, o, bh, p, stream);
+    case 1: return launch<1>(q, k, v, o, bh, p, stream);
+    case 2: return launch<2>(q, k, v, o, bh, p, stream);
+    case 3: return launch<3>(q, k, v, o, bh, p, stream);
+    case 4: return launch<4>(q, k, v, o, bh, p, stream);
+    case 5: return launch<5>(q, k, v, o, bh, p, stream);
+    case 6: return launch<6>(q, k, v, o, bh, p, stream);
+    case 7: return launch<7>(q, k, v, o, bh, p, stream);
+    case 8: return launch<8>(q, k, v, o, bh, p, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
+}  // namespace f32
+
+// ---------------------------------------------------------------------------
+// The tensor-core kernel (bf16 inputs).
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int BQ = 128;             // queries a block
+constexpr int BK = 64;              // keys a tile
+constexpr int WARPS = BQ / 16;      // 16 query rows a warp
+constexpr int THREADS = WARPS * 32;
+constexpr int PAD = 8;              // bf16 of row padding (16 bytes)
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared; src_bytes = 0 zero-fills without reading.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c (16x8 f32) += a (16x16 bf16, row) · b (16x8 bf16, col)
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// (x, y) -> hi = bf16(x, y), lo = bf16(x − hi, y − hi): x ≈ hi + lo to
+// 2^-16 relative.  The lower half holds the lower column.
+__device__ __forceinline__ void split(float x, float y, uint32_t& hi,
+                                      uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  hi = as_u32(h);
+  lo = as_u32(__floats2bfloat162_rn(x - __low2float(h), y - __high2float(h)));
+}
+
+// rows [row0, row0 + ROWS) of a (rows, d) bf16 matrix -> a ROWS x D tile at
+// pitch LD, rows at or past `limit` and columns at or past d zero.
+template <int ROWS, int D>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
+                                          int row0, int limit, int d,
+                                          bool vec) {
+  constexpr int LD = D + PAD;
+  constexpr int CH = D / 8;  // 16-byte chunks a row
+  for (int idx = threadIdx.x; idx < ROWS * CH; idx += THREADS) {
+    const int r = idx / CH, c = (idx % CH) * 8;
+    const int row = row0 + r;
+    bf16* s = dst + r * LD + c;
+    if (vec) {
+      const bool in = row < limit && c < d;
+      cp_async16(s, in ? src + (size_t)row * d + c : src, in ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        s[e] = (row < limit && c + e < d) ? src[(size_t)row * d + c + e]
+                                          : __float2bfloat16_rn(0.0f);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, bf16* __restrict__ o, Params p,
+                int vec) {
+  constexpr int LD = D + PAD;
+  constexpr int NT = BK / 8;  // score n-tiles (8 keys each)
+  constexpr int DT = D / 8;   // output n-tiles (8 columns each)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // BQ x LD
+  bf16* k_s = q_s + BQ * LD;                      // 2 x BK x LD
+  bf16* v_s = k_s + 2 * BK * LD;                  // 2 x BK x LD
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;  // fragment row and column pair
+  const int g = blockIdx.y;
+  const int q0 = blockIdx.x * BQ;
+  const int rep = p.hq / p.hkv;
+  const int kv = (g / p.hq) * p.hkv + (g % p.hq) / rep;
+  const bf16* qg = q + (size_t)g * p.sq * p.d;
+  const bf16* kg = k + (size_t)kv * p.sk * p.d;
+  const bf16* vg = v + (size_t)kv * p.sk * p.d;
+  bf16* og = o + (size_t)g * p.sq * p.d;
+
+  int t_lo, t_hi;
+  kv_tiles(p, q0, BQ, BK, t_lo, t_hi);
+
+  load_tile<BQ, D>(q_s, qg, q0, p.sq, p.d, vec);
+  cp_async_commit();
+  load_tile<BK, D>(k_s, kg, t_lo * BK, p.sk, p.d, vec);
+  load_tile<BK, D>(v_s, vg, t_lo * BK, p.sk, p.d, vec);
+  cp_async_commit();
+
+  // rows gq and gq + 8 of the warp's 16: running max, partial row sum
+  // (this thread's columns; the quad's sum at the end), accumulator
+  float m[2] = {MASKED, MASKED}, l[2] = {0.0f, 0.0f};
+  float acc[DT][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+
+  const bf16* q_w = q_s + warp * 16 * LD;
+  const int qi0 = q0 + warp * 16 + gq;  // query of row gq (row gq + 8: +8)
+
+  for (int tile = t_lo; tile <= t_hi; ++tile) {
+    const int buf = (tile - t_lo) & 1;
+    if (tile < t_hi) {  // the next tile loads while this one is computed
+      load_tile<BK, D>(k_s + (buf ^ 1) * BK * LD, kg, (tile + 1) * BK, p.sk,
+                       p.d, vec);
+      load_tile<BK, D>(v_s + (buf ^ 1) * BK * LD, vg, (tile + 1) * BK, p.sk,
+                       p.d, vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* k_t = k_s + buf * BK * LD;
+    const bf16* v_t = v_s + buf * BK * LD;
+
+    // S = Q · Kᵀ (16 x BK a warp), f32
+    float s[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[4];
+      ldmatrix_x4(a, q_w + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t b[4];
+        ldmatrix_x4(b, k_t + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                           kk * 16 + ((lane >> 3) & 1) * 8);
+        mma(s[2 * np], a, b[0], b[1]);
+        mma(s[2 * np + 1], a, b[2], b[3]);
+      }
+    }
+
+    // scale, softcap, mask; the online softmax on rows gq and gq + 8
+    const int k0 = tile * BK;
+    float mx[2] = {MASKED, MASKED};
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kj = k0 + n * 8 + 2 * tq + (e & 1);
+        const float x =
+            masked_logit(p, s[n][e] * p.scale, qi0 + 8 * (e >> 1), kj);
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(REPRO_FULL_MASK, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(REPRO_FULL_MASK, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      alpha[i] = expf(m[i] - m_new);
+      m[i] = m_new;
+      l[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pe = expf(s[n][e] - m[e >> 1]);
+        s[n][e] = pe;
+        l[e >> 1] += pe;
+      }
+#pragma unroll
+    for (int n = 0; n < DT; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+
+    // acc += P_hi · V + P_lo · V, 16 keys at a time
+#pragma unroll
+    for (int kc = 0; kc < BK / 16; ++kc) {
+      uint32_t ph[4], pl[4];
+      split(s[2 * kc][0], s[2 * kc][1], ph[0], pl[0]);
+      split(s[2 * kc][2], s[2 * kc][3], ph[1], pl[1]);
+      split(s[2 * kc + 1][0], s[2 * kc + 1][1], ph[2], pl[2]);
+      split(s[2 * kc + 1][2], s[2 * kc + 1][3], ph[3], pl[3]);
+#pragma unroll
+      for (int dp = 0; dp < DT / 2; ++dp) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(
+            b, v_t + (kc * 16 + (lane & 7) + (((lane >> 3) & 1) << 3)) * LD +
+                   dp * 16 + (lane >> 4) * 8);
+        mma(acc[2 * dp], ph, b[0], b[1]);
+        mma(acc[2 * dp], pl, b[0], b[1]);
+        mma(acc[2 * dp + 1], ph, b[2], b[3]);
+        mma(acc[2 * dp + 1], pl, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // this buffer is loaded again two tiles on
+  }
+
+  // o = acc / l in bf16, rows gq and gq + 8
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(REPRO_FULL_MASK, l[i], 1);
+    l[i] += __shfl_xor_sync(REPRO_FULL_MASK, l[i], 2);
+  }
+  const bool pairs = (p.d & 1) == 0;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = qi0 + 8 * i;
+    if (qi >= p.sq) continue;
+    const float inv = 1.0f / fmaxf(l[i], 1e-30f);
+    bf16* orow = og + (size_t)qi * p.d;
+#pragma unroll
+    for (int n = 0; n < DT; ++n) {
+      const int c = n * 8 + 2 * tq;
+      const float x = acc[n][2 * i] * inv, y = acc[n][2 * i + 1] * inv;
+      if (pairs && c + 1 < p.d) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + c) =
+            __floats2bfloat162_rn(x, y);
+      } else {
+        if (c < p.d) orow[c] = __float2bfloat16_rn(x);
+        if (c + 1 < p.d) orow[c + 1] = __float2bfloat16_rn(y);
+      }
+    }
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int bh,
+           const Params& p, int vec, cudaStream_t stream) {
+  const size_t smem = sizeof(bf16) * (size_t)(BQ + 4 * BK) * (D + PAD);
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_kernel_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((p.sq + BQ - 1) / BQ, bh);
+  flash_kernel_tc<D><<<grid, THREADS, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, p, vec);
+  REPRO_LAUNCH_CHECK();
+  return 0;
+}
+
+}  // namespace tc
+
+bool valid(int b, int hq, int hkv, int sk, int d) {
+  return d >= 1 && d <= 256 && sk >= 1 && hkv >= 1 && hq % hkv == 0 &&
+         (long long)b * hq <= 65535;
+}
+
 }  // namespace
 
-// q, o: (b, hq, sq, d); k, v: (b, hkv, sk, d); all contiguous, one dtype
-// (f32, or bf16 when bf16 != 0); 1 <= d <= 256, hq % hkv == 0, sk >= 1,
-// -sk <= window <= sq when has_window (the wrapper clamps it).
-extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* o, int b, int hq,
-                                     int hkv, int sq, int sk, int d, int bf16,
-                                     int causal, int has_window, int window,
-                                     int has_softcap, float softcap,
-                                     float scale, void* stream) {
+// q, o: (b, hq, sq, d); k, v: (b, hkv, sk, d); all contiguous f32;
+// 1 <= d <= 256, hq % hkv == 0, sk >= 1, -sk <= window <= sq when
+// has_window (the wrapper clamps it).  The CUDA-core kernel.
+extern "C" int repro_flash_attention_f32(const void* q, const void* k,
+                                         const void* v, void* o, int b, int hq,
+                                         int hkv, int sq, int sk, int d,
+                                         int causal, int has_window,
+                                         int window, int has_softcap,
+                                         float softcap, float scale,
+                                         void* stream) {
   if (b <= 0 || sq <= 0) return 0;
-  if (d < 1 || d > 256 || sk < 1 || hkv < 1 || hq % hkv != 0 ||
-      (long long)b * hq > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (!valid(b, hq, hkv, sk, d)) return (int)cudaErrorInvalidValue;
   const Params p{hq, hkv, sq, sk, d, causal, has_window, window, has_softcap,
                  softcap, scale};
+  return f32::dispatch(q, k, v, o, b * hq, p, (cudaStream_t)stream);
+}
+
+// The same contract for bf16 q, k, v and o: the tensor-core kernel.
+extern "C" int repro_flash_attention_bf16(const void* q, const void* k,
+                                          const void* v, void* o, int b,
+                                          int hq, int hkv, int sq, int sk,
+                                          int d, int causal, int has_window,
+                                          int window, int has_softcap,
+                                          float softcap, float scale,
+                                          void* stream) {
+  if (b <= 0 || sq <= 0) return 0;
+  if (!valid(b, hq, hkv, sk, d)) return (int)cudaErrorInvalidValue;
+  const Params p{hq, hkv, sq, sk, d, causal, has_window, window, has_softcap,
+                 softcap, scale};
+  const int vec = d % 8 == 0 &&
+                  ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
   const cudaStream_t st = (cudaStream_t)stream;
-  return bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, b * hq, p, st)
-              : dispatch<float>(q, k, v, o, b * hq, p, st);
+  const int bh = b * hq;
+  if (d <= 32) return tc::launch<32>(q, k, v, o, bh, p, vec, st);
+  if (d <= 64) return tc::launch<64>(q, k, v, o, bh, p, vec, st);
+  if (d <= 128) return tc::launch<128>(q, k, v, o, bh, p, vec, st);
+  return tc::launch<256>(q, k, v, o, bh, p, vec, st);
 }

@@ -18,7 +18,8 @@ from .minplus import (maxplus_frontier_matmul, minplus_frontier_matmul,
 from .relax import relax_step
 from .rglru_scan import rglru_scan
 from .spmv import (csr_bool_step, csr_maxplus_step, csr_minplus_step,
-                   csr_minplus_tiled_step, csr_plustimes_step)
+                   csr_minplus_tiled_step, csr_plustimes_step,
+                   csr_raw_minplus_tiled, csr_raw_step)
 
 
 def plustimes_frontier_matmul(frontier: torch.Tensor, w: torch.Tensor
@@ -69,6 +70,65 @@ def flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, **kw
 def rglru(a: torch.Tensor, b: torch.Tensor, **kw) -> torch.Tensor:
     """The RG-LRU recurrence ``h_t = a_t h_{t-1} + b_t``, (B, S, W): K10."""
     return rglru_scan(a, b, **kw)
+
+
+def bool_frontier(a: torch.Tensor, b: torch.Tensor, *, bm=None, bn=None,
+                  bk=None) -> torch.Tensor:
+    """The (B, n) ⊗_bool (n, n) frontier product: K1 (block sizes as
+    :func:`minplus`)."""
+    return bool_frontier_matmul(a, b)
+
+
+def minplus_frontier(a: torch.Tensor, b: torch.Tensor, *, bm=None, bn=None,
+                     bk=None) -> torch.Tensor:
+    """The (B, n) ⊗_min,+ (n, n) frontier product: K2."""
+    return minplus_frontier_matmul(a, b)
+
+
+def maxplus_frontier(a: torch.Tensor, b: torch.Tensor, *, bm=None, bn=None,
+                     bk=None) -> torch.Tensor:
+    """The (B, n) ⊗_max,+ (n, n) frontier product: K2's max-plus
+    instantiation."""
+    return maxplus_frontier_matmul(a, b)
+
+
+def plustimes_frontier(a: torch.Tensor, b: torch.Tensor, *, bm=None,
+                       bn=None, bk=None) -> torch.Tensor:
+    """The (B, n) ⊗_+,× (n, n) frontier product: a full-f32 matrix
+    product (:func:`plustimes_frontier_matmul`)."""
+    return plustimes_frontier_matmul(a, b)
+
+
+def csr_bool(frontier, src, dst, val, *, chunk=None) -> torch.Tensor:
+    """Segment-OR of ``frontier[:, src] & val`` by ``dst``, over a bare arc
+    triple: K3 (``spmv.csr_raw_step``; ``chunk`` is the JAX kernel's and is
+    ignored)."""
+    return csr_raw_step("bool", frontier, src, dst, val)
+
+
+def csr_minplus(frontier, src, dst, val, *, chunk=None, bn=None
+                ) -> torch.Tensor:
+    """Segment-min of ``frontier[:, src] + val`` by ``dst``: K4."""
+    return csr_raw_step("minplus", frontier, src, dst, val)
+
+
+def csr_maxplus(frontier, src, dst, val, *, chunk=None, bn=None
+                ) -> torch.Tensor:
+    """Segment-max of ``frontier[:, src] + val`` by ``dst``: K6."""
+    return csr_raw_step("maxplus", frontier, src, dst, val)
+
+
+def csr_plustimes(frontier, src, dst, val, *, chunk=None) -> torch.Tensor:
+    """Segment-sum of ``frontier[:, src] * val`` by ``dst``: K5."""
+    return csr_raw_step("plustimes", frontier, src, dst, val)
+
+
+def csr_minplus_tiled(frontier, src, dst, val, plan_tile, plan_chunk,
+                      plan_first, *, chunk: int, bn: int) -> torch.Tensor:
+    """Segment-min over the (tile, chunk) worklist of a tile-skip plan
+    built for these arcs with ``(chunk, bn)``: K7."""
+    return csr_raw_minplus_tiled(frontier, src, dst, val, plan_tile,
+                                 plan_chunk, plan_first, chunk, bn)
 
 
 def semiring_matmul(name: str):

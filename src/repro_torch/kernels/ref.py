@@ -104,34 +104,77 @@ csr_maxplus_step_ref = csr_frontier_max
 csr_plustimes_step_ref = csr_frontier_sum
 
 
+#: the ⊕-zero of each CSR carrier (a raw arc with this value is a sentinel)
+CSR_ZERO = {"bool": False, "minplus": float("inf"),
+            "maxplus": float("-inf"), "plustimes": 0.0}
+
+
+def csr_raw_ref(kind: str, frontier: torch.Tensor, src: torch.Tensor,
+                dst: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
+    """One frontier step over a bare arc triple, as the JAX ``ops.csr_*``
+    entries compute it: ``out[b, v] = ⊕ over arcs e with dst[e] = v of
+    frontier[b, src[e]] ⊗ val[e]``, from ⊕-zero (a scatter by ``dst``; the
+    sum in ``index_add_``'s order, exact while the partial sums are integers
+    below 2^24).  ``frontier`` is (B, n) or (n,)."""
+    f = frontier[None, :] if frontier.ndim == 1 else frontier
+    src, dst = src.long(), dst.long()
+    g = f[:, src]
+    if kind == "bool":
+        hits = torch.zeros(f.shape, dtype=torch.int32, device=f.device)
+        out = hits.index_add_(1, dst, (g & val).to(torch.int32)) > 0
+    elif kind == "plustimes":
+        out = torch.zeros_like(f).index_add_(1, dst, g * val)
+    elif kind in ("minplus", "maxplus"):
+        out = torch.full_like(f, CSR_ZERO[kind]).scatter_reduce_(
+            1, dst.expand(f.shape[0], -1), g + val,
+            "amin" if kind == "minplus" else "amax")
+    else:
+        raise KeyError(kind)
+    return out[0] if frontier.ndim == 1 else out
+
+
 #: worklist items expanded at a time by the tiled reference (bounds the
 #: (items · chunk) position arrays it materializes)
 TILED_REF_ITEMS = 1 << 18
 
 
+def csr_raw_minplus_tiled_ref(frontier: torch.Tensor, src: torch.Tensor,
+                              dst: torch.Tensor, val: torch.Tensor,
+                              plan_tile: torch.Tensor,
+                              plan_chunk: torch.Tensor, chunk: int,
+                              bn: int) -> torch.Tensor:
+    """The min-plus step over an arc triple's tile-skip plan, item by item
+    as the TPU kernel walks it: each (tile, chunk) item's arcs whose
+    destination lies in the tile contribute ``f[:, src] + val`` to a +inf
+    output (``scatter_reduce_`` amin; pad items repeat an item, which min
+    absorbs).  ``frontier`` is (B, n) or (n,)."""
+    f = frontier[None, :] if frontier.ndim == 1 else frontier
+    out = torch.full(f.shape, float("inf"), dtype=torch.float32,
+                     device=f.device)
+    lane = torch.arange(chunk, device=f.device)
+    for i0 in range(0, plan_tile.shape[0], TILED_REF_ITEMS):
+        tile = plan_tile[i0:i0 + TILED_REF_ITEMS].long()
+        pos = (plan_chunk[i0:i0 + TILED_REF_ITEMS].long()[:, None] * chunk
+               + lane).reshape(-1)
+        d = dst[pos].long()
+        keep = d // bn == tile.repeat_interleave(chunk)
+        pos, d = pos[keep], d[keep]
+        contrib = f[:, src[pos].long()] + val[pos]
+        out.scatter_reduce_(1, d.expand(f.shape[0], -1), contrib, "amin")
+    return out[0] if frontier.ndim == 1 else out
+
+
 def csr_minplus_tiled_step_ref(frontier: torch.Tensor, csr) -> torch.Tensor:
-    """One min-plus step over a CSR's tile-skip plan, item by item as the
-    TPU kernel walks it: each (tile, chunk) item's arcs whose destination
-    lies in the tile contribute ``f[:, src] + val`` to a +inf output
-    (``scatter_reduce_`` amin; pad items repeat an item, which min absorbs),
-    then the COO tail folds in as in :func:`csr_minplus_step_ref`."""
+    """One min-plus step over a CSR's tile-skip plan
+    (:func:`csr_raw_minplus_tiled_ref` over the spine), then the COO tail
+    folds in as in :func:`csr_minplus_step_ref`."""
     if csr.plan_cfg is None:
         raise ValueError("csr_minplus_tiled_step_ref: the CSR has no "
                          "tile-skip plan (build_csr(kernel_plan=...))")
     f = frontier[None, :] if frontier.ndim == 1 else frontier
-    chunk, bn = csr.plan_cfg
-    out = torch.full(f.shape, float("inf"), dtype=torch.float32,
-                     device=f.device)
-    lane = torch.arange(chunk, device=f.device)
-    for i0 in range(0, csr.plan_tile.shape[0], TILED_REF_ITEMS):
-        tile = csr.plan_tile[i0:i0 + TILED_REF_ITEMS].long()
-        pos = (csr.plan_chunk[i0:i0 + TILED_REF_ITEMS].long()[:, None] * chunk
-               + lane).reshape(-1)
-        dst = csr.col_idx[pos].long()
-        keep = dst // bn == tile.repeat_interleave(chunk)
-        pos, dst = pos[keep], dst[keep]
-        contrib = f[:, csr.src_idx[pos].long()] + csr.edge_val[pos]
-        out.scatter_reduce_(1, dst.expand(f.shape[0], -1), contrib, "amin")
+    out = csr_raw_minplus_tiled_ref(f, csr.src_idx, csr.col_idx,
+                                    csr.edge_val, csr.plan_tile,
+                                    csr.plan_chunk, *csr.plan_cfg)
     out = torch.minimum(
         out, _ell_step_min(f, csr.tail_src, csr.tail_val, csr.tail_ell))
     return out[0] if frontier.ndim == 1 else out

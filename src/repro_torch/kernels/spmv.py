@@ -20,17 +20,23 @@ units of one tile each, keeps a (32, bn) accumulator per unit in shared
 memory, and folds the COO tail in the same call (``csrc/spmv.cu`` says
 more).  Min is order-free, so it is bit-identical to the plain version.
 
-The wrappers take the CSR itself (``csr_bool_step(frontier, csr)``), not the
-raw arc triple.  On CPU tensors they run the plain step (:data:`plain_bool`,
+The wrappers take the CSR itself (``csr_bool_step(frontier, csr)``).  On
+CPU tensors they run the plain step (:data:`plain_bool`,
 :data:`plain_minplus`, :data:`plain_plustimes`, :data:`plain_maxplus`); on
-CUDA tensors they launch the kernel or raise.
+CUDA tensors they launch the kernel or raise.  :func:`csr_raw_step` and
+:func:`csr_raw_minplus_tiled` take the JAX entries' bare arc triple
+(``ops.csr_bool(frontier, src, dst, val)`` …) and launch the same kernels.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
+import numpy as np
 import torch
 
+from ..core.seminaive import quantize_rows
+from ..core.sparse import DEFAULT_ELL_CFG, CSRMatrix, _plan_units
 from . import build, ref
 
 #: the plain PyTorch versions of these kernels
@@ -204,3 +210,139 @@ def csr_minplus_tiled_step(frontier: torch.Tensor, csr) -> torch.Tensor:
         build.check(lib, rc, what)
     build.LAUNCHES[what] += 1
     return out[0] if frontier.ndim == 1 else out
+
+
+#: the kernel-backed step of each carrier, for a CSR without a plan
+_STEPS = {"bool": csr_bool_step, "minplus": csr_minplus_step,
+          "maxplus": csr_maxplus_step, "plustimes": csr_plustimes_step}
+
+
+def _raw_csr(kind: str, n: int, spine: tuple, tail: tuple) -> CSRMatrix:
+    """A :class:`CSRMatrix` over n vertices from arrays on one device:
+    ``spine`` and ``tail`` are each ``(src, dst, val, ell)``, or None for
+    one ⊕-zero sentinel arc (a spine of one all-sentinel slice row, a tail
+    whose map points every vertex at that arc)."""
+    f = spine[0] if spine is not None else tail[0]
+    dev, zero = f.device, ref.CSR_ZERO[kind]
+    dtype = torch.bool if kind == "bool" else torch.float32
+
+    def sentinel(rows):
+        return (torch.zeros(1, dtype=torch.int32, device=dev),
+                torch.zeros(1, dtype=torch.int32, device=dev),
+                torch.full((1,), zero, dtype=dtype, device=dev),
+                torch.zeros((rows, 1), dtype=torch.int32, device=dev))
+
+    s_src, s_dst, s_val, s_ell = spine if spine is not None else sentinel(1)
+    t_src, t_dst, t_val, t_ell = tail if tail is not None else sentinel(n)
+    i32 = dict(dtype=torch.int32, device=dev)
+    return CSRMatrix(
+        row_ptr=torch.zeros(n + 1, **i32), col_idx=s_dst, edge_val=s_val,
+        src_idx=s_src, ell_slices=(s_ell,),
+        ell_rank=torch.zeros(n, **i32), nnz=torch.tensor(0, **i32),
+        tail_src=t_src, tail_dst=t_dst, tail_val=t_val, tail_ell=t_ell,
+        tail_nnz=torch.tensor(int(t_src.shape[0]) - 1, **i32),
+        plan_tile=None, plan_chunk=None, plan_first=None, plan_unit=None,
+        n=n, n_alloc=n, kind=kind, ell_cfg=DEFAULT_ELL_CFG, plan_cfg=None)
+
+
+def _raw_tail(kind: str, n: int, src: torch.Tensor, dst: torch.Tensor,
+             val: torch.Tensor) -> tuple:
+    """An arc triple as a COO tail ``(src, dst, val, ell)`` over n vertices,
+    built on the triple's device with torch index operations: the live
+    arcs (value not the ⊕-zero) keep their order, one ⊕-zero sentinel arc
+    follows them, and ``ell`` is ``core.sparse._ell_index``'s layout (each
+    vertex's positions, grouped by destination in order, padded with the
+    sentinel to the bucketed max in-degree).  ``ell`` takes n × that
+    in-degree int32."""
+    zero = ref.CSR_ZERO[kind]
+    live = val if kind == "bool" else val != zero
+    src, dst, val = src[live].int(), dst[live].int(), val[live]
+    m = int(src.shape[0])
+    dev = src.device
+    indeg = torch.bincount(dst.long(), minlength=n)
+    if m:
+        lo, hi, top = torch.stack([torch.minimum(src.min(), dst.min()),
+                                   torch.maximum(src.max(), dst.max()),
+                                   indeg.max()]).tolist()
+        if lo < 0 or hi >= n:
+            raise ValueError(f"arcs reference vertex {hi if hi >= n else lo}"
+                             f" outside [0, {n})")
+    k = quantize_rows(top if m else 1, minimum=1)
+    order = torch.argsort(dst.long(), stable=True)
+    by_dst = dst.long()[order]
+    rank = (torch.arange(m, device=dev)
+            - (torch.cumsum(indeg, 0) - indeg)[by_dst])
+    ell = torch.full((n, k), m, dtype=torch.int32, device=dev)
+    ell[by_dst, rank] = order.int()
+    tail_val = torch.cat([val, torch.full((1,), zero, dtype=val.dtype,
+                                          device=dev)])
+    pad = torch.zeros(1, dtype=torch.int32, device=dev)
+    return torch.cat([src, pad]), torch.cat([dst, pad]), tail_val, ell
+
+
+def raw_csr(kind: str, n: int, src: torch.Tensor, dst: torch.Tensor,
+            val: torch.Tensor) -> CSRMatrix:
+    """An arc triple as a :class:`CSRMatrix` over n vertices that K3-K6
+    step: an empty spine, the triple as its COO tail (:func:`_raw_tail`)."""
+    return _raw_csr(kind, n, None, _raw_tail(kind, n, src, dst, val))
+
+
+def raw_tiled_csr(n: int, src: torch.Tensor, dst: torch.Tensor,
+                  val: torch.Tensor, plan_tile: torch.Tensor,
+                  plan_chunk: torch.Tensor, plan_first: torch.Tensor,
+                  chunk: int, bn: int) -> CSRMatrix:
+    """An arc triple and its tile-skip plan as a min-plus
+    :class:`CSRMatrix` over n vertices that K7 steps: the triple as the
+    spine (``col_idx = dst``), no tail, and K7's work units cut from the
+    plan on the host (``core.sparse._plan_units``; the plan is a few int32
+    a tile)."""
+    plan = tuple(t.int() for t in (plan_tile, plan_chunk, plan_first))
+    units = _plan_units(*(t.cpu().numpy() for t in plan))
+    # K7 reads col_idx, src_idx, edge_val and the plan, never the slice map
+    spine = (src.int(), dst.int(), val,
+             torch.zeros((1, 1), dtype=torch.int32, device=src.device))
+    return dataclasses.replace(
+        _raw_csr("minplus", n, spine, None), plan_tile=plan[0],
+        plan_chunk=plan[1], plan_first=plan[2],
+        plan_unit=torch.from_numpy(np.ascontiguousarray(units)).to(
+            src.device), plan_cfg=(int(chunk), int(bn)))
+
+
+def csr_raw_step(kind: str, frontier: torch.Tensor, src: torch.Tensor,
+                 dst: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
+    """One frontier step over a bare arc triple (the JAX ``ops.csr_bool``,
+    ``csr_minplus``, ``csr_maxplus`` and ``csr_plustimes``): ``frontier``
+    (B, n) ⊗ the arcs ``src -> dst`` with values ``val`` -> (B, n).
+
+    On CPU tensors the plain version (:func:`ref.csr_raw_ref`).  On CUDA
+    tensors K3/K4/K6/K5 over :func:`raw_csr`, whose map is built on the
+    card.  That map is n × (max in-degree) int32, so these entries suit the
+    JAX API's callers and tests; the service packs its CSR once and steps
+    it."""
+    if kind not in _STEPS:
+        raise KeyError(kind)
+    if not build.on_card(f"csr_{kind}", frontier, src, dst, val):
+        return ref.csr_raw_ref(kind, frontier, src, dst, val)
+    return _STEPS[kind](frontier, raw_csr(kind, int(frontier.shape[-1]),
+                                          src, dst, val))
+
+
+def csr_raw_minplus_tiled(frontier: torch.Tensor, src: torch.Tensor,
+                          dst: torch.Tensor, val: torch.Tensor,
+                          plan_tile: torch.Tensor, plan_chunk: torch.Tensor,
+                          plan_first: torch.Tensor, chunk: int,
+                          bn: int) -> torch.Tensor:
+    """The min-plus step over an arc triple's tile-skip plan (the JAX
+    ``ops.csr_minplus_tiled``): the plan's (tile, chunk, first) worklist,
+    built for these arcs with ``(chunk, bn)`` as ``core.sparse._tile_plan``
+    builds it.  On CPU tensors the plain version
+    (:func:`ref.csr_raw_minplus_tiled_ref`); on CUDA tensors K7 over
+    :func:`raw_tiled_csr`."""
+    operands = (frontier, src, dst, val, plan_tile, plan_chunk, plan_first)
+    if not build.on_card("csr_minplus_tiled", *operands):
+        return ref.csr_raw_minplus_tiled_ref(frontier, src, dst, val,
+                                             plan_tile, plan_chunk, chunk,
+                                             bn)
+    return csr_minplus_tiled_step(frontier, raw_tiled_csr(
+        int(frontier.shape[-1]), src, dst, val, plan_tile, plan_chunk,
+        plan_first, chunk, bn))

@@ -265,24 +265,38 @@ class DatalogService:
                       library layout.  A config with ``use_kernel`` gives
                       min-plus relations a tile-skip plan, served by K7.
 
-    ``mesh``, ``probe``, ``tracer`` and ``durable_dir`` exist for signature
-    parity with the JAX service and raise until ported.
+    ``caps``, ``default_cap``, ``join_cap``, ``max_iters``,
+    ``bucket_floors`` and ``snapshot_lru`` are the JAX service's tuple-engine
+    and tuple-template settings, and ``snapshot_every``, ``keep_snapshots``
+    and ``durable_fsync`` its durability settings: none of them acts on the
+    frontier path (the JAX frontier batches take their own iteration
+    bound), so they are stored as the JAX service stores them.  ``mesh``,
+    ``probe``, ``tracer``, ``durable_dir`` and a ``metrics`` registry exist
+    for signature parity with the JAX service and raise until ported.
     """
 
     def __init__(self, program, db: dict[str, np.ndarray], *, bits: int = 18,
+                 caps: dict[str, int] | None = None, default_cap: int = 1 << 16,
+                 join_cap: int | None = None, max_iters: int = 1 << 16,
                  constants: dict[str, int] | None = None,
                  result_cache: int = 1024, matmul=None, mesh=None,
                  batch_pads: tuple[int, ...] = (1, 8, 32, 128),
                  n_align: int = 128, resume_min_hits: int = 0,
                  resume_max_bytes: int = 0, sparse: bool | None = None,
                  sparse_threshold: float | None = None,
-                 csr_rebuild_frac: float = 0.25, tune=None, tracer=None,
-                 probe: bool = False, durable_dir=None, device=None):
+                 csr_rebuild_frac: float = 0.25, snapshot_lru: int = 1,
+                 bucket_floors: dict[str, int] | None = None,
+                 tune=None, metrics=None, tracer=None, probe: bool = False,
+                 durable_dir=None, snapshot_every: int = 0,
+                 keep_snapshots: int = 3, durable_fsync: bool = True,
+                 device=None):
         if matmul not in (None, "pallas"):
             raise ValueError(f"matmul must be None or 'pallas', got {matmul!r}")
         for name, value, item in (("mesh", mesh is not None, "A.6"),
                                   ("probe", probe, "A.6"),
                                   ("tracer", bool(tracer), "A.6"),
+                                  ("metrics", metrics not in (None, False),
+                                   "A.6"),
                                   ("durable_dir", durable_dir is not None,
                                    "A.6")):
             if value:
@@ -292,6 +306,15 @@ class DatalogService:
             program = parse_program(program, constants=constants)
         self.program = program
         self.bits = bits
+        self.caps = dict(caps or {})
+        self.default_cap = default_cap
+        self.join_cap = join_cap
+        self.max_iters = max_iters
+        self.snapshot_lru = snapshot_lru
+        self.bucket_floors = dict(bucket_floors or {})
+        self.snapshot_every = snapshot_every
+        self.keep_snapshots = keep_snapshots
+        self.durable_fsync = durable_fsync
         self.batch_pads = tuple(batch_pads)
         self.n_align = n_align
         self.resume_min_hits = resume_min_hits

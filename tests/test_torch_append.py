@@ -62,7 +62,8 @@ def _arcs(n, p, seed, max_w, dag, lo=0):
 
 
 def _pair(program, db, **kw):
-    return (JService(program, db=db, default_cap=2048, **kw),
+    kw = dict(default_cap=2048, **kw)  # one dict builds both (rule (c))
+    return (JService(program, db=db, **kw),
             TService(program, db=db, device="cpu", **kw))
 
 

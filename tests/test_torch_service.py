@@ -73,7 +73,10 @@ def _db(edb, max_w, n, p, seed, dag=False):
 
 
 def _pair(program, db, **kw):
-    jsvc = JService(program, db=db, default_cap=2048, **kw)
+    """Both services from one kwargs dict (ROADMAP rule (c)); the port also
+    gets ``device="cpu"``."""
+    kw = dict(default_cap=2048, **kw)
+    jsvc = JService(program, db=db, **kw)
     tsvc = TService(program, db=db, device="cpu", **kw)
     return jsvc, tsvc
 
@@ -260,9 +263,9 @@ def test_append_and_bad_matmul_raise():
     """Appends to a relation that is not in the EDB, and rows of the wrong
     arity or outside the packed domain, raise as in the JAX service; so
     does an unknown ``matmul``."""
-    tsvc = TService(TC, db={"arc": np.array([[0, 1]])}, device="cpu",
-                    matmul="pallas")
-    jsvc = JService(TC, db={"arc": np.array([[0, 1]])}, default_cap=2048)
+    kw = dict(default_cap=2048, matmul="pallas")
+    tsvc = TService(TC, db={"arc": np.array([[0, 1]])}, device="cpu", **kw)
+    jsvc = JService(TC, db={"arc": np.array([[0, 1]])}, **kw)
     for rel, rows in (("tc", [[1, 2]]), ("arc", [[1, 2, 3]]),
                       ("arc", [[1, 1 << 18]])):
         with pytest.raises(ValueError):
