@@ -16,7 +16,8 @@
 // Two kernels, one per input dtype:
 //
 //  * flash_kernel_tc (bf16 q, k, v: the prefill's path) — on the tensor
-//    cores, `mma.sync.m16n8k16` with bf16 operands and f32 accumulators;
+//    cores, `wgmma.mma_async` m64n64k16 with bf16 operands and f32
+//    accumulators;
 //  * flash_kernel (f32 q, k, v) — on the CUDA cores in f32, the first
 //    version of this kernel, kept for f32 inputs (a bf16 split of f32 q and
 //    k would not hold the scores to f32).
@@ -26,11 +27,12 @@
 // 256) the live (query, key) pairs are 6.29 M a head, 4·d flops each:
 // 1.29·10^11 flops a layer, 0.13 ms at the 989 TFLOP/s of bf16 tensor
 // cores, against 92 MB of q, k, v and o (0.027 ms at 3.35 TB/s).  The f32
-// kernel runs at the 67 TFLOP/s of the CUDA cores (60x the bound); the
-// tensor-core kernel does 6·d flops a live pair (the split below) through
-// `mma.sync`, which reaches about two thirds of the `wgmma` peak, and each
-// warp reads the whole K and V tile from shared memory (ldmatrix) for its 16
-// rows, so shared-memory bandwidth sits beside the MMA rate as its limit.
+// kernel runs at the 67 TFLOP/s of the CUDA cores (60x the bound).  The
+// tensor-core kernel does 6·d flops a live pair (the split below), and the
+// softmax between its two products (exp, masks, the split) runs on the
+// CUDA cores while the tensor cores wait: each warpgroup waits for its S
+// before the softmax and for its P·V before the next tile, so the
+// products of one warpgroup overlap only the other warpgroup's work.
 //
 // The tensor-core kernel's numbers (why it holds the f32 kernel's
 // tolerance):
@@ -40,29 +42,39 @@
 //    in bf16, which would round it whenever scale is not a power of two);
 //    softcap, mask, row max, exp and the row sum l are f32, as before.
 //  * P·V with P split in two: P_hi = bf16(p), P_lo = bf16(p − P_hi), and
-//    acc += P_hi·V + P_lo·V, two MMAs into one f32 accumulator.  V is bf16,
-//    so exact; |p − P_hi − P_lo| ≤ 2^-16·p, so the output is within about
-//    1.5e-5·max|v| of an f32 P·V (a single bf16 P would give 2^-8·p: about
-//    1e-3 on a row whose output nearly cancels).  The split costs one more
-//    MMA per P·V step: 6·d flops a live pair in place of 4·d.
-//  * The m16n8 C fragment of S is, element for element, the A fragment of
-//    the m16n8k16 P·V product, so P never leaves registers; V's B fragments
-//    come through `ldmatrix.trans`, K's and Q's through `ldmatrix`.
+//    acc += P_hi·V + P_lo·V, two products into one f32 accumulator.  V is
+//    bf16, so exact; |p − P_hi − P_lo| ≤ 2^-16·p, so the output is within
+//    about 1.5e-5·max|v| of an f32 P·V (a single bf16 P would give 2^-8·p:
+//    about 1e-3 on a row whose output nearly cancels).  The split costs one
+//    more product per P·V step: 6·d flops a live pair in place of 4·d.
 //
-// Tiles and registers (tensor-core kernel, head_dim 256):
-//  * a block of 8 warps owns one (b·hq row, 128-query tile); each warp owns
-//    16 query rows whole, so its row max and row sum are two shuffles in a
-//    quad.  Its f32 accumulator is 16 × 256: 128 registers a thread, the
-//    budget everything else is fitted around — the 64-key score tile adds
-//    32, the split P of one 16-key step 8, Q is re-read from shared memory
-//    (ldmatrix) for each kv tile rather than held (it would take 64 more);
-//  * 64-key tiles of K and V, double-buffered in shared memory through
-//    `cp.async` (the next tile loads while this one is computed); Q is
-//    staged once.  Rows are padded by 16 bytes, so the eight 16-byte rows
-//    an ldmatrix reads fall in distinct banks.  At head_dim 256 that is
-//    Q 66 KB + K, V 2 × 2 × 33 KB = 198 KB of dynamic shared memory, one
-//    block an SM; the grid at the prefill shape is 20 × 32 = 640 blocks;
-//  * head dims are padded in shared memory to 32, 64, 128 or 256 (one
+// Its design (head_dim 256):
+//  * a block of two warpgroups (8 warps) owns one (b·hq row, 128-query
+//    tile); a warpgroup owns 64 query rows, a warp 16 of them whole, so the
+//    row max and row sum are two shuffles in a quad;
+//  * S (64 × 64 keys a warpgroup) is head_dim / 16 `wgmma`s with Q and K
+//    both read from shared memory (K-major); the accumulator's layout is,
+//    warp by warp, the m16n8 C fragment, and that is element for element
+//    the register A fragment of the next product, so the split P goes
+//    straight from S's registers into P·V;
+//  * P·V is, for each 16 keys, two `wgmma`s (P_hi, P_lo) into each of the
+//    four 64-column blocks of the output, A from registers, V read from
+//    shared memory MN-major (the instruction transposes it).  The split P
+//    of the whole 64-key tile stays in registers until those products are
+//    done;
+//  * registers: the f32 output accumulator is 64 × 256 a warpgroup, 128 a
+//    thread; S adds 32 and the split P 32: 237 a thread, no spill (the
+//    first tensor-core version, `mma.sync` with ldmatrix fragments of K
+//    and V, needed 255 and spilled);
+//  * shared memory in the 128-byte swizzle the descriptors name: each
+//    64-column block of a tile is rows of 128 bytes, the 16-byte chunk c of
+//    row r stored at chunk c ^ (r % 8), 8-row groups 1024 bytes apart; a
+//    k step inside a row is a 32-byte offset of the descriptor's start.
+//    Q 64 KB, K and V double-buffered 2 × 2 × 32 KB, loaded by `cp.async`
+//    (the next tile while this one is computed) and fenced to the tensor
+//    cores' proxy before a barrier: 192 KB and one block an SM; the grid
+//    at the prefill shape is 20 × 32 = 640 blocks;
+//  * head dims are padded in shared memory to 64, 128 or 256 (one
 //    instantiation each); a head_dim that is not a multiple of 8, or a
 //    pointer that is not 16-byte aligned, loads through plain stores
 //    instead of `cp.async` (same layout, zero-filled).
@@ -321,11 +333,12 @@ namespace tc {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int BQ = 128;             // queries a block
+constexpr int BQ = 128;             // queries a block: two warpgroups of 64
 constexpr int BK = 64;              // keys a tile
-constexpr int WARPS = BQ / 16;      // 16 query rows a warp
-constexpr int THREADS = WARPS * 32;
-constexpr int PAD = 8;              // bf16 of row padding (16 bytes)
+constexpr int WGS = BQ / 64;        // warpgroups a block
+constexpr int THREADS = WGS * 128;
+static_assert(BQ % 64 == 0 && BK == 64,
+              "a warpgroup's S is one m64n64 wgmma accumulator");
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -348,31 +361,74 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+// shared-memory writes of this thread (cp.async, plain stores) become
+// visible to the tensor cores' (async proxy) reads
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
 
-// c (16x8 f32) += a (16x16 bf16, row) · b (16x8 bf16, col)
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// A shared-memory matrix descriptor: 128-byte swizzle, 8-row groups 1024
+// bytes apart (the stride field of either kind), start at `p` (an 8-row
+// group's 1024-byte-aligned base, plus k offsets inside its 128-byte rows)
+__device__ __forceinline__ uint64_t desc(const void* p) {
+  const uint64_t a = smem_addr(p);
+  return ((a & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+#define REPRO_D32(d)                                                         \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),    \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),           \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),       \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),       \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),       \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
+      "+f"(d[31])
+#define REPRO_D32_STR                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
+  "%30, %31}"
+
+// d (64x64 f32, this warpgroup) (+)= A (64x16, K-major in shared memory) ·
+// B (16x64, K-major in shared memory)
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REPRO_D32_STR
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : REPRO_D32(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64x64 f32) += A (64x16 bf16 in registers, the m16n8k16 A fragment of
+// each warp's 16 rows) · B (16x64, MN-major in shared memory)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " REPRO_D32_STR
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : REPRO_D32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef REPRO_D32
+#undef REPRO_D32_STR
 
 __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 x) {
   return *reinterpret_cast<uint32_t*>(&x);
@@ -387,18 +443,19 @@ __device__ __forceinline__ void split(float x, float y, uint32_t& hi,
   lo = as_u32(__floats2bfloat162_rn(x - __low2float(h), y - __high2float(h)));
 }
 
-// rows [row0, row0 + ROWS) of a (rows, d) bf16 matrix -> a ROWS x D tile at
-// pitch LD, rows at or past `limit` and columns at or past d zero.
+// rows [row0, row0 + ROWS) of a (rows, d) bf16 matrix -> a ROWS x D tile in
+// the 128-byte swizzled layout: D / 64 column blocks of ROWS x 128 bytes,
+// the 16-byte chunk c of row r at chunk c ^ (r % 8); rows at or past
+// `limit` and columns at or past d zero.
 template <int ROWS, int D>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
                                           int row0, int limit, int d,
                                           bool vec) {
-  constexpr int LD = D + PAD;
   constexpr int CH = D / 8;  // 16-byte chunks a row
   for (int idx = threadIdx.x; idx < ROWS * CH; idx += THREADS) {
-    const int r = idx / CH, c = (idx % CH) * 8;
-    const int row = row0 + r;
-    bf16* s = dst + r * LD + c;
+    const int r = idx / CH, cc = idx % CH;
+    const int row = row0 + r, c = cc * 8;
+    bf16* s = dst + (cc >> 3) * ROWS * 64 + r * 64 + (((cc & 7) ^ (r & 7)) << 3);
     if (vec) {
       const bool in = row < limit && c < d;
       cp_async16(s, in ? src + (size_t)row * d + c : src, in ? 16 : 0);
@@ -416,16 +473,17 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, bf16* __restrict__ o, Params p,
                 int vec) {
-  constexpr int LD = D + PAD;
-  constexpr int NT = BK / 8;  // score n-tiles (8 keys each)
-  constexpr int DT = D / 8;   // output n-tiles (8 columns each)
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);  // BQ x LD
-  bf16* k_s = q_s + BQ * LD;                      // 2 x BK x LD
-  bf16* v_s = k_s + 2 * BK * LD;                  // 2 x BK x LD
+  constexpr int NT = BK / 8;   // score n-tiles (8 keys each)
+  constexpr int NB = D / 64;   // output column blocks (64 columns each)
+  extern __shared__ unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  bf16* k_s = q_s + BQ * D;       // 2 x BK x D
+  bf16* v_s = k_s + 2 * BK * D;   // 2 x BK x D
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const int wg = warp >> 2;                 // warpgroup: 64 query rows
   const int gq = lane >> 2, tq = lane & 3;  // fragment row and column pair
   const int g = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
@@ -448,47 +506,46 @@ flash_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // rows gq and gq + 8 of the warp's 16: running max, partial row sum
   // (this thread's columns; the quad's sum at the end), accumulator
   float m[2] = {MASKED, MASKED}, l[2] = {0.0f, 0.0f};
-  float acc[DT][4];
+  float acc[NB][32];
 #pragma unroll
-  for (int n = 0; n < DT; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+  for (int b = 0; b < NB; ++b)
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[b][e] = 0.0f;
 
-  const bf16* q_w = q_s + warp * 16 * LD;
-  const int qi0 = q0 + warp * 16 + gq;  // query of row gq (row gq + 8: +8)
+  const bf16* q_w = q_s + wg * 64 * 64;     // this warpgroup's 64 rows
+  const int qi0 = q0 + warp * 16 + gq;      // query of row gq (gq + 8: +8)
 
   for (int tile = t_lo; tile <= t_hi; ++tile) {
     const int buf = (tile - t_lo) & 1;
     if (tile < t_hi) {  // the next tile loads while this one is computed
-      load_tile<BK, D>(k_s + (buf ^ 1) * BK * LD, kg, (tile + 1) * BK, p.sk,
+      load_tile<BK, D>(k_s + (buf ^ 1) * BK * D, kg, (tile + 1) * BK, p.sk,
                        p.d, vec);
-      load_tile<BK, D>(v_s + (buf ^ 1) * BK * LD, vg, (tile + 1) * BK, p.sk,
+      load_tile<BK, D>(v_s + (buf ^ 1) * BK * D, vg, (tile + 1) * BK, p.sk,
                        p.d, vec);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
+    fence_async_shared();
     __syncthreads();
-    const bf16* k_t = k_s + buf * BK * LD;
-    const bf16* v_t = v_s + buf * BK * LD;
+    const bf16* k_t = k_s + buf * BK * D;
+    const bf16* v_t = v_s + buf * BK * D;
 
-    // S = Q · Kᵀ (16 x BK a warp), f32
-    float s[NT][4];
+    // S = Q · Kᵀ (64 x BK a warpgroup), f32; s[4n + e] is C fragment
+    // element e of the warp's n-th 8-key tile
+    float s[32];
 #pragma unroll
-    for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+    for (int e = 0; e < 32; ++e) s[e] = 0.0f;
+    wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];
-      ldmatrix_x4(a, q_w + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t b[4];
-        ldmatrix_x4(b, k_t + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
-                           kk * 16 + ((lane >> 3) & 1) * 8);
-        mma(s[2 * np], a, b[0], b[1]);
-        mma(s[2 * np + 1], a, b[2], b[3]);
-      }
+      const int cb = kk >> 2, kb = (kk & 3) * 16;  // column block, offset
+      wgmma_ss(s, desc(q_w + cb * BQ * 64 + kb),
+               desc(k_t + cb * BK * 64 + kb), kk > 0);
     }
+    wgmma_commit();
+    wgmma_wait<0>();
 
     // scale, softcap, mask; the online softmax on rows gq and gq + 8
     const int k0 = tile * BK;
@@ -499,8 +556,8 @@ flash_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int e = 0; e < 4; ++e) {
         const int kj = k0 + n * 8 + 2 * tq + (e & 1);
         const float x =
-            masked_logit(p, s[n][e] * p.scale, qi0 + 8 * (e >> 1), kj);
-        s[n][e] = x;
+            masked_logit(p, s[4 * n + e] * p.scale, qi0 + 8 * (e >> 1), kj);
+        s[4 * n + e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
     float alpha[2];
@@ -514,41 +571,37 @@ flash_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       l[i] *= alpha[i];
     }
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pe = expf(s[n][e] - m[e >> 1]);
-        s[n][e] = pe;
-        l[e >> 1] += pe;
-      }
-#pragma unroll
-    for (int n = 0; n < DT; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
+    for (int e = 0; e < 32; ++e) {
+      const float pe = expf(s[e] - m[(e >> 1) & 1]);
+      s[e] = pe;
+      l[(e >> 1) & 1] += pe;
     }
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) acc[b][e] *= alpha[(e >> 1) & 1];
 
-    // acc += P_hi · V + P_lo · V, 16 keys at a time
+    // acc += P_hi · V + P_lo · V, 16 keys at a time; the split P stays in
+    // registers until the products that read it are done
+    uint32_t ph[BK / 16][4], pl[BK / 16][4];
 #pragma unroll
     for (int kc = 0; kc < BK / 16; ++kc) {
-      uint32_t ph[4], pl[4];
-      split(s[2 * kc][0], s[2 * kc][1], ph[0], pl[0]);
-      split(s[2 * kc][2], s[2 * kc][3], ph[1], pl[1]);
-      split(s[2 * kc + 1][0], s[2 * kc + 1][1], ph[2], pl[2]);
-      split(s[2 * kc + 1][2], s[2 * kc + 1][3], ph[3], pl[3]);
-#pragma unroll
-      for (int dp = 0; dp < DT / 2; ++dp) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(
-            b, v_t + (kc * 16 + (lane & 7) + (((lane >> 3) & 1) << 3)) * LD +
-                   dp * 16 + (lane >> 4) * 8);
-        mma(acc[2 * dp], ph, b[0], b[1]);
-        mma(acc[2 * dp], pl, b[0], b[1]);
-        mma(acc[2 * dp + 1], ph, b[2], b[3]);
-        mma(acc[2 * dp + 1], pl, b[2], b[3]);
-      }
+      split(s[8 * kc + 0], s[8 * kc + 1], ph[kc][0], pl[kc][0]);
+      split(s[8 * kc + 2], s[8 * kc + 3], ph[kc][1], pl[kc][1]);
+      split(s[8 * kc + 4], s[8 * kc + 5], ph[kc][2], pl[kc][2]);
+      split(s[8 * kc + 6], s[8 * kc + 7], ph[kc][3], pl[kc][3]);
     }
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < BK / 16; ++kc)
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        const uint64_t dv = desc(v_t + b * BK * 64 + kc * 16 * 64);
+        wgmma_rs(acc[b], ph[kc], dv);
+        wgmma_rs(acc[b], pl[kc], dv);
+      }
+    wgmma_commit();
+    wgmma_wait<0>();
     __syncthreads();  // this buffer is loaded again two tiles on
   }
 
@@ -566,24 +619,27 @@ flash_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float inv = 1.0f / fmaxf(l[i], 1e-30f);
     bf16* orow = og + (size_t)qi * p.d;
 #pragma unroll
-    for (int n = 0; n < DT; ++n) {
-      const int c = n * 8 + 2 * tq;
-      const float x = acc[n][2 * i] * inv, y = acc[n][2 * i + 1] * inv;
-      if (pairs && c + 1 < p.d) {
-        *reinterpret_cast<__nv_bfloat162*>(orow + c) =
-            __floats2bfloat162_rn(x, y);
-      } else {
-        if (c < p.d) orow[c] = __float2bfloat16_rn(x);
-        if (c + 1 < p.d) orow[c + 1] = __float2bfloat16_rn(y);
+    for (int b = 0; b < NB; ++b)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int c = b * 64 + n * 8 + 2 * tq;
+        const float x = acc[b][4 * n + 2 * i] * inv;
+        const float y = acc[b][4 * n + 2 * i + 1] * inv;
+        if (pairs && c + 1 < p.d) {
+          *reinterpret_cast<__nv_bfloat162*>(orow + c) =
+              __floats2bfloat162_rn(x, y);
+        } else {
+          if (c < p.d) orow[c] = __float2bfloat16_rn(x);
+          if (c + 1 < p.d) orow[c + 1] = __float2bfloat16_rn(y);
+        }
       }
-    }
   }
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int bh,
            const Params& p, int vec, cudaStream_t stream) {
-  const size_t smem = sizeof(bf16) * (size_t)(BQ + 4 * BK) * (D + PAD);
+  const size_t smem = sizeof(bf16) * (size_t)(BQ + 4 * BK) * D + 1024;
   const cudaError_t e = cudaFuncSetAttribute(
       flash_kernel_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -637,7 +693,6 @@ extern "C" int repro_flash_attention_bf16(const void* q, const void* k,
                   ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
   const cudaStream_t st = (cudaStream_t)stream;
   const int bh = b * hq;
-  if (d <= 32) return tc::launch<32>(q, k, v, o, bh, p, vec, st);
   if (d <= 64) return tc::launch<64>(q, k, v, o, bh, p, vec, st);
   if (d <= 128) return tc::launch<128>(q, k, v, o, bh, p, vec, st);
   return tc::launch<256>(q, k, v, o, bh, p, vec, st);

@@ -9,9 +9,9 @@ q (b, hq, sq, d), k/v (b, hkv, sk, d), the attention of every ``attn`` and
 own launch counter:
 
 * bf16 (the prefill's path, counter ``flash_attention``): the tensor-core
-  kernel, ``mma.sync`` with f32 accumulators, a 128-query tile looping over
-  double-buffered 64-key tiles, P·V as ``P_hi·V + P_lo·V`` so that it holds
-  the f32 kernel's tolerance;
+  kernel, ``wgmma`` with f32 accumulators, a 128-query tile (two
+  warpgroups) looping over double-buffered 64-key tiles, P·V as
+  ``P_hi·V + P_lo·V`` so that it holds the f32 kernel's tolerance;
 * f32 (counter ``flash_attention_f32``): the CUDA-core kernel, f32
   arithmetic, a 64-query tile looping over 32-key tiles.
 
