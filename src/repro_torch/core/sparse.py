@@ -287,7 +287,8 @@ def _plan_units(tiles: np.ndarray, chunks: np.ndarray,
 
 
 def _to(a: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    # np.require keeps a 0-d array 0-d (np.ascontiguousarray makes it (1,))
+    return torch.from_numpy(np.require(a, requirements="C")).to(device)
 
 
 def build_csr(edges: np.ndarray, n_alloc: int, kind: str = "bool",
