@@ -16,7 +16,12 @@ a non-zero exit and prints no result):
    K5's inputs are small integers whose sums stay below 2^24, where f32
    sums are exact in any order); B = 3, 32 and 130 (over the CSR kernels'
    128-row split), hub rows wider than one 1024-position segment, and a
-   COO tail built by hand; then K7 (the min-plus step over a tile-skip
+   COO tail built by hand; then K3 and K5 at B = 1, 31, 32, 33, 64, 65,
+   128 and 130 and frontier densities 0, 0.001, 0.1 and 1.0, on a graph
+   with a hub of in-degree about 4,000 (wider than K4/K6's 1,024-position
+   segment and K3/K5's 256-slot piece), 37 empty rows and a COO tail (K5
+   on small-integer counts), and K5 on a non-integer frontier: two calls
+   bitwise equal, and equal to ``spmv.plustimes_in_kernel_order``; then K7 (the min-plus step over a tile-skip
    plan) against its plain version and K4's at (chunk, bn) = (32, 128),
    (64, 128), (32, 256) and (16, 64) and B = 3, 32 and 130, on a graph with
    empty column tiles, an allocation no tile width divides, a hub tile
@@ -38,7 +43,11 @@ a non-zero exit and prints no result):
    batch sources, the single one and the new vertex against the oracle;
 5. CSR main path: TC and SPATH on ``powerlaw_graph(2**20, 16_000_000,
    alpha=0.8)`` (a social-graph shape; the density heuristic picks CSR),
-   ``ask_batch`` of 32 sources, a second batch of 32 and a repeat;
+   ``ask_batch`` of 32 sources, a second batch of 32 and a repeat; then
+   K3 at every frontier one warm TC batch passes its step
+   (:func:`capture_frontiers`: a spy on ``fixpoint_csr``'s step), each
+   output equal to the plain step, timed beside ``sparse.mm`` and the bound
+   at the same input;
 5b. the tuned CSR path on phase 5's weighted arcs (not generated again):
    ``DatalogService(SPATH, sparse=True, tune=KernelConfig(use_kernel=True))``
    (tile-skip plan (32, 128)), the same traffic; K7 must launch once per
@@ -64,7 +73,8 @@ a non-zero exit and prints no result):
    appended (increment replay, held to the int64 DP oracle) and the same
    500 again (set semantics: no fixpoint, no count changes); CSR LPATH (K6, weights 1..9) and
    CSR CPATH (K5, unit weights) on the arcs of phase 5's power-law graph
-   with src > dst (a DAG of about 13.2M arcs, hub in-degrees near 183k);
+   with src > dst (a DAG of about 13.2M arcs, hub in-degrees near 183k),
+   K5 also at every frontier of a warm CPATH batch, as K3 in phase 5;
    then a 3-cycle CPATH on both carriers must raise
    ``FixpointDivergenceError`` and cache nothing;
 7. the dense all-pairs path on the paper's Table-6 G10K,
@@ -195,6 +205,10 @@ KERNELS = {
     "rglru_scan": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
                    "src/repro/kernels/rglru_scan.py:49"),
 }
+#: K3/K5's ragged cases: batch sizes crossing every 32-row word and the
+#: wrapper's 128-row split, and frontier densities
+K35_BATCHES = (1, 31, 32, 33, 64, 65, 128, 130)
+K35_DENSITIES = (0.0, 0.001, 0.1, 1.0)
 #: K7's ragged cases: (chunk, bn) plans and batch sizes (130 crosses the
 #: 32-row passes more than four times)
 K7_PLANS = ((32, 128), (64, 128), (32, 256), (16, 64))
@@ -388,6 +402,61 @@ def ragged_parity():
         cases += 4
     torch.cuda.synchronize()
     say(f"parity (ragged): {cases} kernel cases exactly equal to plain")
+    k35_ragged_parity()
+
+
+def k35_ragged_parity():
+    """K3 and K5 against their plain versions at every batch size of
+    :data:`K35_BATCHES` and density of :data:`K35_DENSITIES`, on a graph
+    whose vertex 1 has an in-degree near 4,000 (wider than the old
+    1,024-position segment and the new 256-slot piece), whose last 37
+    vertices have no arc (empty rows) and whose COO tail holds 40 arcs:
+    K3 exactly, K5 exactly on small-integer counts (sums far below 2^24).
+    Then K5 on a non-integer frontier: two calls bitwise identical and
+    bitwise equal to ``spmv.plustimes_in_kernel_order``; its max abs error
+    against the plain step is printed."""
+    import torch
+    from repro_torch.kernels import spmv
+    rng = np.random.default_rng(SEED + 11)
+    n, n_alloc = 5000, 5037
+    edges, tail = _ragged_graph(rng, n, 30000, 4000)
+    bcsr = _hand_tailed_csr("bool", n_alloc, edges, tail, DEVICE)
+    pcsr = _hand_tailed_csr(
+        "plustimes", n_alloc,
+        np.concatenate([edges, rng.integers(1, 4, (len(edges), 1))], 1),
+        np.concatenate([tail, rng.integers(1, 4, (len(tail), 1))], 1),
+        DEVICE)
+    hub = int(np.bincount(edges[:, 1]).max())
+    check(hub > 1024 and int(pcsr.tail_nnz) == len(tail),
+          f"K3/K5 ragged graph: hub in-degree {hub}, tail {pcsr.tail_nnz}")
+    cases = 0
+    for B in K35_BATCHES:
+        for p in K35_DENSITIES:
+            hit = rng.random((B, n_alloc)) < p
+            f = torch.from_numpy(hit).to(DEVICE)
+            equal_and_err(torch, spmv.csr_bool_step(f, bcsr),
+                          spmv.plain_bool(f, bcsr))
+            fc = torch.from_numpy(np.where(
+                hit, rng.integers(1, 4, hit.shape), 0).astype(
+                    np.float32)).to(DEVICE)
+            equal_and_err(torch, spmv.csr_plustimes_step(fc, pcsr),
+                          spmv.plain_plustimes(fc, pcsr))
+            cases += 2
+    fr = torch.from_numpy(rng.random((130, n_alloc)).astype(
+        np.float32)).to(DEVICE)
+    one, two = (spmv.csr_plustimes_step(fr, pcsr) for _ in range(2))
+    ordered = spmv.plustimes_in_kernel_order(fr, pcsr)
+    check(torch.equal(one.view(torch.int32), two.view(torch.int32)),
+          "K5: two calls on one non-integer frontier differ")
+    check(torch.equal(one.view(torch.int32), ordered.view(torch.int32)),
+          "K5: != plustimes_in_kernel_order on a non-integer frontier")
+    err = float((one - spmv.plain_plustimes(fr, pcsr)).abs().max())
+    torch.cuda.synchronize()
+    say(f"parity (K3/K5, ragged): {cases} cases exactly equal to plain (B "
+        f"{list(K35_BATCHES)}, densities {list(K35_DENSITIES)}, a hub of "
+        f"in-degree {hub}, {n_alloc - n} empty rows, a 40-arc tail); K5 on "
+        f"a non-integer (130, {n_alloc}) frontier: two calls bitwise equal "
+        f"and equal to its order in PyTorch, max abs err vs plain {err:.3e}")
 
 
 def k7_ragged_parity():
@@ -947,6 +1016,74 @@ def _csr_seed_bound(torch, csr, f, live, s, rate):
     return _bound(*_csr_seed_work(torch, csr, f, live, s), rate)
 
 
+def capture_frontiers(svc, pred, srcs):
+    """One warm batch of ``srcs`` on ``pred``'s CSR carrier, run as
+    ``ask_batch`` runs its fixpoint (``run_batch``), with a spy on
+    ``core.sparse.fixpoint_csr``'s step that records a copy of each
+    iteration's input frontier.  Returns the frontiers and the batch's
+    result; the seed step (``rows_from_sources``) is not one of them."""
+    from repro_torch.core import sparse
+    from repro_torch.kernels import ops
+    frontiers = []
+    real = sparse.fixpoint_csr
+
+    def spy(csr, init, spmv=None, max_iters=None):
+        step = spmv or ops.csr_frontier_step(csr.kind)
+
+        def recording(f, c):
+            frontiers.append(f.clone())
+            return step(f, c)
+
+        return real(csr, init, spmv=recording, max_iters=max_iters)
+
+    sparse.fixpoint_csr = spy
+    try:
+        res = svc._dense_state(pred).run_batch(svc, srcs)
+    finally:
+        sparse.fixpoint_csr = real
+    return frontiers, res
+
+
+def captured_frontiers(torch, name, svc, pred, srcs, plain, s, rate):
+    """The kernel of ``pred``'s CSR step at every frontier one warm batch
+    passes (:func:`capture_frontiers`): each output held to the plain
+    step, exactly; per input the share of active sources, the kernel's and
+    ``sparse.mm``'s ms (:func:`_sparse_mm_call`) and the bound
+    (:func:`_csr_seed_bound`); their sums, and the densest input's."""
+    from repro_torch.kernels import ops
+    frontiers, res = capture_frontiers(svc, pred, srcs)
+    check(len(frontiers) == res.iterations,
+          f"{name}: captured {len(frontiers)} frontiers in "
+          f"{res.iterations} iterations")
+    csr = svc._dense_state(pred).csr
+    step = ops.csr_frontier_step(csr.kind)
+    zero = csr.semiring.zero
+    active, ms, lib_ms, bound_ms = [], [], [], []
+    for f in frontiers:
+        equal_and_err(torch, step(f, csr), plain(f, csr))
+        live = f if f.dtype == torch.bool else f != zero
+        active.append(float(live.any(0).double().mean()))
+        ms.append(time_ms(torch, lambda: step(f, csr), 10))
+        lib_ms.append(time_ms(torch, _sparse_mm_call(torch, csr, f), 10))
+        bound_ms.append(_csr_seed_bound(torch, csr, f, live, s, rate)[0])
+    d = int(np.argmax(active))
+    out = {"iterations": res.iterations, "generated": res.generated,
+           "active": active, "ms": float(sum(ms)),
+           "library_ms": float(sum(lib_ms)), "bound_ms": float(sum(bound_ms)),
+           "densest": d, "densest_ms": ms[d], "densest_library_ms": lib_ms[d],
+           "densest_bound_ms": bound_ms[d]}
+    say(f"{name} ({pred}) at the {res.iterations} frontiers of a warm batch "
+        f"(generated {res.generated}), each equal to plain: "
+        f"{out['ms']:.3f} ms in all (sparse.mm {out['library_ms']:.3f} ms, "
+        f"bound {out['bound_ms']:.4f} ms); densest (iteration {d + 1}, "
+        f"{active[d]:.4f} of sources active) {ms[d]:.3f} ms (sparse.mm "
+        f"{lib_ms[d]:.3f} ms, bound {bound_ms[d]:.4f} ms); active share per "
+        f"iteration {[round(a, 6) for a in active]}")
+    del frontiers
+    torch.cuda.empty_cache()
+    return out
+
+
 def csr_phase(results):
     import torch
     from repro_torch.core.sparse import rows_from_sources
@@ -995,6 +1132,10 @@ def csr_phase(results):
             torch, f"{key} ({pred})", step, plain, (f, csr), 10,
             _csr_seed_bound(torch, csr, f, live, s, rate),
             library=_sparse_mm_call(torch, csr, f) if s == 1 else None))
+        del f, live
+    results["csr_bool_step"]["captured"] = captured_frontiers(
+        torch, "csr_bool_step", tc, "tc", srcs2, spmv.plain_bool, 1,
+        INT8_OPS_S)
     del tc, sp
     torch.cuda.empty_cache()
     return edges, wedges, sp_oracle
@@ -1039,13 +1180,13 @@ def dag_phase(results, csr_edges):
               f"{label}: semiring {rel['semiring']} != {semiring}")
         out["breakdown"] = breakdown(torch, label, svc, pred, srcs2)
         phase[label] = out
-        return svc, srcs
+        return svc, srcs, srcs2
 
     t0 = time.perf_counter()
     ledges = dag_graph(LPATH_N, LPATH_P, seed=SEED, max_w=LPATH_W)
     say(f"dense LPATH graph: dag_graph({LPATH_N}, {LPATH_P}, max_w={LPATH_W})"
         f": {len(ledges)} arcs ({time.perf_counter() - t0:.1f} s)")
-    lp, lsrcs = run("dense LPATH", LPATH, "lpath", ledges, LPATH_N,
+    lp, lsrcs, _ = run("dense LPATH", LPATH, "lpath", ledges, LPATH_N,
                     DENSE_BATCH, "dense", "max_plus", "maxplus_matmul")
     w = lp._dense_state("lpath").matrix
     fw = _seed_rows(torch, lambda i: w[torch.from_numpy(i).to(w.device)],
@@ -1067,7 +1208,7 @@ def dag_phase(results, csr_edges):
     check(not torch.backends.cuda.matmul.allow_tf32
           and torch.get_float32_matmul_precision() == "highest",
           "f32 products may use TF32: dense path counts would be inexact")
-    cp, csrcs = run("dense CPATH", CPATH, "cpath", cedges, CPATH_N,
+    cp, csrcs, _ = run("dense CPATH", CPATH, "cpath", cedges, CPATH_N,
                     DENSE_BATCH, "dense", "plus_times", None, sparse=False)
     phase["dense CPATH"]["appends"] = cpath_appends(cp, cedges, csrcs[:4])
     del cp
@@ -1087,8 +1228,8 @@ def dag_phase(results, csr_edges):
              spmv.plain_maxplus, float("-inf")),
             ("CSR CPATH", CPATH, "cpath", cw, "plus_times",
              "csr_plustimes_step", spmv.plain_plustimes, 0.0)):
-        svc, srcs = run(label, program, pred, edges, CSR_N, CSR_BATCH, "csr",
-                        semiring, key)
+        svc, srcs, srcs2 = run(label, program, pred, edges, CSR_N,
+                               CSR_BATCH, "csr", semiring, key)
         csr = svc._dense_state(pred).csr
         f = _seed_rows(torch, lambda i: rows_from_sources(csr, i), srcs,
                        svc.batch_pads, zero)
@@ -1098,7 +1239,11 @@ def dag_phase(results, csr_edges):
             (f, csr), 10, _csr_seed_bound(torch, csr, f, live, 4, F32_OPS_S),
             library=_sparse_mm_call(torch, csr, f)
             if key == "csr_plustimes_step" else None))
-        del svc, csr, f, live
+        del csr, f, live
+        if key == "csr_plustimes_step":
+            results[key]["captured"] = captured_frontiers(
+                torch, key, svc, pred, srcs2, plain, 4, F32_OPS_S)
+        del svc
         torch.cuda.empty_cache()
 
     cycle = np.array([[0, 1, 1], [1, 2, 1], [2, 0, 1], [2, 3, 1]], np.int64)
@@ -1868,7 +2013,8 @@ def main():
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          **{k: results[name][k] for k in (
              "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
-             "bound_by", "library_ms")}}
+             "bound_by", "library_ms")},
+         **{k: v for k, v in results[name].items() if k == "captured"}}
         for name, (src, rep) in KERNELS.items()]}
     say("phases: " + json.dumps({k: results[k]
                                  for k in ("dense_phase", "csr_phase",

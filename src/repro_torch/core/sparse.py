@@ -21,6 +21,12 @@ Layout (see the JAX module for the full story):
   (column tile, arc chunk) pairs with a destination hit, the JAX arrays
   exactly, plus ``plan_unit``, the Hopper kernel's work units over it
   (``kernels.spmv.csr_minplus_tiled_step``);
+* for the plus-times carrier, ``ell_src``/``ell_val`` and the work list
+  ``ell_items``/``ell_row_piece`` (:func:`_ell_order`): the slices' slots
+  in order with each slot's source and value, which K5 reads instead of
+  the positions, built on the card wherever the spine
+  is (``build_csr``, the fold, ``csr_from_state``, ``spmv.raw_csr``) and
+  never part of the state;
 * a COO tail (``tail_src``/``tail_dst``/``tail_val``/``tail_ell``) that
   ``csr_append`` fills with appended arcs and folds into the spine once it
   outgrows ``rebuild_frac`` of it (the fold carries ``ell_cfg`` and
@@ -88,6 +94,12 @@ class CSRMatrix:
     kind: str  # 'bool' | 'minplus' | 'maxplus' | 'plustimes'
     ell_cfg: tuple  # (floor, stride) capacity-ladder config
     plan_cfg: tuple | None  # (chunk, bn) of the tile-skip plan, or None
+    # K5's view of the slices (:func:`_ell_order`), plus-times only;
+    # derived on the card, never part of the state
+    ell_src: torch.Tensor | None = None  # (E,) int32 — slot sources, -1 pad
+    ell_val: torch.Tensor | None = None  # (E,) f32 — slot values (K5)
+    ell_items: torch.Tensor | None = None  # (I, 4) int32 — warp items
+    ell_row_piece: torch.Tensor | None = None  # (rows + 1,) int32
 
     @property
     def semiring(self) -> Semiring:
@@ -286,6 +298,84 @@ def _plan_units(tiles: np.ndarray, chunks: np.ndarray,
     return np.append(units, live).astype(np.int32)
 
 
+#: slots per piece of a wide slice row: K5 cuts rows of capacity
+#: above 16 into pieces of at most this many slots, one warp each, so a
+#: hub's row spreads over many SMs
+ELL_SEG = 256
+
+
+def _ell_order(kind: str, src_idx: torch.Tensor, edge_val: torch.Tensor,
+               slices: tuple) -> dict:
+    """K5's view of the sliced-ELL map, built with torch indexing
+    on the map's device (a port-only derivation, never part of the state):
+
+    * ``ell_src`` (E,) int32: the slices' slots laid end to end (slice,
+      row, slot), each the source ``src_idx[p]`` of its position p, -1
+      where ``edge_val[p]`` is the ⊕-zero (a sentinel);
+    * ``ell_val`` (E,) f32: ``edge_val[p]`` (0 at a sentinel);
+    * ``ell_items`` (I, 4) int32, one warp item each: ``(first slot, first
+      piece, first row, pieces | length << 6)``.  A row of capacity <= 16
+      (a power of two) is one piece, and ``32 // cap`` of them share an
+      item; a wider row is cut into pieces of :data:`ELL_SEG` slots that
+      end at its last live slot (one empty piece if it has none), one item
+      each;
+    * ``ell_row_piece`` (rows + 1,) int32: row r's pieces are
+      ``ell_row_piece[r]:ell_row_piece[r + 1]``, rows numbered as
+      ``ell_rank`` numbers them.
+
+    The other carriers' steps read none of it: all four are None."""
+    out = dict.fromkeys(("ell_src", "ell_val", "ell_items",
+                         "ell_row_piece"))
+    if kind != "plustimes":
+        return out
+    dev = src_idx.device
+    zero = carrier_for(kind).zero
+    srcs, vals, items, counts = [], [], [], []
+    slot = row = piece = 0
+    for t in slices:
+        R, C = (int(d) for d in t.shape)
+        pos = t.reshape(-1).long()
+        v = edge_val[pos]
+        live = v != zero
+        srcs.append(torch.where(live, src_idx[pos], -1))
+        vals.append(v)
+        if C <= 16 and C & (C - 1) == 0:  # 32 // C rows share one load
+            G = 32 // C
+            g = torch.arange(-(-R // G), device=dev)
+            k = torch.ones(R, dtype=torch.int64, device=dev)
+            first = g * G
+            it = (slot + first * C, piece + first, row + first,
+                  torch.clamp(R - first, max=G) | (C << 6))
+        else:
+            last = (live.view(R, C) * torch.arange(1, C + 1, device=dev)
+                    ).amax(1)  # last live slot + 1, 0 for none
+            k = torch.clamp(-(-last // ELL_SEG), min=1)
+            r = torch.repeat_interleave(torch.arange(R, device=dev), k)
+            j = torch.arange(int(k.sum()), device=dev) - torch.repeat_interleave(
+                torch.cumsum(k, 0) - k, k)
+            length = torch.clamp(last[r] - j * ELL_SEG, 0, ELL_SEG)
+            it = (slot + r * C + j * ELL_SEG, piece + torch.arange(
+                len(r), device=dev), row + r, 1 | (length << 6))
+        items.append(torch.stack(it, 1))
+        counts.append(k)
+        slot, row, piece = slot + R * C, row + R, piece + int(k.sum())
+    if slot >= 2 ** 31:
+        raise ValueError(f"{slot} ELL slots: K5 indexes them with int32")
+    out["ell_src"] = torch.cat(srcs).int()
+    out["ell_val"] = torch.cat(vals)
+    out["ell_items"] = torch.cat(items).int().contiguous()
+    k = torch.cat(counts)
+    out["ell_row_piece"] = torch.cat(
+        [k.new_zeros(1), torch.cumsum(k, 0)]).int()
+    return out
+
+
+def _with_ell_order(csr: "CSRMatrix") -> "CSRMatrix":
+    """``csr`` with its :func:`_ell_order` fields built from its spine."""
+    return dataclasses.replace(csr, **_ell_order(
+        csr.kind, csr.src_idx, csr.edge_val, csr.ell_slices))
+
+
 def _to(a: np.ndarray, device) -> torch.Tensor:
     # np.require keeps a 0-d array 0-d (np.ascontiguousarray makes it (1,))
     return torch.from_numpy(np.require(a, requirements="C")).to(device)
@@ -326,7 +416,7 @@ def build_csr(edges: np.ndarray, n_alloc: int, kind: str = "bool",
     src = np.concatenate([src, np.zeros(pad, np.int32)])
     dst = np.concatenate([dst, np.zeros(pad, np.int32)])
     val = np.concatenate([val, np.full(pad, sr.zero, val.dtype)])
-    return CSRMatrix(
+    return _with_ell_order(CSRMatrix(
         row_ptr=_to(row_ptr, device), col_idx=_to(dst, device),
         edge_val=_to(val, device), src_idx=_to(src, device),
         ell_slices=tuple(_to(t, device) for t in slices),
@@ -341,7 +431,7 @@ def build_csr(edges: np.ndarray, n_alloc: int, kind: str = "bool",
         tail_nnz=torch.tensor(0, dtype=torch.int32, device=device),
         plan_tile=plan[0], plan_chunk=plan[1], plan_first=plan[2],
         plan_unit=plan[3], n=n, n_alloc=n_alloc, kind=kind,
-        ell_cfg=tuple(ell_cfg), plan_cfg=plan_cfg)
+        ell_cfg=tuple(ell_cfg), plan_cfg=plan_cfg))
 
 
 def tail_will_rebuild(csr: CSRMatrix, n_new: int,
@@ -665,7 +755,7 @@ def csr_from_state(arrays: dict, meta: dict, device=None) -> CSRMatrix:
     if plan_cfg is not None:
         units = _to(_plan_units(*(np.asarray(arrays[k]) for k in (
             "plan_tile", "plan_chunk", "plan_first"))), device)
-    return CSRMatrix(
+    return _with_ell_order(CSRMatrix(
         row_ptr=t["row_ptr"], col_idx=t["col_idx"], edge_val=t["edge_val"],
         src_idx=t["src_idx"], ell_slices=slices, ell_rank=t["ell_rank"],
         nnz=t["nnz"], tail_src=t["tail_src"], tail_dst=t["tail_dst"],
@@ -675,4 +765,4 @@ def csr_from_state(arrays: dict, meta: dict, device=None) -> CSRMatrix:
         plan_first=t.get("plan_first"), plan_unit=units,
         n=int(meta["n"]), n_alloc=int(meta["n_alloc"]),
         kind=str(meta["kind"]), ell_cfg=tuple(meta["ell_cfg"]),
-        plan_cfg=plan_cfg)
+        plan_cfg=plan_cfg))

@@ -8,11 +8,14 @@ JAX serving path drives them (``ops._csr_<carrier>_step``: spine + COO
 tail).  The kernels (``csrc/spmv.cu``) compute the same function as a pull
 over the CSR's own sliced-ELL segment map: each output ``(b, v)``
 ⊕-reduces ``frontier[b, src_idx[p]] ⊗ edge_val[p]`` over v's in-edge
-positions ``p``, then over its COO-tail positions.  No atomics: OR, min and
-max are order-independent, so K3, K4 and K6 are bit-identical to the plain
-step; K5 sums in a fixed order, so it is deterministic, and equals the plain
-step exactly while every partial sum is an integer below 2^24 (integral
-EDBs and path counts).
+positions ``p``, then over its COO-tail positions.  K3, K4 and K6 read the
+positions; K5 reads the CSR's ELL-ordered sources and values
+(``core.sparse._ell_order``), skips arcs whose source is zero in every
+batch row, and runs every slice in one launch.  OR, min and max are
+order-independent, so K3, K4 and K6 are bit-identical to the plain step; K5 sums in a fixed order with no
+atomics (:func:`plustimes_in_kernel_order`), so it is deterministic, and
+equals the plain step exactly while every partial sum is an integer below
+2^24 (integral EDBs and path counts).
 
 K7 (``csr_minplus_tiled_step``) replaces ``csr_minplus_spmv_tiled``: it
 walks the CSR's tile-skip worklist (``build_csr(kernel_plan=)``) in work
@@ -36,7 +39,8 @@ import numpy as np
 import torch
 
 from ..core.seminaive import quantize_rows
-from ..core.sparse import DEFAULT_ELL_CFG, CSRMatrix, _plan_units
+from ..core.sparse import (DEFAULT_ELL_CFG, CSRMatrix, _plan_units,
+                           _with_ell_order)
 from . import build, ref
 
 #: the plain PyTorch versions of these kernels
@@ -46,8 +50,8 @@ plain_plustimes = ref.csr_plustimes_step_ref
 plain_maxplus = ref.csr_maxplus_step_ref
 plain_minplus_tiled = ref.csr_minplus_tiled_step_ref
 
-#: positions per warp work item: wider slice rows (power-law hubs) are cut
-#: into SEG-position segments, one warp each, then ⊕-reduced
+#: positions per K3/K4/K6 warp work item: wider slice rows (power-law hubs)
+#: are cut into SEG-position segments, one warp each, then ⊕-reduced
 SEG = 1024
 #: batch rows per kernel call (lanes own rows lane + 32q, q < 4)
 MAX_BATCH = 128
@@ -57,7 +61,9 @@ _STEP_ARGS = [_VP, _I, _I, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _I, _VP,
               _VP, _VP, _VP, _VP, _VP, _VP]
 _PROTOTYPES = {"repro_csr_bool_step": _STEP_ARGS,
                "repro_csr_minplus_step": _STEP_ARGS,
-               "repro_csr_plustimes_step": _STEP_ARGS,
+               "repro_csr_plustimes_step": [
+                   _VP, _I, _I, _VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP,
+                   _VP, _VP, _VP, _VP, _VP, _VP, _VP],
                "repro_csr_maxplus_step": _STEP_ARGS,
                "repro_csr_minplus_tiled_step": [
                    _VP, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
@@ -132,6 +138,70 @@ def _operands(frontier, csr) -> tuple:
             csr.tail_val, csr.tail_ell, *csr.ell_slices)
 
 
+def plustimes_in_kernel_order(frontier: torch.Tensor, csr) -> torch.Tensor:
+    """K5's sum in K5's own order, in PyTorch (f32, every product and sum
+    rounded as the kernel rounds it): per piece of ``csr.ell_items``, the
+    slots in order from +0.0; per row, its pieces in order from +0.0; then
+    the COO tail's positions in order.  Equal to the kernel bit for bit
+    where every weight is finite, and to :data:`plain_plustimes` exactly
+    while every partial sum is an integer below 2^24."""
+    f = frontier[None, :] if frontier.ndim == 1 else frontier
+    B, dev = f.shape[0], f.device
+    it = csr.ell_items.long()
+    npc, length = it[:, 3] & 63, it[:, 3] >> 6
+    n_pieces = int(csr.ell_row_piece[-1])
+    first = torch.zeros(n_pieces, dtype=torch.int64, device=dev)
+    plen = torch.zeros(n_pieces, dtype=torch.int64, device=dev)
+    t = torch.arange(int(npc.sum()), device=dev) - torch.repeat_interleave(
+        torch.cumsum(npc, 0) - npc, npc)
+    k = torch.repeat_interleave(it[:, 1], npc) + t
+    first[k] = torch.repeat_interleave(it[:, 0], npc) + t * \
+        torch.repeat_interleave(length, npc)
+    plen[k] = torch.repeat_interleave(length, npc)
+    src = csr.ell_src.long()
+    contrib = f[:, src.clamp(min=0)] * csr.ell_val  # (B, E), rounded
+    contrib[:, src < 0] = 0.0
+    piece = torch.zeros((B, n_pieces), dtype=f.dtype, device=dev)
+    for j in range(int(plen.max()) if n_pieces else 0):
+        on = plen > j
+        piece[:, on] = piece[:, on] + contrib[:, first[on] + j]
+    rp = csr.ell_row_piece.long()
+    cnt = rp[1:] - rp[:-1]
+    rows = torch.zeros((B, len(cnt)), dtype=f.dtype, device=dev)
+    for j in range(int(cnt.max()) if len(cnt) else 0):
+        on = cnt > j
+        rows[:, on] = rows[:, on] + piece[:, rp[:-1][on] + j]
+    out = rows[:, csr.ell_rank.long()]
+    tail = csr.tail_ell.long()
+    tsrc = csr.tail_src.long()
+    for j in range(tail.shape[1]):
+        p = tail[:, j]
+        out = out + f[:, tsrc[p]] * csr.tail_val[p]
+    return out[0] if frontier.ndim == 1 else out
+
+
+def _k35_operands(frontier, csr) -> tuple:
+    """Every tensor K5 reads: :func:`_operands` and the derived ELL
+    order (``core.sparse._ell_order``)."""
+    derived = (csr.ell_src, csr.ell_val, csr.ell_items, csr.ell_row_piece)
+    return (*_operands(frontier, csr), *(t for t in derived if t is not None))
+
+
+def _k35_checked(what: str, dtype, frontier, csr) -> torch.Tensor:
+    """The frontier as (B, n_alloc), after checking the arrays K5 reads."""
+    if csr.ell_items is None:
+        raise ValueError(f"{what}: the CSR has no ELL-ordered sources "
+                         "(core.sparse._ell_order)")
+    f = _checked(what, dtype, frontier, csr,
+                 ("ell_src", "ell_rank", "ell_row_piece", "tail_src",
+                  "tail_ell"))
+    build.require(f"{what} csr.ell_items", csr.ell_items, torch.int32, 2)
+    if csr.ell_items.shape[1] != 4 or csr.ell_items.data_ptr() % 16:
+        raise ValueError(f"{what}: csr.ell_items must be (items, 4) and "
+                         "16-byte aligned")
+    return f
+
+
 def csr_bool_step(frontier: torch.Tensor, csr) -> torch.Tensor:
     """(B, n_alloc) bool ⊗ packed arcs -> (B, n_alloc) bool: segment-OR by
     destination over the spine and the COO tail."""
@@ -152,11 +222,40 @@ def csr_minplus_step(frontier: torch.Tensor, csr) -> torch.Tensor:
 
 def csr_plustimes_step(frontier: torch.Tensor, csr) -> torch.Tensor:
     """(B, n_alloc) f32 ⊗_+,× packed arcs -> (B, n_alloc) f32: segment-sum
-    by destination over the spine and the COO tail, in a fixed order."""
-    if not build.on_card("csr_plustimes_step", *_operands(frontier, csr)):
+    by destination over the spine and the COO tail, in a fixed order (K5:
+    :func:`plustimes_in_kernel_order`)."""
+    if not build.on_card("csr_plustimes_step",
+                         *_k35_operands(frontier, csr)):
         return plain_plustimes(frontier, csr)
-    return _launch("repro_csr_plustimes_step", "csr_plustimes_step",
-                   torch.float32, frontier, csr)
+    what = "csr_plustimes_step"
+    f = _k35_checked(what, torch.float32, frontier, csr)
+    build.require(f"{what} csr.ell_val", csr.ell_val, torch.float32, 1)
+    B, n = f.shape
+    out = torch.empty_like(f)
+    bc, dev = min(B, MAX_BATCH), f.device
+    # each item holds one piece or one piece a row: a bound read from the
+    # shapes, with no sync for the exact count
+    n_pieces = int(csr.ell_items.shape[0]) + int(csr.ell_row_piece.shape[0])
+    fT = torch.empty((n, bc), dtype=torch.float32, device=dev)
+    act = torch.empty(-(-n // 32), dtype=torch.int32, device=dev)
+    part = torch.empty((n_pieces, bc), dtype=torch.float32, device=dev)
+    live = torch.empty(n_pieces, dtype=torch.uint8, device=dev)
+    lib = build.load("spmv", _PROTOTYPES)
+    with torch.cuda.device(dev):
+        stream = build.stream_handle(f)
+        for b0 in range(0, B, MAX_BATCH):
+            rc = lib.repro_csr_plustimes_step(
+                f[b0].data_ptr(), min(MAX_BATCH, B - b0), n,
+                csr.ell_src.data_ptr(), csr.ell_val.data_ptr(),
+                csr.ell_items.data_ptr(), int(csr.ell_items.shape[0]),
+                csr.ell_row_piece.data_ptr(), csr.ell_rank.data_ptr(),
+                csr.tail_ell.data_ptr(), int(csr.tail_ell.shape[1]),
+                csr.tail_src.data_ptr(), csr.tail_val.data_ptr(),
+                fT.data_ptr(), act.data_ptr(), part.data_ptr(),
+                live.data_ptr(), out[b0].data_ptr(), stream)
+            build.check(lib, rc, what)
+    build.LAUNCHES[what] += 1
+    return out[0] if frontier.ndim == 1 else out
 
 
 def csr_maxplus_step(frontier: torch.Tensor, csr) -> torch.Tensor:
@@ -235,14 +334,14 @@ def _raw_csr(kind: str, n: int, spine: tuple, tail: tuple) -> CSRMatrix:
     s_src, s_dst, s_val, s_ell = spine if spine is not None else sentinel(1)
     t_src, t_dst, t_val, t_ell = tail if tail is not None else sentinel(n)
     i32 = dict(dtype=torch.int32, device=dev)
-    return CSRMatrix(
+    return _with_ell_order(CSRMatrix(
         row_ptr=torch.zeros(n + 1, **i32), col_idx=s_dst, edge_val=s_val,
         src_idx=s_src, ell_slices=(s_ell,),
         ell_rank=torch.zeros(n, **i32), nnz=torch.tensor(0, **i32),
         tail_src=t_src, tail_dst=t_dst, tail_val=t_val, tail_ell=t_ell,
         tail_nnz=torch.tensor(int(t_src.shape[0]) - 1, **i32),
         plan_tile=None, plan_chunk=None, plan_first=None, plan_unit=None,
-        n=n, n_alloc=n, kind=kind, ell_cfg=DEFAULT_ELL_CFG, plan_cfg=None)
+        n=n, n_alloc=n, kind=kind, ell_cfg=DEFAULT_ELL_CFG, plan_cfg=None))
 
 
 def _raw_tail(kind: str, n: int, src: torch.Tensor, dst: torch.Tensor,
