@@ -27,7 +27,3 @@ extern "C" const char* repro_error_string(int code) {
 __device__ __forceinline__ float repro_shfl(float v, int src_lane) {
   return __shfl_sync(REPRO_FULL_MASK, v, src_lane);
 }
-
-__device__ __forceinline__ uint8_t repro_shfl(uint8_t v, int src_lane) {
-  return (uint8_t)__shfl_sync(REPRO_FULL_MASK, (int)v, src_lane);
-}

@@ -1,20 +1,17 @@
-// K3 / K4 / K6 — one CSR frontier step on the bool, min-plus and max-plus
-// carriers:
+// K4 / K6 — one CSR frontier step on the min-plus and max-plus carriers:
 //
 //   out[b, v] = ⊕_{p in segments(v)} frontier[b, src_idx[p]] ⊗ edge_val[p]
 //
-// with (⊕, ⊗) = (OR, AND) for K3, (min, +) for K4 and (max, +) for K6, the
-// segments of v
+// with (⊕, ⊗) = (min, +) for K4 and (max, +) for K6, the segments of v
 // being its row of the sliced-ELL map (ell_slices / ell_rank) plus its row
 // of the COO tail's single-width map (tail_ell / tail_src / tail_val).
 //
-// Replaces: src/repro/kernels/spmv.py, `csr_bool_spmv` (K3),
-// `csr_minplus_spmv` (K4) and `csr_maxplus_spmv` (K6), as driven by
-// ops._csr_<carrier>_step (spine + tail).  The TPU kernels keep the whole
-// (B, n) frontier resident in VMEM and reduce by destination through a
-// one-hot MXU product (bool) or a masked broadcast-min/max over column
+// Replaces: src/repro/kernels/spmv.py, `csr_minplus_spmv` (K4) and
+// `csr_maxplus_spmv` (K6), as driven by ops._csr_<carrier>_step (spine +
+// tail).  The TPU kernels keep the whole (B, n) frontier resident in VMEM
+// and reduce by destination through a masked broadcast-min/max over column
 // tiles.  That does not carry over: at B = 32 and n = 2^20 one frontier is
-// 128 MB of f32, and a one-hot scatter is O(|E|·n).
+// 128 MB of f32.
 //
 // What bounds it on the H100: device memory.  Per step the kernel reads the
 // frontier once, each live arc's position, source and value once, and
@@ -37,11 +34,11 @@
 //     vertices share the all-sentinel row 0), fold in the COO tail the same
 //     way, and write out[b, v] through a shared-memory tile so the (B, n)
 //     stores are coalesced.
-// OR, min and max do not depend on order, so K3, K4 and K6 are
-// bit-identical to the plain PyTorch step and to the JAX one.
+// Min and max do not depend on order, so K4 and K6 are bit-identical to the
+// plain PyTorch step and to the JAX one.
 //
-// K5 (plus-times) has kernels of its own below, over the CSR's ELL-ordered
-// sources (core.sparse._ell_order); K7 closes the file.
+// K3 (bool) and K5 (plus-times) have kernels of their own below, over the
+// CSR's ELL-ordered sources (core.sparse._ell_order); K7 closes the file.
 #include "common.cuh"
 
 namespace {
@@ -49,14 +46,6 @@ namespace {
 constexpr int PULL_THREADS = 256;   // 8 warps per block
 constexpr int GATHER_VERTS = 32;    // vertices per gather block
 constexpr int UNROLL = 8;           // gathers in flight per lane
-
-struct OrOp {
-  using T = uint8_t;
-  static __device__ __forceinline__ T zero() { return 0; }
-  static __device__ __forceinline__ bool live(T w) { return w != 0; }
-  static __device__ __forceinline__ T combine(T f, T w) { return (T)((f != 0) & (w != 0)); }
-  static __device__ __forceinline__ T reduce(T a, T b) { return a | b; }
-};
 
 struct MinPlusOp {
   using T = float;
@@ -296,25 +285,26 @@ int csr_step_dispatch(const void* f, int B, int n, const int* src,
 
 
 // ---------------------------------------------------------------------------
-// K5 — the plus-times step over ELL-ordered sources.
+// K3 / K5 — the bool and plus-times steps over ELL-ordered sources.
 //
-//   out[b, v] = Σ_{p in segments(v)} frontier[b, src_idx[p]] × edge_val[p]
+//   K3: out[b, v] = OR_{p in segments(v)} frontier[b, src_idx[p]] AND edge_val[p]
+//   K5: out[b, v] = Σ_{p in segments(v)} frontier[b, src_idx[p]] × edge_val[p]
 //
-// Replaces: src/repro/kernels/spmv.py, `csr_plustimes_spmv`, as driven by
-// ops._csr_plustimes_step (spine + tail).  The TPU kernel gathers each arc
-// chunk's frontier values, skips a chunk whose sources are all inactive
-// (`pl.when(act_ref[c] != 0)`), and scatters by destination through a
-// one-hot MXU product; a one-hot scatter is O(|E|·n) here, so the port
-// pulls by destination instead.
+// Replaces: src/repro/kernels/spmv.py, `csr_bool_spmv` (K3) and
+// `csr_plustimes_spmv` (K5), as driven by ops._csr_<carrier>_step (spine +
+// tail).  The TPU kernels gather each arc chunk's frontier values, skip a
+// chunk whose sources are all inactive (`pl.when(act_ref[c] != 0)`), and
+// scatter by destination through a one-hot MXU product; a one-hot scatter
+// is O(|E|·n) here, so the port pulls by destination instead.
 //
-// What bounds it on the H100: device memory.  The least work reads the
+// What bounds them on the H100: device memory.  The least work reads the
 // frontier once, the live sources' arcs once and writes the output once;
 // at the batch layer's first step almost no source is active.
 //
-// Design.  It reads the CSR's derived, ELL-ordered arrays
+// Design.  Both read the CSR's derived, ELL-ordered arrays
 // (core.sparse._ell_order, built once per CSR on the card): ell_src[k] is
 // the source of slot k of the slices laid end to end (-1 for a sentinel),
-// ell_val[k] its value, and a work list of warp items over
+// ell_val[k] its value (K5 only), and a work list of warp items over
 // *pieces*: a row of capacity <= 16 is one piece and 32 / cap such rows
 // share an item (one 32-slot load); a wider row is cut into pieces of up to
 // ELL_SEG slots, ending at its last live slot, one item each, so the hub
@@ -323,7 +313,7 @@ int csr_step_dispatch(const void* f, int B, int n, const int* src,
 // two scattered, through the arc position), and no slot past a row's last
 // arc is read.
 //
-// Lanes are batch rows, NB = ceil(B / 32) values a lane:
+// K5 (lanes = batch rows, NB = ceil(B / 32) values a lane):
 //  1. k5_transpose_kernel reads the (B, n) frontier once, writes the (n, B)
 //     rows of the *active* sources only (a value nonzero in some batch row)
 //     and a bitmask of them (n / 8 bytes, cached in L1);
@@ -352,7 +342,20 @@ int csr_step_dispatch(const void* f, int B, int n, const int* src,
 // JAX package's plus-times kernel states the same one); non-integer sums
 // may differ from the plain step in the last bits.
 //
-// It takes B <= 128; the wrapper splits larger batches.
+// K3 (lanes = slots, W = ceil(B / 32) words a vertex):
+//  1. k3_pack_kernel packs the (B, n) bool frontier into (n, W) uint32
+//     words, bit b % 32 of word b / 32 (4 MiB a word at n = 2^20, resident
+//     in L2), plus the same activity bitmask as K5;
+//  2. k3_pull_kernel, one warp per item: each lane takes one slot and, if
+//     its source is active, ORs in the source's W words; the lanes of one
+//     row OR-reduce by __shfl_xor_sync (a capacity below 32 puts 32 / cap
+//     rows in a warp), and the row's first lane ORs the result into its
+//     row's words (an atomicOr where a hub's pieces meet);
+//  3. k3_unpack_kernel, 256 vertices a block: each vertex's row words
+//     (through ell_rank), its COO tail's words ORed in shared memory, then
+//     unpacked into the (B, n) bool output in coalesced runs.
+// OR is order-free, so K3 is bit-identical to the plain step and to JAX
+// for every B.  Both take B <= 128; the wrapper splits larger batches.
 constexpr int K35_THREADS = 256;  // 8 warps a block
 constexpr int K35_UNROLL = 8;     // gathers in flight per lane
 
@@ -617,6 +620,132 @@ int k5_step(const float* f, int B, int n, const int* ell_src,
   return 0;
 }
 
+// 256 vertices a block, lane = vertex: the (n, W) words and activity bits;
+// the grid also zeroes the pull's row words.
+template <int W>
+__global__ void __launch_bounds__(K35_THREADS)
+k3_pack_kernel(const uint8_t* __restrict__ f, int B, int n,
+               unsigned* __restrict__ fw, unsigned* __restrict__ act,
+               unsigned* __restrict__ roww, size_t roww_words) {
+  const int v = blockIdx.x * K35_THREADS + threadIdx.x;
+  unsigned w[W];
+  bool any = false;
+#pragma unroll
+  for (int q = 0; q < W; ++q) {
+    w[q] = 0u;
+    if (v < n) {
+      const int bq = min(32, B - 32 * q);
+      for (int k = 0; k < bq; ++k)
+        w[q] |= (unsigned)(f[(size_t)(32 * q + k) * n + v] != 0) << k;
+      fw[(size_t)v * W + q] = w[q];
+    }
+    any |= w[q] != 0u;
+  }
+  const unsigned m = __ballot_sync(REPRO_FULL_MASK, any);
+  if ((threadIdx.x & 31) == 0 && v < n) act[v >> 5] = m;
+  for (size_t i = (size_t)blockIdx.x * K35_THREADS + threadIdx.x;
+       i < roww_words; i += (size_t)gridDim.x * K35_THREADS)
+    roww[i] = 0u;
+}
+
+// One warp per item; lanes = slots.
+template <int W>
+__global__ void __launch_bounds__(K35_THREADS)
+k3_pull_kernel(const int4* __restrict__ items, int n_items,
+               const int* __restrict__ ell_src,
+               const unsigned* __restrict__ act,
+               const unsigned* __restrict__ fw, unsigned* __restrict__ roww) {
+  const int warp = (int)((blockIdx.x * (size_t)blockDim.x + threadIdx.x) >> 5);
+  const int lane = threadIdx.x & 31;
+  if (warp >= n_items) return;  // uniform across the warp
+  const int4 it = __ldg(items + warp);
+  const int lo = it.x, r0 = it.z, np = it.w & 63, len = it.w >> 6;
+  const int hi = lo + (np > 1 ? np * len : len);
+  unsigned acc[W];
+#pragma unroll
+  for (int q = 0; q < W; ++q) acc[q] = 0u;
+  for (int c0 = lo; c0 < hi; c0 += 32) {
+    const int c = c0 + lane;
+    const int s = c < hi ? __ldcs(ell_src + c) : -1;
+    if (k35_active(act, s)) {
+      const unsigned* ws = fw + (size_t)s * W;
+#pragma unroll
+      for (int q = 0; q < W; ++q) acc[q] |= __ldg(ws + q);
+    }
+  }
+  const int width = np > 1 ? len : 32;  // lanes that share a row
+  for (int off = width >> 1; off > 0; off >>= 1)
+#pragma unroll
+    for (int q = 0; q < W; ++q)
+      acc[q] |= __shfl_xor_sync(REPRO_FULL_MASK, acc[q], off);
+  const int t = lane / width;
+  if (lane % width == 0 && t < np) {
+    unsigned* dst = roww + (size_t)(r0 + t) * W;
+#pragma unroll
+    for (int q = 0; q < W; ++q)
+      if (acc[q]) atomicOr(dst + q, acc[q]);
+  }
+}
+
+// 256 vertices a block: row words through ell_rank, the COO tail ORed in
+// shared memory, then bit b of each vertex to out[b, v] (coalesced bytes).
+template <int W>
+__global__ void __launch_bounds__(K35_THREADS)
+k3_unpack_kernel(const unsigned* __restrict__ roww,
+                 const int* __restrict__ rank,
+                 const int* __restrict__ tail_ell, int tdc,
+                 const int* __restrict__ tail_src,
+                 const uint8_t* __restrict__ tail_val,
+                 const unsigned* __restrict__ act,
+                 const unsigned* __restrict__ fw, int B, int n,
+                 uint8_t* __restrict__ out) {
+  __shared__ unsigned sw[W][K35_THREADS];
+  const int t = threadIdx.x;
+  const int v0 = blockIdx.x * K35_THREADS;
+  const int nv = min(K35_THREADS, n - v0);
+  const unsigned* rw = roww + (size_t)(t < nv ? __ldg(rank + v0 + t) : 0) * W;
+#pragma unroll
+  for (int q = 0; q < W; ++q) sw[q][t] = t < nv ? __ldg(rw + q) : 0u;
+  __syncthreads();
+  for (int i = t; i < nv * tdc; i += K35_THREADS) {
+    const int p = __ldg(tail_ell + (size_t)v0 * tdc + i);
+    if (!__ldg(tail_val + p)) continue;
+    const int s = __ldg(tail_src + p);
+    if (!k35_active(act, s)) continue;
+#pragma unroll
+    for (int q = 0; q < W; ++q) {
+      const unsigned x = __ldg(fw + (size_t)s * W + q);
+      if (x) atomicOr(&sw[q][i / tdc], x);
+    }
+  }
+  __syncthreads();
+  if (t < nv)
+    for (int b = 0; b < B; ++b)
+      out[(size_t)b * n + v0 + t] = (uint8_t)((sw[b >> 5][t] >> (b & 31)) & 1u);
+}
+
+template <int W>
+int k3_step(const uint8_t* f, int B, int n, const int* ell_src,
+            const int4* items, int n_items, int n_rows, const int* rank,
+            const int* tail_ell, int tdc, const int* tail_src,
+            const uint8_t* tail_val, unsigned* fw, unsigned* act,
+            unsigned* roww, uint8_t* out, cudaStream_t s) {
+  const unsigned vblocks = (unsigned)((n + K35_THREADS - 1) / K35_THREADS);
+  k3_pack_kernel<W><<<vblocks, K35_THREADS, 0, s>>>(f, B, n, fw, act, roww,
+                                                    (size_t)n_rows * W);
+  REPRO_LAUNCH_CHECK();
+  if (n_items > 0) {
+    const unsigned blocks = (unsigned)((n_items + 7) / 8);
+    k3_pull_kernel<W><<<blocks, K35_THREADS, 0, s>>>(items, n_items, ell_src,
+                                                     act, fw, roww);
+    REPRO_LAUNCH_CHECK();
+  }
+  k3_unpack_kernel<W><<<vblocks, K35_THREADS, 0, s>>>(
+      roww, rank, tail_ell, tdc, tail_src, tail_val, act, fw, B, n, out);
+  REPRO_LAUNCH_CHECK();
+  return 0;
+}
+
 // ---------------------------------------------------------------------------
 // K7 — the min-plus step over a tile-skip plan (csr_minplus_tiled_step).
 //
@@ -777,22 +906,11 @@ minplus_tiled_kernel(const int* __restrict__ plan_tile,
 
 }  // namespace
 
-// K3 / K4 / K6.  f: (B, n) frontier; src/val: (cap,) packed arcs; ells[i]:
+// K4 / K6.  f: (B, n) frontier; src/val: (cap,) packed arcs; ells[i]:
 // (rows[i], caps[i]) int32 slice tables; rank: (n,) int32; tail_ell: (n,
 // tdc) int32; tail_src/tail_val: (tail_cap,); scratch fT: (n, B), cat: (sum
 // rows, B), part: (max rows·ceil(cap/seg) over wide slices, B); out: (B, n).
-// B <= 128 per call.  Bool operands are 0/1 bytes (torch.bool).
-extern "C" int repro_csr_bool_step(
-    const void* f, int B, int n, const int* src, const void* val,
-    int n_slices, const void* const* ells, const int* rows, const int* caps,
-    int seg, const int* rank, const int* tail_ell, int tdc,
-    const int* tail_src, const void* tail_val, void* fT, void* cat,
-    void* part, void* out, void* stream) {
-  return csr_step_dispatch<OrOp>(f, B, n, src, val, n_slices, ells, rows,
-                                 caps, seg, rank, tail_ell, tdc, tail_src,
-                                 tail_val, fT, cat, part, out, stream);
-}
-
+// B <= 128 per call.
 extern "C" int repro_csr_minplus_step(
     const void* f, int B, int n, const int* src, const void* val,
     int n_slices, const void* const* ells, const int* rows, const int* caps,
@@ -813,6 +931,41 @@ extern "C" int repro_csr_maxplus_step(
   return csr_step_dispatch<MaxPlusOp>(f, B, n, src, val, n_slices, ells, rows,
                                       caps, seg, rank, tail_ell, tdc, tail_src,
                                       tail_val, fT, cat, part, out, stream);
+}
+
+// K3.  f: (B, n) bool frontier (0/1 bytes); ell_src: (E,) int32 slot
+// sources; items: (n_items, 4) int32 warp items; n_rows: the slices' rows
+// in all; rank: (n,) int32; tail_ell: (n, tdc) int32; tail_src/tail_val:
+// (tail_cap,) int32 / bool; scratch fw: (n, W) uint32, act: (ceil(n / 32),)
+// uint32, roww: (n_rows, W) uint32, W = ceil(B / 32); out: (B, n) bool.
+// B <= 128 per call.
+extern "C" int repro_csr_bool_step(
+    const void* f, int B, int n, const int* ell_src, const void* items,
+    int n_items, int n_rows, const int* rank, const int* tail_ell, int tdc,
+    const int* tail_src, const void* tail_val, void* fw, void* act,
+    void* roww, void* out, void* stream) {
+  if (B <= 0 || n <= 0) return 0;
+  if (B > 128) return (int)cudaErrorInvalidValue;  // the wrapper splits B
+  const uint8_t* pf = (const uint8_t*)f;
+  const int4* it = (const int4*)items;
+  const uint8_t* tv = (const uint8_t*)tail_val;
+  unsigned *pw = (unsigned*)fw, *pa = (unsigned*)act, *pr = (unsigned*)roww;
+  uint8_t* po = (uint8_t*)out;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch ((B + 31) / 32) {
+    case 1:
+      return k3_step<1>(pf, B, n, ell_src, it, n_items, n_rows, rank,
+                        tail_ell, tdc, tail_src, tv, pw, pa, pr, po, s);
+    case 2:
+      return k3_step<2>(pf, B, n, ell_src, it, n_items, n_rows, rank,
+                        tail_ell, tdc, tail_src, tv, pw, pa, pr, po, s);
+    case 3:
+      return k3_step<3>(pf, B, n, ell_src, it, n_items, n_rows, rank,
+                        tail_ell, tdc, tail_src, tv, pw, pa, pr, po, s);
+    default:
+      return k3_step<4>(pf, B, n, ell_src, it, n_items, n_rows, rank,
+                        tail_ell, tdc, tail_src, tv, pw, pa, pr, po, s);
+  }
 }
 
 // K5.  f: (B, n) f32 frontier; ell_src/ell_val: (E,) int32 / f32 slot

@@ -8,11 +8,12 @@ JAX serving path drives them (``ops._csr_<carrier>_step``: spine + COO
 tail).  The kernels (``csrc/spmv.cu``) compute the same function as a pull
 over the CSR's own sliced-ELL segment map: each output ``(b, v)``
 ⊕-reduces ``frontier[b, src_idx[p]] ⊗ edge_val[p]`` over v's in-edge
-positions ``p``, then over its COO-tail positions.  K3, K4 and K6 read the
-positions; K5 reads the CSR's ELL-ordered sources and values
-(``core.sparse._ell_order``), skips arcs whose source is zero in every
-batch row, and runs every slice in one launch.  OR, min and max are
-order-independent, so K3, K4 and K6 are bit-identical to the plain step; K5 sums in a fixed order with no
+positions ``p``, then over its COO-tail positions.  K4 and K6 read the
+positions; K3 and K5 read the CSR's ELL-ordered sources and values
+(``core.sparse._ell_order``), skip arcs whose source is zero in every batch
+row, and run every slice in one launch; K3 gathers a bit-packed frontier
+(:func:`pack_bits`).  OR, min and max are order-independent, so K3, K4 and
+K6 are bit-identical to the plain step; K5 sums in a fixed order with no
 atomics (:func:`plustimes_in_kernel_order`), so it is deterministic, and
 equals the plain step exactly while every partial sum is an integer below
 2^24 (integral EDBs and path counts).
@@ -50,7 +51,7 @@ plain_plustimes = ref.csr_plustimes_step_ref
 plain_maxplus = ref.csr_maxplus_step_ref
 plain_minplus_tiled = ref.csr_minplus_tiled_step_ref
 
-#: positions per K3/K4/K6 warp work item: wider slice rows (power-law hubs)
+#: positions per K4/K6 warp work item: wider slice rows (power-law hubs)
 #: are cut into SEG-position segments, one warp each, then ⊕-reduced
 SEG = 1024
 #: batch rows per kernel call (lanes own rows lane + 32q, q < 4)
@@ -59,7 +60,9 @@ MAX_BATCH = 128
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _STEP_ARGS = [_VP, _I, _I, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _I, _VP,
               _VP, _VP, _VP, _VP, _VP, _VP]
-_PROTOTYPES = {"repro_csr_bool_step": _STEP_ARGS,
+_PROTOTYPES = {"repro_csr_bool_step": [
+                   _VP, _I, _I, _VP, _VP, _I, _I, _VP, _VP, _I, _VP, _VP,
+                   _VP, _VP, _VP, _VP, _VP],
                "repro_csr_minplus_step": _STEP_ARGS,
                "repro_csr_plustimes_step": [
                    _VP, _I, _I, _VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP,
@@ -138,6 +141,28 @@ def _operands(frontier, csr) -> tuple:
             csr.tail_val, csr.tail_ell, *csr.ell_slices)
 
 
+def pack_bits(frontier: torch.Tensor) -> torch.Tensor:
+    """The (B, n) bool frontier as K3 gathers it: (n, ceil(B / 32)) int32
+    words, bit ``b % 32`` of word ``b // 32`` set where ``frontier[b, v]``
+    (the plain version of K3's pack; the words' bit patterns are uint32)."""
+    B, n = frontier.shape
+    W = -(-B // 32)
+    bits = torch.zeros((W * 32, n), dtype=torch.int64,
+                       device=frontier.device)
+    bits[:B] = frontier.to(torch.int64)
+    shift = torch.arange(32, device=frontier.device).view(1, 32, 1)
+    words = (bits.view(W, 32, n) << shift).sum(1)
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).int().T
+
+
+def unpack_bits(words: torch.Tensor, B: int) -> torch.Tensor:
+    """Inverse of :func:`pack_bits`: (n, W) words -> (B, n) bool (K3's
+    unpack)."""
+    shift = torch.arange(32, device=words.device).view(1, 32, 1)
+    bits = (words.T.to(torch.int64)[:, None, :] >> shift) & 1
+    return bits.reshape(-1, words.shape[0])[:B].bool()
+
+
 def plustimes_in_kernel_order(frontier: torch.Tensor, csr) -> torch.Tensor:
     """K5's sum in K5's own order, in PyTorch (f32, every product and sum
     rounded as the kernel rounds it): per piece of ``csr.ell_items``, the
@@ -181,14 +206,14 @@ def plustimes_in_kernel_order(frontier: torch.Tensor, csr) -> torch.Tensor:
 
 
 def _k35_operands(frontier, csr) -> tuple:
-    """Every tensor K5 reads: :func:`_operands` and the derived ELL
+    """Every tensor K3/K5 read: :func:`_operands` and the derived ELL
     order (``core.sparse._ell_order``)."""
     derived = (csr.ell_src, csr.ell_val, csr.ell_items, csr.ell_row_piece)
     return (*_operands(frontier, csr), *(t for t in derived if t is not None))
 
 
 def _k35_checked(what: str, dtype, frontier, csr) -> torch.Tensor:
-    """The frontier as (B, n_alloc), after checking the arrays K5 reads."""
+    """The frontier as (B, n_alloc), after checking the arrays K3/K5 read."""
     if csr.ell_items is None:
         raise ValueError(f"{what}: the CSR has no ELL-ordered sources "
                          "(core.sparse._ell_order)")
@@ -204,11 +229,35 @@ def _k35_checked(what: str, dtype, frontier, csr) -> torch.Tensor:
 
 def csr_bool_step(frontier: torch.Tensor, csr) -> torch.Tensor:
     """(B, n_alloc) bool ⊗ packed arcs -> (B, n_alloc) bool: segment-OR by
-    destination over the spine and the COO tail."""
-    if not build.on_card("csr_bool_step", *_operands(frontier, csr)):
+    destination over the spine and the COO tail (K3: a bit-packed frontier
+    gathered over the ELL-ordered sources)."""
+    if not build.on_card("csr_bool_step", *_k35_operands(frontier, csr)):
         return plain_bool(frontier, csr)
-    return _launch("repro_csr_bool_step", "csr_bool_step", torch.bool,
-                   frontier, csr)
+    what = "csr_bool_step"
+    f = _k35_checked(what, torch.bool, frontier, csr)
+    B, n = f.shape
+    out = torch.empty_like(f)
+    bc = min(B, MAX_BATCH)
+    W, dev = -(-bc // 32), f.device
+    n_rows = int(csr.ell_row_piece.shape[0]) - 1
+    fw = torch.empty((n, W), dtype=torch.int32, device=dev)
+    act = torch.empty(-(-n // 32), dtype=torch.int32, device=dev)
+    roww = torch.empty((n_rows, W), dtype=torch.int32, device=dev)
+    lib = build.load("spmv", _PROTOTYPES)
+    with torch.cuda.device(dev):
+        stream = build.stream_handle(f)
+        for b0 in range(0, B, MAX_BATCH):
+            rc = lib.repro_csr_bool_step(
+                f[b0].data_ptr(), min(MAX_BATCH, B - b0), n,
+                csr.ell_src.data_ptr(), csr.ell_items.data_ptr(),
+                int(csr.ell_items.shape[0]), n_rows, csr.ell_rank.data_ptr(),
+                csr.tail_ell.data_ptr(), int(csr.tail_ell.shape[1]),
+                csr.tail_src.data_ptr(), csr.tail_val.data_ptr(),
+                fw.data_ptr(), act.data_ptr(), roww.data_ptr(),
+                out[b0].data_ptr(), stream)
+            build.check(lib, rc, what)
+    build.LAUNCHES[what] += 1
+    return out[0] if frontier.ndim == 1 else out
 
 
 def csr_minplus_step(frontier: torch.Tensor, csr) -> torch.Tensor:

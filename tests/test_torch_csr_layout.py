@@ -1,13 +1,13 @@
-"""The CSR layout that K5 reads, checked on the CPU.
+"""The CSR layout that K3 and K5 read, checked on the CPU.
 
-K5 (``csr_plustimes_step``) runs on the card only (``csrc/spmv.cu``).  What
-it reads is built in PyTorch and is checked here: the derived ELL-ordered
-sources and values and the warp work list (``core.sparse._ell_order``)
-after every way a CSR comes to be, and K5's order of summation
-(``spmv.plustimes_in_kernel_order``) against the plain step and the JAX
-Pallas kernel (interpret mode): exactly on integer inputs, within a stated
-tolerance otherwise.  A JAX state carried into the port and back is the
-JAX state field for field.  Last, ``chip_smoke.capture_frontiers``, the
+K3 (``csr_bool_step``) and K5 (``csr_plustimes_step``) run on the card only
+(``csrc/spmv.cu``).  What they read is built in PyTorch and is checked
+here: the derived ELL-ordered sources and values and the warp work list
+(``core.sparse._ell_order``) after every way a CSR comes to be, K3's bit
+pack and unpack (``spmv.pack_bits``/``unpack_bits``), and K5's order of
+summation (``spmv.plustimes_in_kernel_order``) against the plain step and
+the JAX Pallas kernel (interpret mode): exactly on integer inputs, within
+a stated tolerance otherwise.  Last, ``chip_smoke.capture_frontiers``, the
 spy that records the frontiers a warm batch's fixpoint passes to its step.
 """
 import sys
@@ -34,7 +34,7 @@ import chip_smoke  # noqa: E402
 #: the graphs of test_torch_sparse.py's layout test: (n, p, seed, powerlaw)
 GRAPHS = [(100, 0.05, 0, False), (100, 0.05, 1, False),
           (300, 0.02, 2, True), (300, 0.02, 3, True), (40, 0.0, 4, False)]
-LAYOUT_KINDS = ["plustimes"]
+LAYOUT_KINDS = ["bool", "plustimes"]
 
 
 def _edges(kind, n, p, seed, powerlaw):
@@ -125,7 +125,7 @@ def test_csr_from_state_keeps_the_jax_state(kind):
 
 
 @pytest.mark.parametrize("n,p,seed,powerlaw", GRAPHS)
-@pytest.mark.parametrize("kind", LAYOUT_KINDS + ["bool", "minplus"])
+@pytest.mark.parametrize("kind", LAYOUT_KINDS + ["minplus"])
 def test_ell_order_after_build_append_fold_and_state(kind, n, p, seed,
                                                      powerlaw):
     """``build_csr``, ``csr_append`` into the COO tail and through a fold,
@@ -178,6 +178,21 @@ def test_ell_order_of_raw_triples(kind):
     else:
         got = spmv.plain_bool(f, csr)
     assert torch.equal(got, spmv.ref.csr_raw_ref(kind, f, src, dst, val))
+
+
+@pytest.mark.parametrize("B", [1, 31, 32, 33, 130])
+def test_pack_bits_round_trip(B):
+    """K3's frontier words: bit ``b % 32`` of word ``b // 32``, and back."""
+    rng = np.random.default_rng(B)
+    f = torch.from_numpy(rng.random((B, 77)) < 0.3)
+    f[:, 5] = True  # bit 31 of a full word: the sign bit of an int32
+    words = spmv.pack_bits(f)
+    assert words.shape == (77, -(-B // 32)) and words.dtype == torch.int32
+    u = words.numpy().view(np.uint32)
+    for b in range(B):
+        assert np.array_equal((u[:, b // 32] >> (b % 32)) & 1,
+                              f[b].numpy().astype(np.uint32))
+    assert torch.equal(spmv.unpack_bits(words, B), f)
 
 
 def _plustimes_case(n, p, seed, powerlaw, b):
