@@ -408,8 +408,8 @@ def ragged_parity():
 def k35_ragged_parity():
     """K3 and K5 against their plain versions at every batch size of
     :data:`K35_BATCHES` and density of :data:`K35_DENSITIES`, on a graph
-    whose vertex 1 has an in-degree near 4,000 (wider than the old
-    1,024-position segment and the new 256-slot piece), whose last 37
+    whose vertex 1 has an in-degree near 4,000 (wider than K4/K6's
+    1,024-position segment and K3/K5's 256-slot piece), whose last 37
     vertices have no arc (empty rows) and whose COO tail holds 40 arcs:
     K3 exactly, K5 exactly on small-integer counts (sums far below 2^24).
     Then K5 on a non-integer frontier: two calls bitwise identical and

@@ -309,8 +309,8 @@ int csr_step_dispatch(const void* f, int B, int n, const int* src,
 // share an item (one 32-slot load); a wider row is cut into pieces of up to
 // ELL_SEG slots, ending at its last live slot, one item each, so the hub
 // rungs spread over every SM.  All slices are one launch.  So a warp's 32
-// slots cost two coalesced loads (the old pull's were one coalesced and
-// two scattered, through the arc position), and no slot past a row's last
+// slots cost two coalesced loads (through the arc positions they would
+// cost one coalesced and two scattered), and no slot past a row's last
 // arc is read.
 //
 // K5 (lanes = batch rows, NB = ceil(B / 32) values a lane):
