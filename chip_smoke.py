@@ -16,7 +16,10 @@ a non-zero exit and prints no result):
    K5's inputs are small integers whose sums stay below 2^24, where f32
    sums are exact in any order); B = 3, 32 and 130 (over the CSR kernels'
    128-row split), hub rows wider than one 1024-position segment, and a
-   COO tail built by hand; then K3 and K5 at B = 1, 31, 32, 33, 64, 65,
+   COO tail built by hand; then K1, K2 and K2-max at B = 1, 8, 64, 65, 128
+   and 129 and n = 15, 16, 17, 1003, 1024 and 4097 (across the 128 x 128
+   tiles, the K splits and both load routes), fully dead frontiers, and
+   operands off 16-byte boundaries; then K3 and K5 at B = 1, 31, 32, 33, 64, 65,
    128 and 130 and frontier densities 0, 0.001, 0.1 and 1.0, on a graph
    with a hub of in-degree about 4,000 (wider than K4/K6's 1,024-position
    segment and K3/K5's 256-slot piece), 37 empty rows and a COO tail (K5
@@ -37,7 +40,10 @@ a non-zero exit and prints no result):
 4. dense main path: ``DatalogService`` TC and SPATH on ``gnp_graph(10_000,
    0.1)`` (the paper's Table-6 Gn-p family; density 0.1 picks the dense
    carrier), ``ask_batch`` of 100 sources, a second batch of 100, a repeat
-   of the first (all cache hits) and one ``ask``; then appends to both
+   of the first (all cache hits) and one ``ask``; K1 and K2 at the ``ask``
+   shapes (the seed's first 1 and 8 rows) and K1 at every frontier of a
+   warm TC batch, each equal to plain and timed beside the f32 ``matmul``
+   and the bound at that input; then appends to both
    services: 1,000 arcs, and one arc to vertex 10,200, which grows
    ``n_alloc`` from 10,112 to 10,240 (cached rows re-padded): 3 resumed
    batch sources, the single one and the new vertex against the oracle;
@@ -74,7 +80,9 @@ a non-zero exit and prints no result):
    500 again (set semantics: no fixpoint, no count changes); CSR LPATH (K6, weights 1..9) and
    CSR CPATH (K5, unit weights) on the arcs of phase 5's power-law graph
    with src > dst (a DAG of about 13.2M arcs, hub in-degrees near 183k),
-   K5 also at every frontier of a warm CPATH batch, as K3 in phase 5;
+   K5 also at every frontier of a warm CPATH batch, as K3 in phase 5, and
+   K2-max at the ``ask`` shapes and at every 20th frontier of a warm dense
+   LPATH batch (each equal to plain, with its live share and bound);
    then a 3-cycle CPATH on both carriers must raise
    ``FixpointDivergenceError`` and cache nothing;
 7. the dense all-pairs path on the paper's Table-6 G10K,
@@ -177,6 +185,9 @@ cpath(X,Z,sum<C>) <- d(X,Z,C).
 cpath(X,Z,sum<C>) <- cpath(X,Y,C1), d(Y,Z,C2), C = C1 * C2.
 """
 LPATH_N, LPATH_P, LPATH_W = 10_000, 0.05, 9
+#: K2-max is held to its plain version at every LPATH_EVERY-th frontier of
+#: a warm dense LPATH batch (836 iterations: 42 frontiers)
+LPATH_EVERY = 20
 CPATH_N, CPATH_P = 10_000, 8 / 10_000
 
 KERNELS = {
@@ -209,6 +220,11 @@ KERNELS = {
 #: wrapper's 128-row split, and frontier densities
 K35_BATCHES = (1, 31, 32, 33, 64, 65, 128, 130)
 K35_DENSITIES = (0.0, 0.001, 0.1, 1.0)
+#: K1/K2's ragged cases: batch sizes across the 64-row warpgroups and the
+#: 128-row tiles, and widths across the 128-column tiles, the K splits and
+#: both load routes (n % 16 and n % 4 nonzero take the predicated one)
+K12_BATCHES = (1, 8, 64, 65, 128, 129)
+K12_SIZES = (15, 16, 17, 1003, 1024, 4097)
 #: K7's ragged cases: (chunk, bn) plans and batch sizes (130 crosses the
 #: 32-row passes more than four times)
 K7_PLANS = ((32, 128), (64, 128), (32, 256), (16, 64))
@@ -457,6 +473,68 @@ def k35_ragged_parity():
         f"in-degree {hub}, {n_alloc - n} empty rows, a 40-arc tail); K5 on "
         f"a non-integer (130, {n_alloc}) frontier: two calls bitwise equal "
         f"and equal to its order in PyTorch, max abs err vs plain {err:.3e}")
+
+
+def _misaligned(torch, x):
+    """``x``'s values in a contiguous tensor that starts one element past a
+    16-byte boundary (the predicated load route, whatever the width)."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = flat[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def k12_ragged_parity():
+    """K1, K2 (min-plus) and K2's max-plus instantiation against their plain
+    versions, exactly, at every batch size of :data:`K12_BATCHES` and width
+    of :data:`K12_SIZES` (square (n, n) operands, frontier density 0.2,
+    matrix density 8/n), each also with a fully dead frontier (all false,
+    +inf, -inf), and at B = 65 with every operand one element off a 16-byte
+    boundary; the launch plans' splits and routes that ran are printed."""
+    import torch
+    from repro_torch.kernels import boolmm, build, minplus
+    rng = np.random.default_rng(SEED + 20)
+    cases, routes = 0, set()
+    for n in K12_SIZES:
+        p = min(0.5, 8 / n)
+        adj = torch.from_numpy(rng.random((n, n)) < p).to(DEVICE)
+        w = torch.from_numpy(_rand_dist(rng, (n, n), p)).to(DEVICE)
+        wm = torch.from_numpy(_neg_inf(_rand_dist(rng, (n, n), p))).to(DEVICE)
+        for B in K12_BATCHES:
+            f = torch.from_numpy(rng.random((B, n)) < 0.2).to(DEVICE)
+            fw = torch.from_numpy(_rand_dist(rng, (B, n), 0.2)).to(DEVICE)
+            fm = torch.from_numpy(_neg_inf(_rand_dist(rng, (B, n), 0.2))).to(
+                DEVICE)
+            runs = [(f, adj, fw, w, fm, wm),
+                    (torch.zeros_like(f), adj, torch.full_like(fw, np.inf), w,
+                     torch.full_like(fm, -np.inf), wm)]
+            if B == 65:
+                runs.append(tuple(_misaligned(torch, x) for x in runs[0]))
+            for f1, a1, f2, w2, f3, w3 in runs:
+                equal_and_err(torch, boolmm.bool_frontier_matmul(f1, a1),
+                              boolmm.plain(f1, a1))
+                equal_and_err(torch, minplus.minplus_frontier_matmul(f2, w2),
+                              minplus.plain(f2, w2))
+                equal_and_err(torch, minplus.maxplus_frontier_matmul(f3, w3),
+                              minplus.plain_max(f3, w3))
+                cases += 3
+                sms = build.sm_count(f1.device)
+                k1 = boolmm.plan(B, n, n, build.aligned(f1, a1), sms)
+                k2 = minplus.plan(B, n, n, build.aligned(f2, w2), sms)
+                routes |= {("K1", k1.splits, k1.vec), ("K2", k2.splits, k2.vec)}
+    torch.cuda.synchronize()
+    say(f"parity (K1/K2, ragged): {cases} cases exactly equal to plain (B "
+        f"{list(K12_BATCHES)}, n {list(K12_SIZES)}, fully dead frontiers, "
+        f"operands off 16-byte boundaries); (kernel, splits, aligned route) "
+        f"run: {sorted(routes)}")
+    for kernel in ("K1", "K2"):
+        for vec in (True, False):
+            check(any(r[0] == kernel and r[2] == vec for r in routes),
+                  f"{kernel}: the {'aligned' if vec else 'predicated'} route "
+                  "never ran")
+        check(any(r[0] == kernel and r[1] > 1 for r in routes)
+              and any(r[0] == kernel and r[1] == 1 for r in routes),
+              f"{kernel}: split and unsplit launches did not both run")
 
 
 def k7_ragged_parity():
@@ -820,6 +898,96 @@ def _bound(bytes_, ops, ops_rate):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def _dense_bound(torch, f, w, live, vbytes, rate):
+    """A dense frontier product's bound at (f, w): each operand read once and
+    the result written once (``vbytes`` a value); an add and a ⊕ (or an AND
+    and an OR) per live f[m, k] and live w[k, n] it meets."""
+    B, na = f.shape
+    ops = 2 * float((live(f).double() @ live(w).sum(1).double()).sum())
+    return _bound(vbytes * (2 * B * na + na * na), ops, rate)
+
+
+def ask_shapes(torch, name, kernel, plain, f, w, live, vbytes, rate,
+               library=None):
+    """The kernel at the ``ask`` shapes: the first 1 and 8 rows of the
+    frontier ``f``, each held to the plain version and timed beside its
+    bound (and ``library``'s call on the same operands)."""
+    out = {}
+    for m in (1, 8):
+        fm = f[:m].contiguous()
+        out[m] = measure(torch, f"{name} (M = {m})", kernel, plain, (fm, w),
+                         20, _dense_bound(torch, fm, w, live, vbytes, rate),
+                         library=library(torch, fm, w) if library else None)
+    return out
+
+
+def capture_dense_frontiers(svc, pred, srcs, every):
+    """One warm batch of ``srcs`` on ``pred``'s dense carrier, run as
+    ``ask_batch`` runs its fixpoint (``run_batch``), with a spy on the
+    fixpoint's product (``ops.semiring_matmul``) that keeps a copy of every
+    ``every``-th input frontier, the first included.  Returns [(iteration,
+    frontier)] and the batch's result."""
+    from repro_torch.kernels import ops
+    kept, real, calls = [], ops.semiring_matmul, [0]
+
+    def spy(name):
+        mm = real(name)
+
+        def recording(f, arc):
+            if calls[0] % every == 0:
+                kept.append((calls[0] + 1, f.clone()))
+            calls[0] += 1
+            return mm(f, arc)
+
+        return recording
+
+    ops.semiring_matmul = spy
+    try:
+        res = svc._dense_state(pred).run_batch(svc, srcs)
+    finally:
+        ops.semiring_matmul = real
+    return kept, res
+
+
+def captured_dense(torch, name, svc, pred, srcs, kernel, plain, live, vbytes,
+                   rate, every, library=None):
+    """The dense product at every ``every``-th frontier one warm batch passes
+    (:func:`capture_dense_frontiers`): each output held to the plain
+    version, exactly; per input the live share (finite, or true, entries),
+    the kernel's ms, ``library``'s ms and the bound (:func:`_dense_bound`);
+    their sums."""
+    kept, res = capture_dense_frontiers(svc, pred, srcs, every)
+    check(len(kept) == -(-res.iterations // every),
+          f"{name}: kept {len(kept)} frontiers of {res.iterations} iterations")
+    w = svc._dense_state(pred).matrix
+    its, share, rows, ms, lib_ms, bound_ms = [], [], [], [], [], []
+    for it, f in kept:
+        equal_and_err(torch, kernel(f, w), plain(f, w))
+        lf = live(f)
+        its.append(it)
+        share.append(float(lf.double().mean()))
+        rows.append(int(lf.any(1).sum()))
+        ms.append(time_ms(torch, lambda: kernel(f, w), 10))
+        if library:
+            lib_ms.append(time_ms(torch, library(torch, f, w), 10))
+        bound_ms.append(_dense_bound(torch, f, w, live, vbytes, rate)[0])
+    out = {"iterations": res.iterations, "generated": res.generated,
+           "kept": its, "live": share, "live_rows": rows,
+           "ms_each": ms, "ms": float(sum(ms)),
+           "library_ms": float(sum(lib_ms)) if library else None,
+           "bound_ms": float(sum(bound_ms))}
+    say(f"{name} ({pred}) at {len(kept)} of the {res.iterations} frontiers of "
+        f"a warm batch (every {every}; generated {res.generated}), each equal "
+        f"to plain: {out['ms']:.3f} ms in all"
+        + (f" (f32 matmul {out['library_ms']:.3f} ms)" if library else "")
+        + f", bound {out['bound_ms']:.4f} ms; per frontier (iteration, live "
+        f"share, live rows, ms): "
+        f"{[(i, round(a, 4), r, round(t, 4)) for i, a, r, t in zip(its, share, rows, ms)]}")
+    del kept
+    torch.cuda.empty_cache()
+    return out
+
+
 def dense_phase(results):
     import torch
     from repro_torch.data import gnp_graph
@@ -857,21 +1025,26 @@ def dense_phase(results):
                    srcs, tc.batch_pads, False)
     fw = _seed_rows(torch, lambda i: w[torch.from_numpy(i).to(w.device)],
                     srcs, sp.batch_pads, float("inf"))
-    B, na = f.shape
-    # ops: one AND + one OR per live frontier entry and live row entry it
-    # meets; bytes: each operand read once, the result written once
-    live_ops = 2 * float((f.double() @ adj.sum(1).double()).sum())
     results["bool_matmul"].update(measure(
         torch, "K1 bool_frontier_matmul", boolmm.bool_frontier_matmul,
         boolmm.plain, (f, adj), 20,
-        _bound(2 * B * na + na * na, live_ops, INT8_OPS_S),
+        _dense_bound(torch, f, adj, lambda x: x, 1, INT8_OPS_S),
         library=_matmul_call(torch, f, adj)))
+    results["bool_matmul"]["ask"] = ask_shapes(
+        torch, "K1 bool_frontier_matmul", boolmm.bool_frontier_matmul,
+        boolmm.plain, f, adj, lambda x: x, 1, INT8_OPS_S, _matmul_call)
+    results["bool_matmul"]["captured"] = captured_dense(
+        torch, "K1 bool_frontier_matmul", tc, "tc", srcs2,
+        boolmm.bool_frontier_matmul, boolmm.plain, lambda x: x, 1,
+        INT8_OPS_S, 1, _matmul_call)
     fin = torch.isfinite
-    live_ops = 2 * float((fin(fw).double() @ fin(w).sum(1).double()).sum())
     results["minplus_matmul"].update(measure(
         torch, "K2 minplus_frontier_matmul", minplus.minplus_frontier_matmul,
         minplus.plain, (fw, w), 10,
-        _bound(4 * (2 * B * na + na * na), live_ops, F32_OPS_S)))
+        _dense_bound(torch, fw, w, fin, 4, F32_OPS_S)))
+    results["minplus_matmul"]["ask"] = ask_shapes(
+        torch, "K2 minplus_frontier_matmul", minplus.minplus_frontier_matmul,
+        minplus.plain, fw, w, fin, 4, F32_OPS_S)
     del adj, w, f, fw
     phase["appends"] = dense_appends(tc, sp, edges, wedges, srcs, single)
     del tc, sp
@@ -1186,18 +1359,23 @@ def dag_phase(results, csr_edges):
     ledges = dag_graph(LPATH_N, LPATH_P, seed=SEED, max_w=LPATH_W)
     say(f"dense LPATH graph: dag_graph({LPATH_N}, {LPATH_P}, max_w={LPATH_W})"
         f": {len(ledges)} arcs ({time.perf_counter() - t0:.1f} s)")
-    lp, lsrcs, _ = run("dense LPATH", LPATH, "lpath", ledges, LPATH_N,
-                    DENSE_BATCH, "dense", "max_plus", "maxplus_matmul")
+    lp, lsrcs, lsrcs2 = run("dense LPATH", LPATH, "lpath", ledges, LPATH_N,
+                            DENSE_BATCH, "dense", "max_plus", "maxplus_matmul")
     w = lp._dense_state("lpath").matrix
     fw = _seed_rows(torch, lambda i: w[torch.from_numpy(i).to(w.device)],
                     lsrcs, lp.batch_pads, float("-inf"))
     fin = torch.isfinite
-    live_ops = 2 * float((fin(fw).double() @ fin(w).sum(1).double()).sum())
-    B, na = fw.shape
     results["maxplus_matmul"].update(measure(
         torch, "K2 maxplus_frontier_matmul", minplus.maxplus_frontier_matmul,
         minplus.plain_max, (fw, w), 10,
-        _bound(4 * (2 * B * na + na * na), live_ops, F32_OPS_S)))
+        _dense_bound(torch, fw, w, fin, 4, F32_OPS_S)))
+    results["maxplus_matmul"]["ask"] = ask_shapes(
+        torch, "K2 maxplus_frontier_matmul", minplus.maxplus_frontier_matmul,
+        minplus.plain_max, fw, w, fin, 4, F32_OPS_S)
+    results["maxplus_matmul"]["captured"] = captured_dense(
+        torch, "K2 maxplus_frontier_matmul", lp, "lpath", lsrcs2,
+        minplus.maxplus_frontier_matmul, minplus.plain_max, fin, 4,
+        F32_OPS_S, LPATH_EVERY)
     del lp, w, fw
     torch.cuda.empty_cache()
 
@@ -1477,17 +1655,17 @@ def allpairs_phase(results):
     del steps, d, mask
 
     # K2 and K1 at M = n: the first linear APSP and TC steps
-    fin = torch.isfinite
-    live_ops = 2 * float((fin(w).double() @ fin(w).sum(1).double()).sum())
     phase["k2_full"] = measure_rows(
         torch, "K2 minplus_matmul (M = n)", minplus.minplus_matmul,
         minplus.plain, (w, w), lambda r0, r1: (w[r0:r1], w), 3,
-        _bound(4 * 3 * n * n, live_ops, F32_OPS_S))
-    live_ops = 2 * float((adj.double() @ adj.sum(1).double()).sum())
+        _dense_bound(torch, w, w, torch.isfinite, 4, F32_OPS_S))
     phase["k1_full"] = measure(
         torch, "K1 bool_matmul (M = n)", boolmm.bool_matmul, boolmm.plain,
-        (adj, adj), 3, _bound(3 * n * n, live_ops, INT8_OPS_S),
+        (adj, adj), 3, _dense_bound(torch, adj, adj, lambda x: x, 1,
+                                    INT8_OPS_S),
         library=_matmul_call(torch, adj, adj))
+    results["minplus_matmul"]["full"] = phase["k2_full"]
+    results["bool_matmul"]["full"] = phase["k1_full"]
     phase["seconds"] = time.perf_counter() - t_phase
     say(f"all-pairs phase: {phase['seconds']:.1f} s")
     results["allpairs_phase"] = phase
@@ -1997,6 +2175,7 @@ def main():
     build_kernels()
     import torch
     ragged_parity()
+    k12_ragged_parity()
     k7_ragged_parity()
     k8_ragged_parity()
     raw_entry_parity()
@@ -2014,7 +2193,8 @@ def main():
          **{k: results[name][k] for k in (
              "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
              "bound_by", "library_ms")},
-         **{k: v for k, v in results[name].items() if k == "captured"}}
+         **{k: v for k, v in results[name].items()
+            if k in ("captured", "ask", "full")}}
         for name, (src, rep) in KERNELS.items()]}
     say("phases: " + json.dumps({k: results[k]
                                  for k in ("dense_phase", "csr_phase",

@@ -8,11 +8,15 @@ unchanged one is reused.  :func:`build` compiles every missing library at once, 
 process per source, all started together.
 
 Nothing here falls back: a missing ``nvcc``, a failed compile or a non-zero
-``cudaGetLastError()`` from a launch raises.
+``cudaGetLastError()`` from a launch raises.  The tiled dense products (K1,
+K2) take their launch plan from :func:`tiled_plan`: how K is split over the
+grid so that the blocks fill the card.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import hashlib
 import os
 import shutil
@@ -139,6 +143,75 @@ def require(what: str, t, dtype, ndim: int) -> None:
         raise ValueError(
             f"{what}: expected a contiguous {ndim}-D {dtype} tensor, got "
             f"{tuple(t.shape)} {t.dtype} (contiguous={t.is_contiguous()})")
+
+
+#: streaming multiprocessors of the H100 SXM: the split plans' default
+SMS = 132
+#: a block's fill and drain, in k stages, in :func:`split_k`'s cost
+SPLIT_OVERHEAD = 2
+
+
+def split_k(tiles: int, stages: int, slots: int) -> tuple[int, int]:
+    """How many K ranges to cut a tiled product into so that its blocks
+    fill the card: ``tiles`` output tiles, ``stages`` k stages in all,
+    ``slots`` blocks the card runs at once.  Returns ``(splits, per)``,
+    ``per`` stages a split (``splits = ceil(stages / per)``), minimizing the
+    waves of blocks times the stages each runs plus
+    :data:`SPLIT_OVERHEAD`; the fewest splits on a tie.  Tiles that fill
+    two waves alone are not split: each split would add a partial per
+    output to combine and gain a wave's tail at most."""
+    stages = max(1, stages)
+    if tiles >= 2 * slots:
+        return 1, stages
+    best = None
+    for s in range(1, stages + 1):
+        per = -(-stages // s)
+        splits = -(-stages // per)
+        if best is not None and splits == best[1]:
+            continue
+        cost = -(-(tiles * splits) // slots) * (per + SPLIT_OVERHEAD)
+        if best is None or cost < best[0]:
+            best = (cost, splits, per)
+    return best[1], best[2]
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """One launch of a tiled product with K split over the grid: split
+    ``s`` takes k in ``[s·k_chunk, min(k, (s+1)·k_chunk))``; ``scratch`` is
+    the shape of the splits' partials where the kernel keeps them (else
+    ``()``); ``vec`` is the aligned ``cp.async`` route, else the predicated
+    loads."""
+    splits: int
+    k_chunk: int
+    grid: tuple[int, int, int]
+    scratch: tuple[int, ...]
+    vec: bool
+
+
+def tiled_plan(m: int, k: int, n: int, tile: tuple[int, int, int],
+               blocks_per_sm: int, sms: int, partials: bool,
+               vec: bool) -> Plan:
+    """The :class:`Plan` of an (m, k) ⊗ (k, n) product in ``tile`` =
+    (rows, columns, k a stage) blocks, ``blocks_per_sm`` at once on each of
+    ``sms`` SMs; ``partials``: more than one split needs an (splits, m, n)
+    scratch."""
+    bm, bn, bk = tile
+    tiles_n, tiles_m = -(-n // bn), -(-m // bm)
+    splits, per = split_k(tiles_m * tiles_n, -(-k // bk), sms * blocks_per_sm)
+    return Plan(splits, per * bk, (tiles_n, tiles_m, splits),
+                (splits, m, n) if partials and splits > 1 else (), vec)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The streaming multiprocessors of ``device`` (a CUDA device)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def aligned(*tensors) -> bool:
+    """Every tensor's data starts on a 16-byte boundary (``cp.async``'s)."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def stream_handle(t) -> int:

@@ -4,9 +4,12 @@ min-plus and a max-plus instantiation.
 Replaces the Pallas kernel ``repro.kernels.minplus.minplus_matmul``
 (serving entry ``minplus_frontier_matmul``; the JAX package serves max-plus
 through it by negation, ``ops.maxplus_frontier``).  The kernel
-(``csrc/minplus.cu``) is a shared-memory tiled broadcast-add and ⊕ on the
-CUDA cores, templated on the ⊕ (min with +inf, max with -inf as the
-⊕-zero), with ragged shapes masked.
+(``csrc/minplus.cu``) is a tiled broadcast-add and ⊕ on the CUDA cores,
+templated on the ⊕ (min with +inf, max with -inf as the ⊕-zero): 128 x 128
+output tiles, a ``cp.async`` ring of 32-deep stages, dead (row, k) pairs
+skipped (each row walks its live k when a stage holds few), and K split
+over the grid by :func:`plan` (the splits' partials ⊕-combined by a second
+kernel), with ragged shapes masked.
 
 On CPU tensors the wrappers run the plain versions (:data:`plain`,
 :data:`plain_max`); on CUDA tensors they launch the kernel or raise.
@@ -14,6 +17,7 @@ On CPU tensors the wrappers run the plain versions (:data:`plain`,
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -23,9 +27,23 @@ from . import build, ref
 plain = ref.minplus_ref
 plain_max = ref.maxplus_ref
 
+#: the kernel's output tile and stage depth (``csrc/minplus.cu``); one
+#: block an SM (16 warps, 96 KB of stages)
+BM, BN, BK, BLOCKS_PER_SM = 128, 128, 32, 1
+
 _VP, _I = ctypes.c_void_p, ctypes.c_int
-_ARGS = [_VP, _VP, _VP, _I, _I, _I, _VP]
+_ARGS = [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP]
 _PROTOTYPES = {"repro_minplus_matmul": _ARGS, "repro_maxplus_matmul": _ARGS}
+
+
+@functools.lru_cache(maxsize=256)
+def plan(m: int, k: int, n: int, aligned: bool = True,
+         sms: int = build.SMS) -> build.Plan:
+    """The launch plan of an (m, k) ⊗ (k, n) product on a card with ``sms``
+    SMs; ``aligned``: the operands and output start on 16-byte boundaries.
+    With more than one split the partials go to a scratch."""
+    return build.tiled_plan(m, k, n, (BM, BN, BK), BLOCKS_PER_SM, sms, True,
+                            aligned and k % 4 == 0 and n % 4 == 0)
 
 
 def _launch(fn: str, counter: str, a: torch.Tensor, b: torch.Tensor
@@ -37,10 +55,15 @@ def _launch(fn: str, counter: str, a: torch.Tensor, b: torch.Tensor
         raise ValueError(f"{counter}: {tuple(a.shape)} x {tuple(b.shape)}")
     n = b.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    p = plan(m, k, n, build.aligned(a, b, out), build.sm_count(a.device))
+    scratch = torch.empty(p.scratch, dtype=torch.float32, device=a.device) \
+        if p.scratch else None
     lib = build.load("minplus", _PROTOTYPES)
     with torch.cuda.device(a.device):
-        rc = getattr(lib, fn)(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                              m, k, n, build.stream_handle(a))
+        rc = getattr(lib, fn)(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None, m, k, n,
+            p.k_chunk, p.splits, int(p.vec), build.stream_handle(a))
     build.check(lib, rc, counter)
     build.LAUNCHES[counter] += 1
     return out
