@@ -19,19 +19,23 @@ a non-zero exit and prints no result):
    COO tail built by hand; then K1, K2 and K2-max at B = 1, 8, 64, 65, 128
    and 129 and n = 15, 16, 17, 1003, 1024 and 4097 (across the 128 x 128
    tiles, the K splits and both load routes), fully dead frontiers, and
-   operands off 16-byte boundaries; then K3 and K5 at B = 1, 31, 32, 33, 64, 65,
-   128 and 130 and frontier densities 0, 0.001, 0.1 and 1.0, on a graph
-   with a hub of in-degree about 4,000 (wider than K4/K6's 1,024-position
-   segment and K3/K5's 256-slot piece), 37 empty rows and a COO tail (K5
-   on small-integer counts), and K5 on a non-integer frontier: two calls
-   bitwise equal, and equal to ``spmv.plustimes_in_kernel_order``; then K7 (the min-plus step over a tile-skip
-   plan) against its plain version and K4's at (chunk, bn) = (32, 128),
-   (64, 128), (32, 256) and (16, 64) and B = 3, 32 and 130, on a graph with
-   empty column tiles, an allocation no tile width divides, a hub tile
-   split into several work units and a COO tail made by ``csr_append``;
-   then K8 (the fused relaxation step) against its plain version at n = 1,
-   50, 130, 1000 and 1025, with Δ masks all true, all false and random with
-   a whole 64-row tile false, and a ``d`` with whole +inf rows; then the
+   operands off 16-byte boundaries; then K3, K5 and K6 at B = 1, 31, 32,
+   33, 64, 65, 128 and 130 and frontier densities 0, 0.001, 0.1 and 1.0,
+   on a graph with a hub of in-degree about 4,000 (wider than K4's
+   1,024-position segment and the 256-slot piece), 37 empty rows and a COO
+   tail (K5 on small-integer counts), and K5 on a non-integer frontier: two
+   calls bitwise equal, and equal to ``spmv.ell_step_in_kernel_order``;
+   then K7 (the min-plus step over a tile-skip plan) against its plain
+   version and K4's at (chunk, bn) = (32, 128), (64, 128), (32, 256) and
+   (16, 64) and B = 3, 32 and 130, on a graph with empty column tiles, an
+   allocation no tile width divides, a hub tile split into several work
+   units and a COO tail made by ``csr_append``; then K8 (the fused
+   relaxation step) against its plain version at n = 1, 50, 130, 1000 and
+   1025, with Δ masks all true, all false and random with a whole 64-row
+   tile false, and a ``d`` with whole +inf rows, by each route (the
+   arc-list route and the tiled one, each call checked to launch its
+   route) on a sparse and on a dense ``a``, and through ``relax_step``,
+   whose route must follow ``relax.arcs_pay``; then the
    JAX API's raw-triple CSR entries (``ops.csr_bool``, ``csr_minplus``,
    ``csr_maxplus``, ``csr_plustimes``, ``csr_minplus_tiled``) against
    their plain versions, exactly, on the spine and on the COO-tail arrays
@@ -80,7 +84,8 @@ a non-zero exit and prints no result):
    500 again (set semantics: no fixpoint, no count changes); CSR LPATH (K6, weights 1..9) and
    CSR CPATH (K5, unit weights) on the arcs of phase 5's power-law graph
    with src > dst (a DAG of about 13.2M arcs, hub in-degrees near 183k),
-   K5 also at every frontier of a warm CPATH batch, as K3 in phase 5, and
+   K6 and K5 also at every frontier of a warm LPATH and CPATH batch, as K3
+   in phase 5 (K6 with no ``sparse.mm`` beside it: it cannot take a max), and
    K2-max at the ``ask`` shapes and at every 20th frontier of a warm dense
    LPATH batch (each equal to plain, with its live share and bound);
    then a 3-cycle CPATH on both carriers must raise
@@ -97,11 +102,16 @@ a non-zero exit and prints no result):
    against the same fixpoint with the plain boolean product on the card;
    ``connected_components_dense`` (K2 with B = 1) against scipy's
    components, each labelled by its least vertex.  Per path: iterations,
-   wall time and K1, K2 and K8 launches.  K8 is timed at the inputs of the
+   wall time and K1, K2 and K8 launches (K8 by its arc-list route: the
+   tiled route must not launch).  K8 is timed at the inputs of the
    loop's first, middle and last steps, held to its plain version in row
    blocks of 1,024 (the plain version cannot run whole at this width),
-   beside one K2 linear step with its merge and changed test at the same
-   inputs; K1 and K2 are timed at M = n;
+   beside its tiled route, its pre-pass alone (the column lists) and one
+   K2 linear step with its merge and changed test at the same inputs; then
+   both routes at a first step (d = a, every row in Δ) of Gn-p arc
+   matrices drawn on the card at densities 0.1%, 1%, 3%, 10%, 20% and 30%
+   (equal to each other), the sweep that sets ``relax.ARC_DENSITY``; K1
+   and K2 are timed at M = n;
 8. the LM serving path: RecurrentGemma-2B (``recurrentgemma-2b``) at its
    published widths and depth (26 layers, 18 ``rg`` and 8 ``local``,
    d_model 2560, vocab 256,000; 2.89 × 10^9 parameters drawn on the card
@@ -234,6 +244,8 @@ TAIL_APPEND, FOLD_APPEND = 10_000, 4_100_000
 DENSE_GROW = 10_200
 #: K8's ragged sizes (1025: a last row tile of one row)
 K8_SIZES = (1, 50, 130, 1000, 1025)
+#: the densities of K8's route sweep (:func:`k8_density_sweep`)
+K8_SWEEP = (0.001, 0.01, 0.03, 0.1, 0.2, 0.3)
 #: the all-pairs phase: the paper's Table-6 G10K (Gn-p, n = 10,000,
 #: p = 0.001), rows sampled against scipy, and the plain versions' row block
 AP_N, AP_P, AP_SAMPLE, ROW_BLOCK = 10_000, 0.001, 64, 1024
@@ -422,14 +434,14 @@ def ragged_parity():
 
 
 def k35_ragged_parity():
-    """K3 and K5 against their plain versions at every batch size of
+    """K3, K5 and K6 against their plain versions at every batch size of
     :data:`K35_BATCHES` and density of :data:`K35_DENSITIES`, on a graph
-    whose vertex 1 has an in-degree near 4,000 (wider than K4/K6's
-    1,024-position segment and K3/K5's 256-slot piece), whose last 37
-    vertices have no arc (empty rows) and whose COO tail holds 40 arcs:
-    K3 exactly, K5 exactly on small-integer counts (sums far below 2^24).
+    whose vertex 1 has an in-degree near 4,000 (wider than K4's
+    1,024-position segment and the 256-slot piece), whose last 37 vertices
+    have no arc (empty rows) and whose COO tail holds 40 arcs: K3 and K6
+    exactly, K5 exactly on small-integer counts (sums far below 2^24).
     Then K5 on a non-integer frontier: two calls bitwise identical and
-    bitwise equal to ``spmv.plustimes_in_kernel_order``; its max abs error
+    bitwise equal to ``spmv.ell_step_in_kernel_order``; its max abs error
     against the plain step is printed."""
     import torch
     from repro_torch.kernels import spmv
@@ -441,6 +453,11 @@ def k35_ragged_parity():
         "plustimes", n_alloc,
         np.concatenate([edges, rng.integers(1, 4, (len(edges), 1))], 1),
         np.concatenate([tail, rng.integers(1, 4, (len(tail), 1))], 1),
+        DEVICE)
+    mcsr = _hand_tailed_csr(
+        "maxplus", n_alloc,
+        np.concatenate([edges, rng.integers(1, 10, (len(edges), 1))], 1),
+        np.concatenate([tail, rng.integers(1, 10, (len(tail), 1))], 1),
         DEVICE)
     hub = int(np.bincount(edges[:, 1]).max())
     check(hub > 1024 and int(pcsr.tail_nnz) == len(tail),
@@ -457,18 +474,23 @@ def k35_ragged_parity():
                     np.float32)).to(DEVICE)
             equal_and_err(torch, spmv.csr_plustimes_step(fc, pcsr),
                           spmv.plain_plustimes(fc, pcsr))
-            cases += 2
+            fm = torch.from_numpy(np.where(
+                hit, rng.integers(0, 50, hit.shape), -np.inf).astype(
+                    np.float32)).to(DEVICE)
+            equal_and_err(torch, spmv.csr_maxplus_step(fm, mcsr),
+                          spmv.plain_maxplus(fm, mcsr))
+            cases += 3
     fr = torch.from_numpy(rng.random((130, n_alloc)).astype(
         np.float32)).to(DEVICE)
     one, two = (spmv.csr_plustimes_step(fr, pcsr) for _ in range(2))
-    ordered = spmv.plustimes_in_kernel_order(fr, pcsr)
+    ordered = spmv.ell_step_in_kernel_order(fr, pcsr)
     check(torch.equal(one.view(torch.int32), two.view(torch.int32)),
           "K5: two calls on one non-integer frontier differ")
     check(torch.equal(one.view(torch.int32), ordered.view(torch.int32)),
-          "K5: != plustimes_in_kernel_order on a non-integer frontier")
+          "K5: != ell_step_in_kernel_order on a non-integer frontier")
     err = float((one - spmv.plain_plustimes(fr, pcsr)).abs().max())
     torch.cuda.synchronize()
-    say(f"parity (K3/K5, ragged): {cases} cases exactly equal to plain (B "
+    say(f"parity (K3/K5/K6, ragged): {cases} cases exactly equal to plain (B "
         f"{list(K35_BATCHES)}, densities {list(K35_DENSITIES)}, a hub of "
         f"in-degree {hub}, {n_alloc - n} empty rows, a 40-arc tail); K5 on "
         f"a non-integer (130, {n_alloc}) frontier: two calls bitwise equal "
@@ -581,26 +603,43 @@ def k8_ragged_parity():
     """K8 against its plain version, exactly, at every size of
     :data:`K8_SIZES`: a ``d`` with whole +inf rows, and Δ masks all true,
     all false (every row tile runs no K loop) and random with rows 64..127
-    false (one whole row tile without a Δ row)."""
+    false (one whole row tile without a Δ row); by each route
+    (``relax_arcs``, ``relax_tiled``, each launching its own kernel once)
+    on a sparse ``a`` (half of ``relax.ARC_DENSITY``, one column all +inf)
+    and a dense one (60%), and through ``relax_step``, which must take the
+    route ``relax.arcs_pay`` names."""
     import torch
     from repro_torch.kernels import relax
     rng = np.random.default_rng(SEED + 9)
-    cases = 0
+    cases, routes = 0, {"relax_step": 0, "relax_step_tiled": 0}
     for n in K8_SIZES:
         d = _rand_dist(rng, (n, n), 0.3)
         d[::7] = np.inf
-        a = _rand_dist(rng, (n, n), 0.05)
         some = rng.random(n) < 0.5
         some[64:128] = False
-        for mask in (np.ones(n, bool), np.zeros(n, bool), some):
-            args = [torch.from_numpy(x).to(DEVICE) for x in (d, a, mask)]
-            got, want = relax.relax_step(*args), relax.plain(*args)
-            for g, w in zip(got, want):
-                equal_and_err(torch, g, w)
-            cases += 1
+        for p in (relax.ARC_DENSITY / 2, 0.6):
+            a = _rand_dist(rng, (n, n), p)
+            a[:, n // 3] = np.inf
+            live = int(np.isfinite(a).sum())
+            chosen = "relax_step" if relax.arcs_pay(n, live) \
+                else "relax_step_tiled"
+            routes[chosen] += 1
+            for mask in (np.ones(n, bool), np.zeros(n, bool), some):
+                args = [torch.from_numpy(x).to(DEVICE) for x in (d, a, mask)]
+                want = relax.plain(*args)
+                for counter, fn in (("relax_step", relax.relax_arcs),
+                                    ("relax_step_tiled", relax.relax_tiled),
+                                    (chosen, relax.relax_step)):
+                    got = _counted(counter, lambda: fn(*args))
+                    for g, w in zip(got, want):
+                        equal_and_err(torch, g, w)
+                    cases += 1
     torch.cuda.synchronize()
-    say(f"parity (K8, ragged): {cases} cases exactly equal to plain "
-        f"(n {list(K8_SIZES)}; masks all, none, random with a false tile)")
+    check(all(routes.values()), f"K8 route choice: {routes}")
+    say(f"parity (K8, ragged): {cases} cases exactly equal to plain (n "
+        f"{list(K8_SIZES)}; masks all, none, random with a false tile; "
+        f"each route and relax_step on a sparse and a dense a; relax_step "
+        f"chose {routes})")
 
 
 def _counted(counter: str, fn):
@@ -1217,12 +1256,13 @@ def capture_frontiers(svc, pred, srcs):
     return frontiers, res
 
 
-def captured_frontiers(torch, name, svc, pred, srcs, plain, s, rate):
+def captured_frontiers(torch, name, svc, pred, srcs, plain, s, rate,
+                       library=True):
     """The kernel of ``pred``'s CSR step at every frontier one warm batch
     passes (:func:`capture_frontiers`): each output held to the plain
     step, exactly; per input the share of active sources, the kernel's and
-    ``sparse.mm``'s ms (:func:`_sparse_mm_call`) and the bound
-    (:func:`_csr_seed_bound`); their sums, and the densest input's."""
+    (with ``library``) ``sparse.mm``'s ms (:func:`_sparse_mm_call`) and the
+    bound (:func:`_csr_seed_bound`); their sums, and the densest input's."""
     from repro_torch.kernels import ops
     frontiers, res = capture_frontiers(svc, pred, srcs)
     check(len(frontiers) == res.iterations,
@@ -1237,21 +1277,26 @@ def captured_frontiers(torch, name, svc, pred, srcs, plain, s, rate):
         live = f if f.dtype == torch.bool else f != zero
         active.append(float(live.any(0).double().mean()))
         ms.append(time_ms(torch, lambda: step(f, csr), 10))
-        lib_ms.append(time_ms(torch, _sparse_mm_call(torch, csr, f), 10))
+        if library:
+            lib_ms.append(time_ms(torch, _sparse_mm_call(torch, csr, f), 10))
         bound_ms.append(_csr_seed_bound(torch, csr, f, live, s, rate)[0])
     d = int(np.argmax(active))
     out = {"iterations": res.iterations, "generated": res.generated,
            "active": active, "ms": float(sum(ms)),
-           "library_ms": float(sum(lib_ms)), "bound_ms": float(sum(bound_ms)),
-           "densest": d, "densest_ms": ms[d], "densest_library_ms": lib_ms[d],
+           "library_ms": float(sum(lib_ms)) if library else None,
+           "bound_ms": float(sum(bound_ms)), "densest": d,
+           "densest_ms": ms[d],
+           "densest_library_ms": lib_ms[d] if library else None,
            "densest_bound_ms": bound_ms[d]}
+    lib = (lambda t: f"sparse.mm {t:.3f} ms, ") if library else \
+        (lambda t: "")
     say(f"{name} ({pred}) at the {res.iterations} frontiers of a warm batch "
         f"(generated {res.generated}), each equal to plain: "
-        f"{out['ms']:.3f} ms in all (sparse.mm {out['library_ms']:.3f} ms, "
-        f"bound {out['bound_ms']:.4f} ms); densest (iteration {d + 1}, "
-        f"{active[d]:.4f} of sources active) {ms[d]:.3f} ms (sparse.mm "
-        f"{lib_ms[d]:.3f} ms, bound {bound_ms[d]:.4f} ms); active share per "
-        f"iteration {[round(a, 6) for a in active]}")
+        f"{out['ms']:.3f} ms in all ({lib(sum(lib_ms))}bound "
+        f"{out['bound_ms']:.4f} ms); densest (iteration {d + 1}, "
+        f"{active[d]:.4f} of sources active) {ms[d]:.3f} ms "
+        f"({lib(lib_ms[d] if library else 0)}bound {bound_ms[d]:.4f} ms); "
+        f"active share per iteration {[round(a, 6) for a in active]}")
     del frontiers
     torch.cuda.empty_cache()
     return out
@@ -1418,9 +1463,10 @@ def dag_phase(results, csr_edges):
             library=_sparse_mm_call(torch, csr, f)
             if key == "csr_plustimes_step" else None))
         del csr, f, live
-        if key == "csr_plustimes_step":
-            results[key]["captured"] = captured_frontiers(
-                torch, key, svc, pred, srcs2, plain, 4, F32_OPS_S)
+        # sparse.mm computes the sum, not the max
+        results[key]["captured"] = captured_frontiers(
+            torch, key, svc, pred, srcs2, plain, 4, F32_OPS_S,
+            library=key == "csr_plustimes_step")
         del svc
         torch.cuda.empty_cache()
 
@@ -1486,6 +1532,44 @@ def _k8_bound(torch, d, a, mask):
     live = float(((fin(d) & mask[:, None]).double()
                   @ fin(a).sum(1).double()).sum())
     return _bound(3 * 4 * n * n + 2 * n, 2 * live + 2 * n * n, F32_OPS_S)
+
+
+def k8_density_sweep(torch, n):
+    """Both K8 routes at a first step (d = a, every row in Δ) of (n, n)
+    Gn-p arc matrices drawn on the card (weights 1..9, seeded) at each
+    density of :data:`K8_SWEEP`: the arc-list route (its pre-pass
+    included, as ``relax_step`` runs it) and the tiled one, equal to each
+    other exactly (each holds its plain version at the ragged sizes), each
+    timed, with the bound.  ``relax.ARC_DENSITY`` is set from where they
+    cross."""
+    from repro_torch.kernels import relax
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 10)
+    mask = torch.ones(n, dtype=torch.bool, device=DEVICE)
+    out = []
+    for p in K8_SWEEP:
+        w = torch.where(
+            torch.rand((n, n), generator=gen, device=DEVICE) < p,
+            torch.randint(1, 10, (n, n), generator=gen, device=DEVICE,
+                          dtype=torch.int32).float(), float("inf"))
+        arcs = relax.relax_arcs(w, w, mask)
+        tiled = relax.relax_tiled(w, w, mask)
+        check(all(torch.equal(x, y) for x, y in zip(arcs, tiled)),
+              f"K8 routes differ at density {p}")
+        del arcs, tiled
+        row = {"density": p, "live": int(torch.isfinite(w).sum()),
+               "arcs_ms": time_ms(torch, lambda: relax.relax_arcs(w, w, mask),
+                                  3),
+               "tiled_ms": time_ms(torch,
+                                   lambda: relax.relax_tiled(w, w, mask), 3),
+               "bound_ms": _k8_bound(torch, w, w, mask)[0]}
+        say(f"K8 sweep, density {p}: arc-list route {row['arcs_ms']:.3f} ms, "
+            f"tiled route {row['tiled_ms']:.3f} ms (bound "
+            f"{row['bound_ms']:.4f} ms; {row['live']} live arcs)")
+        out.append(row)
+        del w
+        torch.cuda.empty_cache()
+    return out
 
 
 def _check_rows(label, table, srcs, oracle):
@@ -1625,34 +1709,45 @@ def allpairs_phase(results):
     say(f"CC: {k} components, equal to scipy's")
     del cc
 
-    # K8 at the loop's first, middle and last steps' inputs, beside one K2
-    # linear step with its merge and changed test at the same inputs
+    # K8 at the loop's first, middle and last steps' inputs (its arc-list
+    # route, as relax_step takes it here), beside its tiled route, its
+    # pre-pass alone and one K2 linear step with its merge and changed test
+    # at the same inputs
     def k2_step(d, mask):
         dm = torch.where(mask[:, None], d, float("inf"))
         dn = torch.minimum(d, minplus.minplus_matmul(dm, w))
         return dn, sn._ne(MIN_PLUS, dn, d).any(-1)
 
+    check(relax.arcs_pay(n, int(torch.isfinite(w).sum())),
+          "G10K's arcs do not take K8's arc-list route")
     timed = {}
     for label, (d, mask) in steps.items():
         got, ref = relax.relax_step(d, w, mask), k2_step(d, mask)
-        check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
-              f"K8 != K2 + merge at the {label} step")
-        del got, ref
+        tiled = relax.relax_tiled(d, w, mask)
+        check(all(torch.equal(x, y) for x, y in zip(got, ref))
+              and all(torch.equal(x, y) for x, y in zip(got, tiled)),
+              f"K8 != K2 + merge or != its tiled route at the {label} step")
+        del got, ref, tiled
         timed[label] = measure_rows(
             torch, f"K8 relax_step ({label} step, {int(mask.sum())} Δ rows)",
             relax.relax_step, relax.plain, (d, w, mask),
-            lambda r0, r1: (d[r0:r1], w, mask[r0:r1]), 3,
+            lambda r0, r1: (d[r0:r1], w, mask[r0:r1]), 10,
             _k8_bound(torch, d, w, mask))
-        timed[label]["delta_rows"] = int(mask.sum())
-        timed[label]["k2_merge_ms"] = time_ms(
-            torch, lambda: k2_step(d, mask), 3)
-        say(f"K2 + merge + changed ({label} step): "
-            f"{timed[label]['k2_merge_ms']:.3f} ms")
+        timed[label].update(
+            delta_rows=int(mask.sum()),
+            tiled_ms=time_ms(torch, lambda: relax.relax_tiled(d, w, mask), 3),
+            lists_ms=time_ms(torch, lambda: relax.column_lists(w), 10),
+            k2_merge_ms=time_ms(torch, lambda: k2_step(d, mask), 3))
+        say(f"K8 ({label} step): tiled route "
+            f"{timed[label]['tiled_ms']:.3f} ms, the arc-list route's "
+            f"pre-pass alone {timed[label]['lists_ms']:.4f} ms; K2 + merge + "
+            f"changed {timed[label]['k2_merge_ms']:.3f} ms")
     results["relax_step"].update(
         {k: timed["first"][k] for k in ("max_abs_err", "ms", "plain_ms",
                                         "bound_ms", "bound_by", "library_ms")})
     phase["k8_timed"] = timed
     del steps, d, mask
+    phase["k8_sweep"] = k8_density_sweep(torch, n)
 
     # K2 and K1 at M = n: the first linear APSP and TC steps
     phase["k2_full"] = measure_rows(

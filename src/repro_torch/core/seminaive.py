@@ -26,6 +26,8 @@ from .semiring import BOOL, MIN_PLUS, PLUS_TIMES, Semiring
 
 #: generated-fact accumulator dtype (int64, as in the x64 JAX run)
 GEN_DTYPE = torch.int64
+#: the largest count :data:`GEN_DTYPE` holds (the JAX package's ``GEN_MAX``)
+GEN_MAX = torch.iinfo(GEN_DTYPE).max
 
 
 @dataclasses.dataclass

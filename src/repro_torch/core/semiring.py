@@ -106,3 +106,14 @@ def edge_arity(kind: str) -> int:
     (src, dst, weight) on every weighted one."""
     return 2 if carrier_for(kind) is BOOL else 3
 
+
+#: aggregate name (as written in rule heads) -> semiring that carries it
+AGGREGATE_SEMIRING = {
+    "min": MIN_PLUS,
+    "max": MAX_PLUS,
+    "count": PLUS_TIMES,
+    "sum": PLUS_TIMES,
+    "mcount": PLUS_TIMES,
+    "msum": PLUS_TIMES,
+    None: BOOL,
+}

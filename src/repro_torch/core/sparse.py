@@ -21,12 +21,12 @@ Layout (see the JAX module for the full story):
   (column tile, arc chunk) pairs with a destination hit, the JAX arrays
   exactly, plus ``plan_unit``, the Hopper kernel's work units over it
   (``kernels.spmv.csr_minplus_tiled_step``);
-* for the bool and plus-times carriers, ``ell_src``/``ell_val`` and the
-  work list ``ell_items``/``ell_row_piece`` (:func:`_ell_order`): the
-  slices' slots in order with each slot's source and value, which K3 and
-  K5 read instead of the positions, built on the card wherever the spine
-  is (``build_csr``, the fold, ``csr_from_state``, ``spmv.raw_csr``) and
-  never part of the state;
+* for the bool, plus-times and max-plus carriers, ``ell_src``/``ell_val``
+  and the work list ``ell_items``/``ell_row_piece`` (:func:`_ell_order`):
+  the slices' slots in order with each slot's source and value, which K3,
+  K5 and K6 read instead of the positions, built on the card wherever the
+  spine is (``build_csr``, the fold, ``csr_from_state``, ``spmv.raw_csr``)
+  and never part of the state;
 * a COO tail (``tail_src``/``tail_dst``/``tail_val``/``tail_ell``) that
   ``csr_append`` fills with appended arcs and folds into the spine once it
   outgrows ``rebuild_frac`` of it (the fold carries ``ell_cfg`` and
@@ -94,10 +94,10 @@ class CSRMatrix:
     kind: str  # 'bool' | 'minplus' | 'maxplus' | 'plustimes'
     ell_cfg: tuple  # (floor, stride) capacity-ladder config
     plan_cfg: tuple | None  # (chunk, bn) of the tile-skip plan, or None
-    # K3/K5's view of the slices (:func:`_ell_order`), bool and plus-times
-    # only; derived on the card, never part of the state
+    # K3/K5/K6's view of the slices (:func:`_ell_order`), bool, plus-times
+    # and max-plus only; derived on the card, never part of the state
     ell_src: torch.Tensor | None = None  # (E,) int32 — slot sources, -1 pad
-    ell_val: torch.Tensor | None = None  # (E,) f32 — slot values (K5)
+    ell_val: torch.Tensor | None = None  # (E,) f32 — slot values (K5, K6)
     ell_items: torch.Tensor | None = None  # (I, 4) int32 — warp items
     ell_row_piece: torch.Tensor | None = None  # (rows + 1,) int32
 
@@ -298,7 +298,7 @@ def _plan_units(tiles: np.ndarray, chunks: np.ndarray,
     return np.append(units, live).astype(np.int32)
 
 
-#: slots per piece of a wide slice row: K3 and K5 cut rows of capacity
+#: slots per piece of a wide slice row: K3, K5 and K6 cut rows of capacity
 #: above 16 into pieces of at most this many slots, one warp each, so a
 #: hub's row spreads over many SMs
 ELL_SEG = 256
@@ -306,14 +306,15 @@ ELL_SEG = 256
 
 def _ell_order(kind: str, src_idx: torch.Tensor, edge_val: torch.Tensor,
                slices: tuple) -> dict:
-    """K3's and K5's view of the sliced-ELL map, built with torch indexing
-    on the map's device (a port-only derivation, never part of the state):
+    """K3's, K5's and K6's view of the sliced-ELL map, built with torch
+    indexing on the map's device (a port-only derivation, never part of the
+    state):
 
     * ``ell_src`` (E,) int32: the slices' slots laid end to end (slice,
       row, slot), each the source ``src_idx[p]`` of its position p, -1
       where ``edge_val[p]`` is the ⊕-zero (a sentinel);
-    * ``ell_val`` (E,) f32, plus-times only: ``edge_val[p]`` (0 at a
-      sentinel);
+    * ``ell_val`` (E,) f32, plus-times and max-plus: ``edge_val[p]`` (the
+      ⊕-zero, 0 or -inf, at a sentinel);
     * ``ell_items`` (I, 4) int32, one warp item each: ``(first slot, first
       piece, first row, pieces | length << 6)``.  A row of capacity <= 16
       (a power of two) is one piece, and ``32 // cap`` of them share an
@@ -324,10 +325,11 @@ def _ell_order(kind: str, src_idx: torch.Tensor, edge_val: torch.Tensor,
       ``ell_row_piece[r]:ell_row_piece[r + 1]``, rows numbered as
       ``ell_rank`` numbers them.
 
-    The other carriers' steps read none of it: all four are None."""
+    The min-plus steps (K4, K7) read none of it yet: all four are None
+    there."""
     out = dict.fromkeys(("ell_src", "ell_val", "ell_items",
                          "ell_row_piece"))
-    if kind not in ("bool", "plustimes"):
+    if kind not in ("bool", "plustimes", "maxplus"):
         return out
     dev = src_idx.device
     zero = carrier_for(kind).zero
@@ -361,9 +363,9 @@ def _ell_order(kind: str, src_idx: torch.Tensor, edge_val: torch.Tensor,
         counts.append(k)
         slot, row, piece = slot + R * C, row + R, piece + int(k.sum())
     if slot >= 2 ** 31:
-        raise ValueError(f"{slot} ELL slots: K3/K5 index them with int32")
+        raise ValueError(f"{slot} ELL slots: K3/K5/K6 index them with int32")
     out["ell_src"] = torch.cat(srcs).int()
-    if kind == "plustimes":
+    if kind != "bool":
         out["ell_val"] = torch.cat(vals)
     out["ell_items"] = torch.cat(items).int().contiguous()
     k = torch.cat(counts)

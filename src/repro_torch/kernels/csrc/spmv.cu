@@ -1,17 +1,16 @@
-// K4 / K6 — one CSR frontier step on the min-plus and max-plus carriers:
+// K4 — one CSR frontier step on the min-plus carrier:
 //
-//   out[b, v] = ⊕_{p in segments(v)} frontier[b, src_idx[p]] ⊗ edge_val[p]
+//   out[b, v] = min_{p in segments(v)} frontier[b, src_idx[p]] + edge_val[p]
 //
-// with (⊕, ⊗) = (min, +) for K4 and (max, +) for K6, the segments of v
-// being its row of the sliced-ELL map (ell_slices / ell_rank) plus its row
-// of the COO tail's single-width map (tail_ell / tail_src / tail_val).
+// the segments of v being its row of the sliced-ELL map (ell_slices /
+// ell_rank) plus its row of the COO tail's single-width map (tail_ell /
+// tail_src / tail_val).
 //
-// Replaces: src/repro/kernels/spmv.py, `csr_minplus_spmv` (K4) and
-// `csr_maxplus_spmv` (K6), as driven by ops._csr_<carrier>_step (spine +
-// tail).  The TPU kernels keep the whole (B, n) frontier resident in VMEM
-// and reduce by destination through a masked broadcast-min/max over column
-// tiles.  That does not carry over: at B = 32 and n = 2^20 one frontier is
-// 128 MB of f32.
+// Replaces: src/repro/kernels/spmv.py, `csr_minplus_spmv`, as driven by
+// ops._csr_minplus_step (spine + tail).  The TPU kernel keeps the whole
+// (B, n) frontier resident in VMEM and reduces by destination through a
+// masked broadcast-min over column tiles.  That does not carry over: at
+// B = 32 and n = 2^20 one frontier is 128 MB of f32.
 //
 // What bounds it on the H100: device memory.  Per step the kernel reads the
 // frontier once, each live arc's position, source and value once, and
@@ -34,11 +33,11 @@
 //     vertices share the all-sentinel row 0), fold in the COO tail the same
 //     way, and write out[b, v] through a shared-memory tile so the (B, n)
 //     stores are coalesced.
-// Min and max do not depend on order, so K4 and K6 are bit-identical to the
-// plain PyTorch step and to the JAX one.
-//
-// K3 (bool) and K5 (plus-times) have kernels of their own below, over the
-// CSR's ELL-ordered sources (core.sparse._ell_order); K7 closes the file.
+// Min does not depend on order, so K4 is bit-identical to the plain PyTorch
+// step and to the JAX one.  It is the last kernel on this pull: K3, K5 and
+// K6 read the CSR's ELL-ordered sources (core.sparse._ell_order) with
+// kernels of their own below, and K6's template (⊕ a parameter) is the one
+// K4 moves to next; K7 closes the file.
 #include "common.cuh"
 
 namespace {
@@ -47,6 +46,9 @@ constexpr int PULL_THREADS = 256;   // 8 warps per block
 constexpr int GATHER_VERTS = 32;    // vertices per gather block
 constexpr int UNROLL = 8;           // gathers in flight per lane
 
+// A carrier's (⊕, ⊗): zero() is the ⊕ identity ("no fact"), live(x) says
+// x is not it, combine(f, w) is ⊗ of a frontier value and an arc value,
+// reduce is ⊕.
 struct MinPlusOp {
   using T = float;
   static __device__ __forceinline__ T zero() { return INFINITY; }
@@ -61,6 +63,14 @@ struct MaxPlusOp {
   static __device__ __forceinline__ bool live(T w) { return w != -INFINITY; }
   static __device__ __forceinline__ T combine(T f, T w) { return __fadd_rn(f, w); }
   static __device__ __forceinline__ T reduce(T a, T b) { return fmaxf(a, b); }
+};
+
+struct PlusTimesOp {
+  using T = float;
+  static __device__ __forceinline__ T zero() { return 0.0f; }
+  static __device__ __forceinline__ bool live(T w) { return w != 0.0f; }
+  static __device__ __forceinline__ T combine(T f, T w) { return __fmul_rn(f, w); }
+  static __device__ __forceinline__ T reduce(T a, T b) { return __fadd_rn(a, b); }
 };
 
 // ⊕-fold the positions idx[0 .. len) into acc (lane owns batch rows
@@ -285,26 +295,32 @@ int csr_step_dispatch(const void* f, int B, int n, const int* src,
 
 
 // ---------------------------------------------------------------------------
-// K3 / K5 — the bool and plus-times steps over ELL-ordered sources.
+// K3 / K5 / K6 — the bool, plus-times and max-plus steps over ELL-ordered
+// sources.
 //
 //   K3: out[b, v] = OR_{p in segments(v)} frontier[b, src_idx[p]] AND edge_val[p]
 //   K5: out[b, v] = Σ_{p in segments(v)} frontier[b, src_idx[p]] × edge_val[p]
+//   K6: out[b, v] = max_{p in segments(v)} frontier[b, src_idx[p]] + edge_val[p]
 //
-// Replaces: src/repro/kernels/spmv.py, `csr_bool_spmv` (K3) and
-// `csr_plustimes_spmv` (K5), as driven by ops._csr_<carrier>_step (spine +
-// tail).  The TPU kernels gather each arc chunk's frontier values, skip a
-// chunk whose sources are all inactive (`pl.when(act_ref[c] != 0)`), and
-// scatter by destination through a one-hot MXU product; a one-hot scatter
-// is O(|E|·n) here, so the port pulls by destination instead.
+// Replaces: src/repro/kernels/spmv.py, `csr_bool_spmv` (K3),
+// `csr_plustimes_spmv` (K5) and `csr_maxplus_spmv` (K6), as driven by
+// ops._csr_<carrier>_step (spine + tail).  The TPU's bool and plus-times
+// kernels gather each arc chunk's frontier values, skip a chunk whose
+// sources are all inactive (`pl.when(act_ref[c] != 0)`), and scatter by
+// destination through a one-hot MXU product; its max-plus kernel reduces
+// by destination through a masked broadcast-max over column tiles with
+// the whole frontier in VMEM.  A one-hot scatter is O(|E|·n) and a (B, n)
+// f32 frontier is 128 MB at the CSR paths' shapes, so the port pulls by
+// destination instead.
 //
 // What bounds them on the H100: device memory.  The least work reads the
 // frontier once, the live sources' arcs once and writes the output once;
 // at the batch layer's first step almost no source is active.
 //
-// Design.  Both read the CSR's derived, ELL-ordered arrays
+// Design.  All three read the CSR's derived, ELL-ordered arrays
 // (core.sparse._ell_order, built once per CSR on the card): ell_src[k] is
 // the source of slot k of the slices laid end to end (-1 for a sentinel),
-// ell_val[k] its value (K5 only), and a work list of warp items over
+// ell_val[k] its value (K5, K6), and a work list of warp items over
 // *pieces*: a row of capacity <= 16 is one piece and 32 / cap such rows
 // share an item (one 32-slot load); a wider row is cut into pieces of up to
 // ELL_SEG slots, ending at its last live slot, one item each, so the hub
@@ -313,34 +329,38 @@ int csr_step_dispatch(const void* f, int B, int n, const int* src,
 // cost one coalesced and two scattered), and no slot past a row's last
 // arc is read.
 //
-// K5 (lanes = batch rows, NB = ceil(B / 32) values a lane):
-//  1. k5_transpose_kernel reads the (B, n) frontier once, writes the (n, B)
-//     rows of the *active* sources only (a value nonzero in some batch row)
-//     and a bitmask of them (n / 8 bytes, cached in L1);
-//  2. k5_pull_kernel, one warp per item: each lane loads a slot's source
+// K5 and K6 are one template on the carrier's (⊕, ⊗) (PlusTimesOp,
+// MaxPlusOp above; lanes = batch rows, NB = ceil(B / 32) values a lane):
+//  1. ell_transpose_kernel reads the (B, n) frontier once, writes the (n, B)
+//     rows of the *active* sources only (a value other than the ⊕-zero in
+//     some batch row) and a bitmask of them (n / 8 bytes, cached in L1);
+//  2. ell_pull_kernel, one warp per item: each lane loads a slot's source
 //     and its activity bit, the warp ballots "live and active", and only
 //     those arcs are gathered (one coalesced B-value row each, eight in
-//     flight).  Skipping is exact for finite weights: an inactive source's
-//     values are ±0 in every row, so its arc adds 0 × w = ±0 to a sum that
-//     starts at +0.0 and so cannot change it.  Each piece's sum goes to
+//     flight).  Skipping is exact: an inactive source's values are the
+//     ⊕-zero in every row, and ⊗ keeps them so for every finite weight
+//     (0 × w = ±0 under a sum that starts at +0.0; -inf + w = -inf under a
+//     max), so its arc cannot change a result.  Each piece's ⊕ goes to
 //     part[piece]; a per-piece flag says whether any arc was live, so a
 //     dead piece writes nothing else;
-//  3. k5_gather_kernel, one warp per 32 vertices: lanes (one a vertex) find
+//  3. ell_gather_kernel, one warp per 32 vertices: lanes (one a vertex) find
 //     the vertices with a live piece or an active COO-tail arc; for each of
 //     those the warp (lanes = batch rows) folds its row's live pieces and
 //     then its tail arcs, and every vertex's B values leave through a
 //     shared-memory tile as coalesced (B, n) stores.
-// The order of K5's sum is fixed by the data, never by scheduling: within a
-// row, the positions of each piece in slot order from +0.0; then the
-// pieces in order from +0.0; then the COO tail's positions in order.  No
-// atomics, so repeated runs give identical bits
-// (spmv.plustimes_in_kernel_order is the same order in PyTorch).  The
-// plain step sums in torch.sum's order instead, so K5 equals it (and the
-// JAX steps) exactly while every partial sum is an integer below 2^24 —
+// The order of the ⊕ is fixed by the data, never by scheduling: within a
+// row, the positions of each piece in slot order from the ⊕-zero; then the
+// pieces in order; then the COO tail's positions in order.  No atomics, so
+// repeated runs give identical bits (spmv.ell_step_in_kernel_order is the
+// same order in PyTorch).  Max is exact in any order, so K6 is
+// bit-identical to the plain step and to JAX whatever the data.  The plain
+// plus-times step sums in torch.sum's order instead, so K5 equals it (and
+// the JAX steps) exactly while every partial sum is an integer below 2^24 —
 // f32 adds integers exactly there, whatever the order.  The service's EDB
 // is integral and path counts are integers, so that is the contract (the
 // JAX package's plus-times kernel states the same one); non-integer sums
-// may differ from the plain step in the last bits.
+// may differ from the plain step in the last bits.  K4 (min) is the next
+// instantiation.
 //
 // K3 (lanes = slots, W = ceil(B / 32) words a vertex):
 //  1. k3_pack_kernel packs the (B, n) bool frontier into (n, W) uint32
@@ -355,24 +375,24 @@ int csr_step_dispatch(const void* f, int B, int n, const int* src,
 //     (through ell_rank), its COO tail's words ORed in shared memory, then
 //     unpacked into the (B, n) bool output in coalesced runs.
 // OR is order-free, so K3 is bit-identical to the plain step and to JAX
-// for every B.  Both take B <= 128; the wrapper splits larger batches.
+// for every B.  All three take B <= 128; the wrapper splits larger batches.
 constexpr int K35_THREADS = 256;  // 8 warps a block
 constexpr int K35_UNROLL = 8;     // gathers in flight per lane
 
-// Is source s (-1: a sentinel slot) active: nonzero in some batch row?
+// Is source s (-1: a sentinel slot) active: live in some batch row?
 __device__ __forceinline__ bool k35_active(const unsigned* __restrict__ act,
                                            int s) {
   return s >= 0 && ((__ldg(act + (s >> 5)) >> (s & 31)) & 1u);
 }
 
-// acc[q] += fT[s_j][b] × w_j for the set bits j of `live` in ascending
-// order, (s_j, w_j) being lane j's (s, w); lane owns batch rows lane + 32q.
-// `live` is warp-uniform and all 32 lanes call.
-template <int NB>
-__device__ __forceinline__ void k5_add_arcs(unsigned live, int s, float w,
-                                            const float* __restrict__ fT,
-                                            int B, int lane,
-                                            float (&acc)[NB]) {
+// acc[q] = acc[q] ⊕ (fT[s_j][b] ⊗ w_j) for the set bits j of `live` in
+// ascending order, (s_j, w_j) being lane j's (s, w); lane owns batch rows
+// lane + 32q.  `live` is warp-uniform and all 32 lanes call.
+template <class Op, int NB>
+__device__ __forceinline__ void ell_add_arcs(unsigned live, int s, float w,
+                                             const float* __restrict__ fT,
+                                             int B, int lane,
+                                             float (&acc)[NB]) {
   while (live) {
     float v[K35_UNROLL][NB], wj[K35_UNROLL];
     bool ok[K35_UNROLL];
@@ -387,7 +407,7 @@ __device__ __forceinline__ void k5_add_arcs(unsigned live, int s, float w,
 #pragma unroll
       for (int q = 0; q < NB; ++q) {
         const int b = lane + 32 * q;
-        v[u][q] = ok[u] && b < B ? __ldg(row + b) : 0.0f;
+        v[u][q] = ok[u] && b < B ? __ldg(row + b) : Op::zero();
       }
     }
 #pragma unroll
@@ -395,16 +415,17 @@ __device__ __forceinline__ void k5_add_arcs(unsigned live, int s, float w,
       if (ok[u])
 #pragma unroll
         for (int q = 0; q < NB; ++q)
-          acc[q] = __fadd_rn(acc[q], __fmul_rn(v[u][q], wj[u]));
+          acc[q] = Op::reduce(acc[q], Op::combine(v[u][q], wj[u]));
   }
 }
 
-// acc[q] += part[k0 + j][b] for the set bits j of `live` in ascending order.
-template <int NB>
-__device__ __forceinline__ void k5_add_pieces(unsigned live, int k0,
-                                              const float* __restrict__ part,
-                                              int B, int lane,
-                                              float (&acc)[NB]) {
+// acc[q] = acc[q] ⊕ part[k0 + j][b] for the set bits j of `live` in
+// ascending order.
+template <class Op, int NB>
+__device__ __forceinline__ void ell_add_pieces(unsigned live, int k0,
+                                               const float* __restrict__ part,
+                                               int B, int lane,
+                                               float (&acc)[NB]) {
   while (live) {
     float v[K35_UNROLL][NB];
     bool ok[K35_UNROLL];
@@ -417,23 +438,23 @@ __device__ __forceinline__ void k5_add_pieces(unsigned live, int k0,
 #pragma unroll
       for (int q = 0; q < NB; ++q) {
         const int b = lane + 32 * q;
-        v[u][q] = ok[u] && b < B ? __ldg(row + b) : 0.0f;
+        v[u][q] = ok[u] && b < B ? __ldg(row + b) : Op::zero();
       }
     }
 #pragma unroll
     for (int u = 0; u < K35_UNROLL; ++u)
       if (ok[u])
 #pragma unroll
-        for (int q = 0; q < NB; ++q) acc[q] = __fadd_rn(acc[q], v[u][q]);
+        for (int q = 0; q < NB; ++q) acc[q] = Op::reduce(acc[q], v[u][q]);
   }
 }
 
 // Block (32, 8), 32 vertices: fT rows of the active vertices, and their
 // activity bits (one word a block).
-template <int NB>
+template <class Op, int NB>
 __global__ void __launch_bounds__(K35_THREADS)
-k5_transpose_kernel(const float* __restrict__ f, int B, int n,
-                    float* __restrict__ fT, unsigned* __restrict__ act) {
+ell_transpose_kernel(const float* __restrict__ f, int B, int n,
+                     float* __restrict__ fT, unsigned* __restrict__ act) {
   __shared__ float tile[32 * NB][33];
   __shared__ unsigned mask;
   const int tx = threadIdx.x, ty = threadIdx.y;
@@ -442,9 +463,9 @@ k5_transpose_kernel(const float* __restrict__ f, int B, int n,
   __syncthreads();
   bool any = false;
   for (int b = ty; b < B; b += blockDim.y) {
-    const float val = x < n ? f[(size_t)b * n + x] : 0.0f;
+    const float val = x < n ? f[(size_t)b * n + x] : Op::zero();
     tile[b][tx] = val;
-    any |= val != 0.0f;
+    any |= Op::live(val);
   }
   if (any) atomicOr(&mask, 1u << tx);
   __syncthreads();
@@ -458,14 +479,14 @@ k5_transpose_kernel(const float* __restrict__ f, int B, int n,
 }
 
 // One warp per item (first slot, first piece, first row, pieces | len << 6).
-template <int NB>
+template <class Op, int NB>
 __global__ void __launch_bounds__(K35_THREADS)
-k5_pull_kernel(const int4* __restrict__ items, int n_items,
-               const int* __restrict__ ell_src,
-               const float* __restrict__ ell_val,
-               const unsigned* __restrict__ act,
-               const float* __restrict__ fT, int B,
-               float* __restrict__ part, uint8_t* __restrict__ live_piece) {
+ell_pull_kernel(const int4* __restrict__ items, int n_items,
+                const int* __restrict__ ell_src,
+                const float* __restrict__ ell_val,
+                const unsigned* __restrict__ act,
+                const float* __restrict__ fT, int B,
+                float* __restrict__ part, uint8_t* __restrict__ live_piece) {
   const int warp = (int)((blockIdx.x * (size_t)blockDim.x + threadIdx.x) >> 5);
   const int lane = threadIdx.x & 31;
   if (warp >= n_items) return;  // uniform across the warp
@@ -474,7 +495,7 @@ k5_pull_kernel(const int4* __restrict__ items, int n_items,
   float acc[NB];
   if (np > 1) {  // np rows of len <= 16 slots (a power of two): one load
     int s = -1;
-    float w = 0.0f;
+    float w = Op::zero();
     if (lane < np * len) s = __ldcs(ell_src + lo + lane);
     const bool a = k35_active(act, s);
     if (a) w = __ldcs(ell_val + lo + lane);
@@ -488,8 +509,8 @@ k5_pull_kernel(const int4* __restrict__ items, int n_items,
       const unsigned bits = live & (lmask << (t * len));
       rest &= ~bits;
 #pragma unroll
-      for (int q = 0; q < NB; ++q) acc[q] = 0.0f;
-      k5_add_arcs<NB>(bits, s, w, fT, B, lane, acc);
+      for (int q = 0; q < NB; ++q) acc[q] = Op::zero();
+      ell_add_arcs<Op, NB>(bits, s, w, fT, B, lane, acc);
 #pragma unroll
       for (int q = 0; q < NB; ++q) {
         const int b = lane + 32 * q;
@@ -499,18 +520,18 @@ k5_pull_kernel(const int4* __restrict__ items, int n_items,
     return;
   }
 #pragma unroll
-  for (int q = 0; q < NB; ++q) acc[q] = 0.0f;
+  for (int q = 0; q < NB; ++q) acc[q] = Op::zero();
   unsigned any = 0u;
   for (int c0 = lo; c0 < lo + len; c0 += 32) {
     const int c = c0 + lane;
     int s = -1;
-    float w = 0.0f;
+    float w = Op::zero();
     if (c < lo + len) s = __ldcs(ell_src + c);
     const bool a = k35_active(act, s);
     if (a) w = __ldcs(ell_val + c);
     const unsigned live = __ballot_sync(REPRO_FULL_MASK, a);
     any |= live;
-    k5_add_arcs<NB>(live, s, w, fT, B, lane, acc);
+    ell_add_arcs<Op, NB>(live, s, w, fT, B, lane, acc);
   }
   if (lane == 0) live_piece[k0] = any != 0u;
   if (any)
@@ -522,18 +543,18 @@ k5_pull_kernel(const int4* __restrict__ items, int n_items,
 }
 
 // One warp per 32 vertices; 8 / NB warps a block (a 33 KB tile).
-template <int NB>
+template <class Op, int NB>
 __global__ void __launch_bounds__(K35_THREADS)
-k5_gather_kernel(const float* __restrict__ part,
-                 const uint8_t* __restrict__ live_piece,
-                 const int* __restrict__ row_piece,
-                 const int* __restrict__ rank,
-                 const int* __restrict__ tail_ell, int tdc,
-                 const int* __restrict__ tail_src,
-                 const float* __restrict__ tail_val,
-                 const unsigned* __restrict__ act,
-                 const float* __restrict__ fT, int B, int n,
-                 float* __restrict__ out) {
+ell_gather_kernel(const float* __restrict__ part,
+                  const uint8_t* __restrict__ live_piece,
+                  const int* __restrict__ row_piece,
+                  const int* __restrict__ rank,
+                  const int* __restrict__ tail_ell, int tdc,
+                  const int* __restrict__ tail_src,
+                  const float* __restrict__ tail_val,
+                  const unsigned* __restrict__ act,
+                  const float* __restrict__ fT, int B, int n,
+                  float* __restrict__ out) {
   constexpr int GW = 8 / NB;
   __shared__ float tile[GW][32][32 * NB + 1];
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
@@ -552,13 +573,13 @@ k5_gather_kernel(const float* __restrict__ part,
   unsigned tail_need = 0u;  // bit i: vertex v0 + i has an active tail arc
   for (int i = lane; i < nv * tdc; i += 32) {
     const int p = __ldg(tail_ell + (size_t)v0 * tdc + i);
-    if (__ldg(tail_val + p) != 0.0f && k35_active(act, __ldg(tail_src + p)))
+    if (Op::live(__ldg(tail_val + p)) && k35_active(act, __ldg(tail_src + p)))
       tail_need |= 1u << (i / tdc);
   }
   tail_need = __reduce_or_sync(REPRO_FULL_MASK, tail_need);
   need |= ((tail_need >> lane) & 1u) != 0u;
   float(*my)[32 * NB + 1] = tile[wid];
-  for (int b = 0; b < B; ++b) my[lane][b] = 0.0f;
+  for (int b = 0; b < B; ++b) my[lane][b] = Op::zero();
   __syncwarp();
   unsigned todo = __ballot_sync(REPRO_FULL_MASK, need);
   while (todo) {  // uniform
@@ -568,24 +589,24 @@ k5_gather_kernel(const float* __restrict__ part,
     const int ph = __shfl_sync(REPRO_FULL_MASK, phi, j);
     float acc[NB];
 #pragma unroll
-    for (int q = 0; q < NB; ++q) acc[q] = 0.0f;
+    for (int q = 0; q < NB; ++q) acc[q] = Op::zero();
     for (int k0 = pl; k0 < ph; k0 += 32) {  // the row's pieces, in order
       const bool lv = k0 + lane < ph && __ldg(live_piece + k0 + lane);
-      k5_add_pieces<NB>(__ballot_sync(REPRO_FULL_MASK, lv), k0, part, B,
-                        lane, acc);
+      ell_add_pieces<Op, NB>(__ballot_sync(REPRO_FULL_MASK, lv), k0, part, B,
+                             lane, acc);
     }
     const int* tl = tail_ell + (size_t)(v0 + j) * tdc;
     for (int c0 = 0; c0 < tdc; c0 += 32) {  // then its tail, in order
       int s = -1;
-      float w = 0.0f;
+      float w = Op::zero();
       if (c0 + lane < tdc) {
         const int p = __ldg(tl + c0 + lane);
         w = __ldg(tail_val + p);
-        if (w != 0.0f) s = __ldg(tail_src + p);
+        if (Op::live(w)) s = __ldg(tail_src + p);
       }
       const bool a = k35_active(act, s);
-      k5_add_arcs<NB>(__ballot_sync(REPRO_FULL_MASK, a), s, w, fT, B, lane,
-                      acc);
+      ell_add_arcs<Op, NB>(__ballot_sync(REPRO_FULL_MASK, a), s, w, fT, B,
+                           lane, acc);
     }
 #pragma unroll
     for (int q = 0; q < NB; ++q) my[j][lane + 32 * q] = acc[q];
@@ -595,29 +616,58 @@ k5_gather_kernel(const float* __restrict__ part,
     for (int b = 0; b < B; ++b) out[(size_t)b * n + v] = my[lane][b];
 }
 
-template <int NB>
-int k5_step(const float* f, int B, int n, const int* ell_src,
-            const float* ell_val, const int4* items, int n_items,
-            const int* row_piece, const int* rank, const int* tail_ell,
-            int tdc, const int* tail_src, const float* tail_val, float* fT,
-            unsigned* act, float* part, uint8_t* live_piece, float* out,
-            cudaStream_t s) {
-  k5_transpose_kernel<NB><<<(n + 31) / 32, dim3(32, 8), 0, s>>>(f, B, n, fT,
-                                                                 act);
+template <class Op, int NB>
+int ell_step(const float* f, int B, int n, const int* ell_src,
+             const float* ell_val, const int4* items, int n_items,
+             const int* row_piece, const int* rank, const int* tail_ell,
+             int tdc, const int* tail_src, const float* tail_val, float* fT,
+             unsigned* act, float* part, uint8_t* live_piece, float* out,
+             cudaStream_t s) {
+  ell_transpose_kernel<Op, NB><<<(n + 31) / 32, dim3(32, 8), 0, s>>>(
+      f, B, n, fT, act);
   REPRO_LAUNCH_CHECK();
   if (n_items > 0) {
     const unsigned blocks = (unsigned)((n_items + 7) / 8);
-    k5_pull_kernel<NB><<<blocks, K35_THREADS, 0, s>>>(
+    ell_pull_kernel<Op, NB><<<blocks, K35_THREADS, 0, s>>>(
         items, n_items, ell_src, ell_val, act, fT, B, part, live_piece);
     REPRO_LAUNCH_CHECK();
   }
   constexpr int GW = 8 / NB;
   const unsigned gblocks = (unsigned)((n + 32 * GW - 1) / (32 * GW));
-  k5_gather_kernel<NB><<<gblocks, 32 * GW, 0, s>>>(
+  ell_gather_kernel<Op, NB><<<gblocks, 32 * GW, 0, s>>>(
       part, live_piece, row_piece, rank, tail_ell, tdc, tail_src, tail_val,
       act, fT, B, n, out);
   REPRO_LAUNCH_CHECK();
   return 0;
+}
+
+template <class Op>
+int ell_step_dispatch(const void* f, int B, int n, const int* ell_src,
+                      const void* ell_val, const void* items, int n_items,
+                      const int* row_piece, const int* rank,
+                      const int* tail_ell, int tdc, const int* tail_src,
+                      const void* tail_val, void* fT, void* act, void* part,
+                      void* live, void* out, void* stream) {
+  if (B <= 0 || n <= 0) return 0;
+  if (B > 128) return (int)cudaErrorInvalidValue;  // the wrapper splits B
+  const float* pf = (const float*)f;
+  const float* pv = (const float*)ell_val;
+  const int4* it = (const int4*)items;
+  const float* tv = (const float*)tail_val;
+  float *pT = (float*)fT, *pp = (float*)part, *po = (float*)out;
+  unsigned* pa = (unsigned*)act;
+  uint8_t* pl = (uint8_t*)live;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (B <= 32)
+    return ell_step<Op, 1>(pf, B, n, ell_src, pv, it, n_items, row_piece,
+                           rank, tail_ell, tdc, tail_src, tv, pT, pa, pp, pl,
+                           po, s);
+  if (B <= 64)
+    return ell_step<Op, 2>(pf, B, n, ell_src, pv, it, n_items, row_piece,
+                           rank, tail_ell, tdc, tail_src, tv, pT, pa, pp, pl,
+                           po, s);
+  return ell_step<Op, 4>(pf, B, n, ell_src, pv, it, n_items, row_piece, rank,
+                         tail_ell, tdc, tail_src, tv, pT, pa, pp, pl, po, s);
 }
 
 // 256 vertices a block, lane = vertex: the (n, W) words and activity bits;
@@ -906,7 +956,7 @@ minplus_tiled_kernel(const int* __restrict__ plan_tile,
 
 }  // namespace
 
-// K4 / K6.  f: (B, n) frontier; src/val: (cap,) packed arcs; ells[i]:
+// K4.  f: (B, n) frontier; src/val: (cap,) packed arcs; ells[i]:
 // (rows[i], caps[i]) int32 slice tables; rank: (n,) int32; tail_ell: (n,
 // tdc) int32; tail_src/tail_val: (tail_cap,); scratch fT: (n, B), cat: (sum
 // rows, B), part: (max rows·ceil(cap/seg) over wide slices, B); out: (B, n).
@@ -918,17 +968,6 @@ extern "C" int repro_csr_minplus_step(
     const int* tail_src, const void* tail_val, void* fT, void* cat,
     void* part, void* out, void* stream) {
   return csr_step_dispatch<MinPlusOp>(f, B, n, src, val, n_slices, ells, rows,
-                                      caps, seg, rank, tail_ell, tdc, tail_src,
-                                      tail_val, fT, cat, part, out, stream);
-}
-
-extern "C" int repro_csr_maxplus_step(
-    const void* f, int B, int n, const int* src, const void* val,
-    int n_slices, const void* const* ells, const int* rows, const int* caps,
-    int seg, const int* rank, const int* tail_ell, int tdc,
-    const int* tail_src, const void* tail_val, void* fT, void* cat,
-    void* part, void* out, void* stream) {
-  return csr_step_dispatch<MaxPlusOp>(f, B, n, src, val, n_slices, ells, rows,
                                       caps, seg, rank, tail_ell, tdc, tail_src,
                                       tail_val, fT, cat, part, out, stream);
 }
@@ -968,35 +1007,30 @@ extern "C" int repro_csr_bool_step(
   }
 }
 
-// K5.  f: (B, n) f32 frontier; ell_src/ell_val: (E,) int32 / f32 slot
-// sources and values; items: (n_items, 4) int32 warp items; row_piece:
-// (rows + 1,) int32; rank: (n,) int32; tail_ell: (n, tdc) int32;
-// tail_src/tail_val: (tail_cap,) int32 / f32; scratch fT: (n, B) f32, act:
-// (ceil(n / 32),) uint32, part: (pieces, B) f32, live: (pieces,) uint8;
-// out: (B, n) f32.  B <= 128 per call.
+// K5 / K6.  f: (B, n) f32 frontier; ell_src/ell_val: (E,) int32 / f32
+// slot sources and values; items: (n_items, 4) int32 warp items;
+// row_piece: (rows + 1,) int32; rank: (n,) int32; tail_ell: (n, tdc)
+// int32; tail_src/tail_val: (tail_cap,) int32 / f32; scratch fT: (n, B)
+// f32, act: (ceil(n / 32),) uint32, part: (pieces, B) f32, live: (pieces,)
+// uint8; out: (B, n) f32.  B <= 128 per call.
 extern "C" int repro_csr_plustimes_step(
     const void* f, int B, int n, const int* ell_src, const void* ell_val,
     const void* items, int n_items, const int* row_piece, const int* rank,
     const int* tail_ell, int tdc, const int* tail_src, const void* tail_val,
     void* fT, void* act, void* part, void* live, void* out, void* stream) {
-  if (B <= 0 || n <= 0) return 0;
-  if (B > 128) return (int)cudaErrorInvalidValue;  // the wrapper splits B
-  const float* pf = (const float*)f;
-  const float* pv = (const float*)ell_val;
-  const int4* it = (const int4*)items;
-  const float* tv = (const float*)tail_val;
-  float *pT = (float*)fT, *pp = (float*)part, *po = (float*)out;
-  unsigned* pa = (unsigned*)act;
-  uint8_t* pl = (uint8_t*)live;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (B <= 32)
-    return k5_step<1>(pf, B, n, ell_src, pv, it, n_items, row_piece, rank,
-                      tail_ell, tdc, tail_src, tv, pT, pa, pp, pl, po, s);
-  if (B <= 64)
-    return k5_step<2>(pf, B, n, ell_src, pv, it, n_items, row_piece, rank,
-                      tail_ell, tdc, tail_src, tv, pT, pa, pp, pl, po, s);
-  return k5_step<4>(pf, B, n, ell_src, pv, it, n_items, row_piece, rank,
-                    tail_ell, tdc, tail_src, tv, pT, pa, pp, pl, po, s);
+  return ell_step_dispatch<PlusTimesOp>(
+      f, B, n, ell_src, ell_val, items, n_items, row_piece, rank, tail_ell,
+      tdc, tail_src, tail_val, fT, act, part, live, out, stream);
+}
+
+extern "C" int repro_csr_maxplus_step(
+    const void* f, int B, int n, const int* ell_src, const void* ell_val,
+    const void* items, int n_items, const int* row_piece, const int* rank,
+    const int* tail_ell, int tdc, const int* tail_src, const void* tail_val,
+    void* fT, void* act, void* part, void* live, void* out, void* stream) {
+  return ell_step_dispatch<MaxPlusOp>(
+      f, B, n, ell_src, ell_val, items, n_items, row_piece, rank, tail_ell,
+      tdc, tail_src, tail_val, fT, act, part, live, out, stream);
 }
 
 // K7.  f: (B, n) frontier; col_idx/src/val: (cap,) packed arcs;

@@ -6,17 +6,18 @@ Replace the Pallas kernels ``repro.kernels.spmv.csr_bool_spmv``,
 ``csr_minplus_spmv``, ``csr_plustimes_spmv`` and ``csr_maxplus_spmv`` as the
 JAX serving path drives them (``ops._csr_<carrier>_step``: spine + COO
 tail).  The kernels (``csrc/spmv.cu``) compute the same function as a pull
-over the CSR's own sliced-ELL segment map: each output ``(b, v)``
-⊕-reduces ``frontier[b, src_idx[p]] ⊗ edge_val[p]`` over v's in-edge
-positions ``p``, then over its COO-tail positions.  K4 and K6 read the
-positions; K3 and K5 read the CSR's ELL-ordered sources and values
-(``core.sparse._ell_order``), skip arcs whose source is zero in every batch
-row, and run every slice in one launch; K3 gathers a bit-packed frontier
-(:func:`pack_bits`).  OR, min and max are order-independent, so K3, K4 and
-K6 are bit-identical to the plain step; K5 sums in a fixed order with no
-atomics (:func:`plustimes_in_kernel_order`), so it is deterministic, and
-equals the plain step exactly while every partial sum is an integer below
-2^24 (integral EDBs and path counts).
+by destination: each output ``(b, v)`` ⊕-reduces ``frontier[b, src_idx[p]]
+⊗ edge_val[p]`` over v's in-edge positions ``p``, then over its COO-tail
+positions.  K4 reads the positions through the CSR's sliced-ELL segment
+map, slice by slice; K3, K5 and K6 read the CSR's ELL-ordered sources and
+values (``core.sparse._ell_order``), skip arcs whose source holds the
+⊕-zero in every batch row, and run every slice in one launch; K3 gathers a
+bit-packed frontier (:func:`pack_bits`), K5 and K6 are one kernel template
+on (⊕, ⊗).  OR, min and max are order-independent, so K3, K4 and K6 are
+bit-identical to the plain step; K5 sums in a fixed order with no atomics
+(:func:`ell_step_in_kernel_order`), so it is deterministic, and equals the
+plain step exactly while every partial sum is an integer below 2^24
+(integral EDBs and path counts).
 
 K7 (``csr_minplus_tiled_step``) replaces ``csr_minplus_spmv_tiled``: it
 walks the CSR's tile-skip worklist (``build_csr(kernel_plan=)``) in work
@@ -29,7 +30,9 @@ CPU tensors they run the plain step (:data:`plain_bool`,
 :data:`plain_minplus`, :data:`plain_plustimes`, :data:`plain_maxplus`); on
 CUDA tensors they launch the kernel or raise.  :func:`csr_raw_step` and
 :func:`csr_raw_minplus_tiled` take the JAX entries' bare arc triple
-(``ops.csr_bool(frontier, src, dst, val)`` …) and launch the same kernels.
+(``ops.csr_bool(frontier, src, dst, val)`` …) and launch the same kernels;
+``csr_bool_spmv`` … ``csr_minplus_spmv_tiled`` and ``padded_width`` are the
+JAX module's own names for them.
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ import torch
 from ..core.seminaive import quantize_rows
 from ..core.sparse import (DEFAULT_ELL_CFG, CSRMatrix, _plan_units,
                            _with_ell_order)
+from ..core.sparse import padded_width  # noqa: F401 (the JAX module's name)
 from . import build, ref
 
 #: the plain PyTorch versions of these kernels
@@ -51,23 +55,24 @@ plain_plustimes = ref.csr_plustimes_step_ref
 plain_maxplus = ref.csr_maxplus_step_ref
 plain_minplus_tiled = ref.csr_minplus_tiled_step_ref
 
-#: positions per K4/K6 warp work item: wider slice rows (power-law hubs)
+#: positions per K4 warp work item: wider slice rows (power-law hubs)
 #: are cut into SEG-position segments, one warp each, then ⊕-reduced
 SEG = 1024
 #: batch rows per kernel call (lanes own rows lane + 32q, q < 4)
 MAX_BATCH = 128
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
-_STEP_ARGS = [_VP, _I, _I, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _I, _VP,
-              _VP, _VP, _VP, _VP, _VP, _VP]
+#: K5's and K6's entry points (one kernel template)
+_ELL_ARGS = [_VP, _I, _I, _VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _VP,
+             _VP, _VP, _VP, _VP, _VP]
 _PROTOTYPES = {"repro_csr_bool_step": [
                    _VP, _I, _I, _VP, _VP, _I, _I, _VP, _VP, _I, _VP, _VP,
                    _VP, _VP, _VP, _VP, _VP],
-               "repro_csr_minplus_step": _STEP_ARGS,
-               "repro_csr_plustimes_step": [
-                   _VP, _I, _I, _VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP,
+               "repro_csr_minplus_step": [
+                   _VP, _I, _I, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _I,
                    _VP, _VP, _VP, _VP, _VP, _VP, _VP],
-               "repro_csr_maxplus_step": _STEP_ARGS,
+               "repro_csr_plustimes_step": _ELL_ARGS,
+               "repro_csr_maxplus_step": _ELL_ARGS,
                "repro_csr_minplus_tiled_step": [
                    _VP, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
                    _VP, _I, _VP, _VP, _VP, _VP, _VP]}
@@ -163,13 +168,21 @@ def unpack_bits(words: torch.Tensor, B: int) -> torch.Tensor:
     return bits.reshape(-1, words.shape[0])[:B].bool()
 
 
-def plustimes_in_kernel_order(frontier: torch.Tensor, csr) -> torch.Tensor:
-    """K5's sum in K5's own order, in PyTorch (f32, every product and sum
-    rounded as the kernel rounds it): per piece of ``csr.ell_items``, the
-    slots in order from +0.0; per row, its pieces in order from +0.0; then
-    the COO tail's positions in order.  Equal to the kernel bit for bit
-    where every weight is finite, and to :data:`plain_plustimes` exactly
-    while every partial sum is an integer below 2^24."""
+#: (⊗, ⊕) of the carriers K5 and K6 run, each rounded as the kernel does
+_ELL_OPS = {"plustimes": (torch.mul, torch.add),
+            "maxplus": (torch.add, torch.maximum)}
+
+
+def ell_step_in_kernel_order(frontier: torch.Tensor, csr) -> torch.Tensor:
+    """K5's or K6's step in the kernel's own order, in PyTorch (f32, every
+    ⊗ and ⊕ rounded as the kernel rounds it): per piece of
+    ``csr.ell_items``, the slots in order from the ⊕-zero; per row, its
+    pieces in order; then the COO tail's positions in order.  Equal to the
+    kernel bit for bit where every weight is finite; for max-plus, and for
+    plus-times while every partial sum is an integer below 2^24, equal to
+    the plain step (:data:`plain_maxplus`, :data:`plain_plustimes`)."""
+    mul, add = _ELL_OPS[csr.kind]
+    zero = ref.CSR_ZERO[csr.kind]
     f = frontier[None, :] if frontier.ndim == 1 else frontier
     B, dev = f.shape[0], f.device
     it = csr.ell_items.long()
@@ -184,36 +197,37 @@ def plustimes_in_kernel_order(frontier: torch.Tensor, csr) -> torch.Tensor:
         torch.repeat_interleave(length, npc)
     plen[k] = torch.repeat_interleave(length, npc)
     src = csr.ell_src.long()
-    contrib = f[:, src.clamp(min=0)] * csr.ell_val  # (B, E), rounded
-    contrib[:, src < 0] = 0.0
-    piece = torch.zeros((B, n_pieces), dtype=f.dtype, device=dev)
+    contrib = mul(f[:, src.clamp(min=0)], csr.ell_val)  # (B, E), rounded
+    contrib[:, src < 0] = zero
+    piece = torch.full((B, n_pieces), zero, dtype=f.dtype, device=dev)
     for j in range(int(plen.max()) if n_pieces else 0):
         on = plen > j
-        piece[:, on] = piece[:, on] + contrib[:, first[on] + j]
+        piece[:, on] = add(piece[:, on], contrib[:, first[on] + j])
     rp = csr.ell_row_piece.long()
     cnt = rp[1:] - rp[:-1]
-    rows = torch.zeros((B, len(cnt)), dtype=f.dtype, device=dev)
+    rows = torch.full((B, len(cnt)), zero, dtype=f.dtype, device=dev)
     for j in range(int(cnt.max()) if len(cnt) else 0):
         on = cnt > j
-        rows[:, on] = rows[:, on] + piece[:, rp[:-1][on] + j]
+        rows[:, on] = add(rows[:, on], piece[:, rp[:-1][on] + j])
     out = rows[:, csr.ell_rank.long()]
     tail = csr.tail_ell.long()
     tsrc = csr.tail_src.long()
     for j in range(tail.shape[1]):
         p = tail[:, j]
-        out = out + f[:, tsrc[p]] * csr.tail_val[p]
+        out = add(out, mul(f[:, tsrc[p]], csr.tail_val[p]))
     return out[0] if frontier.ndim == 1 else out
 
 
-def _k35_operands(frontier, csr) -> tuple:
-    """Every tensor K3/K5 read: :func:`_operands` and the derived ELL
+def _ell_operands(frontier, csr) -> tuple:
+    """Every tensor K3/K5/K6 read: :func:`_operands` and the derived ELL
     order (``core.sparse._ell_order``)."""
     derived = (csr.ell_src, csr.ell_val, csr.ell_items, csr.ell_row_piece)
     return (*_operands(frontier, csr), *(t for t in derived if t is not None))
 
 
-def _k35_checked(what: str, dtype, frontier, csr) -> torch.Tensor:
-    """The frontier as (B, n_alloc), after checking the arrays K3/K5 read."""
+def _ell_checked(what: str, dtype, frontier, csr) -> torch.Tensor:
+    """The frontier as (B, n_alloc), after checking the arrays K3/K5/K6
+    read."""
     if csr.ell_items is None:
         raise ValueError(f"{what}: the CSR has no ELL-ordered sources "
                          "(core.sparse._ell_order)")
@@ -231,10 +245,10 @@ def csr_bool_step(frontier: torch.Tensor, csr) -> torch.Tensor:
     """(B, n_alloc) bool ⊗ packed arcs -> (B, n_alloc) bool: segment-OR by
     destination over the spine and the COO tail (K3: a bit-packed frontier
     gathered over the ELL-ordered sources)."""
-    if not build.on_card("csr_bool_step", *_k35_operands(frontier, csr)):
+    if not build.on_card("csr_bool_step", *_ell_operands(frontier, csr)):
         return plain_bool(frontier, csr)
     what = "csr_bool_step"
-    f = _k35_checked(what, torch.bool, frontier, csr)
+    f = _ell_checked(what, torch.bool, frontier, csr)
     B, n = f.shape
     out = torch.empty_like(f)
     bc = min(B, MAX_BATCH)
@@ -269,15 +283,10 @@ def csr_minplus_step(frontier: torch.Tensor, csr) -> torch.Tensor:
                    torch.float32, frontier, csr)
 
 
-def csr_plustimes_step(frontier: torch.Tensor, csr) -> torch.Tensor:
-    """(B, n_alloc) f32 ⊗_+,× packed arcs -> (B, n_alloc) f32: segment-sum
-    by destination over the spine and the COO tail, in a fixed order (K5:
-    :func:`plustimes_in_kernel_order`)."""
-    if not build.on_card("csr_plustimes_step",
-                         *_k35_operands(frontier, csr)):
-        return plain_plustimes(frontier, csr)
-    what = "csr_plustimes_step"
-    f = _k35_checked(what, torch.float32, frontier, csr)
+def _ell_step(what: str, fn: str, frontier, csr) -> torch.Tensor:
+    """Launch K5 or K6 (entry ``fn``, counter ``what``): the template's
+    three passes over the CSR's ELL order, once a 128-row batch slice."""
+    f = _ell_checked(what, torch.float32, frontier, csr)
     build.require(f"{what} csr.ell_val", csr.ell_val, torch.float32, 1)
     B, n = f.shape
     out = torch.empty_like(f)
@@ -293,7 +302,7 @@ def csr_plustimes_step(frontier: torch.Tensor, csr) -> torch.Tensor:
     with torch.cuda.device(dev):
         stream = build.stream_handle(f)
         for b0 in range(0, B, MAX_BATCH):
-            rc = lib.repro_csr_plustimes_step(
+            rc = getattr(lib, fn)(
                 f[b0].data_ptr(), min(MAX_BATCH, B - b0), n,
                 csr.ell_src.data_ptr(), csr.ell_val.data_ptr(),
                 csr.ell_items.data_ptr(), int(csr.ell_items.shape[0]),
@@ -307,14 +316,25 @@ def csr_plustimes_step(frontier: torch.Tensor, csr) -> torch.Tensor:
     return out[0] if frontier.ndim == 1 else out
 
 
+def csr_plustimes_step(frontier: torch.Tensor, csr) -> torch.Tensor:
+    """(B, n_alloc) f32 ⊗_+,× packed arcs -> (B, n_alloc) f32: segment-sum
+    by destination over the spine and the COO tail, in a fixed order (K5:
+    :func:`ell_step_in_kernel_order`)."""
+    if not build.on_card("csr_plustimes_step",
+                         *_ell_operands(frontier, csr)):
+        return plain_plustimes(frontier, csr)
+    return _ell_step("csr_plustimes_step", "repro_csr_plustimes_step",
+                     frontier, csr)
+
+
 def csr_maxplus_step(frontier: torch.Tensor, csr) -> torch.Tensor:
     """(B, n_alloc) f32 ⊗_max,+ packed arcs -> (B, n_alloc) f32:
     segment-max by destination over the spine and the COO tail (-inf
-    sentinels)."""
-    if not build.on_card("csr_maxplus_step", *_operands(frontier, csr)):
+    sentinels; K6, K5's template with max for the sum)."""
+    if not build.on_card("csr_maxplus_step", *_ell_operands(frontier, csr)):
         return plain_maxplus(frontier, csr)
-    return _launch("repro_csr_maxplus_step", "csr_maxplus_step",
-                   torch.float32, frontier, csr)
+    return _ell_step("csr_maxplus_step", "repro_csr_maxplus_step", frontier,
+                     csr)
 
 
 def csr_minplus_tiled_step(frontier: torch.Tensor, csr) -> torch.Tensor:
@@ -494,3 +514,46 @@ def csr_raw_minplus_tiled(frontier: torch.Tensor, src: torch.Tensor,
     return csr_minplus_tiled_step(frontier, raw_tiled_csr(
         int(frontier.shape[-1]), src, dst, val, plan_tile, plan_chunk,
         plan_first, chunk, bn))
+
+
+# The JAX module's Pallas entry names (``repro.kernels.spmv``), with its
+# signatures: the block sizes and ``interpret`` are accepted so that one
+# call drives both packages, and ignored (the Hopper kernels keep their own
+# blocks; ``padded_width`` is ``core.sparse``'s, the same function).
+
+
+def csr_bool_spmv(frontier, src, dst, val, *, chunk: int = 128,
+                  interpret: bool = False) -> torch.Tensor:
+    """(B, n) bool ⊗_bool packed arcs -> (B, n) bool (segment-OR by dst):
+    :func:`csr_raw_step`, K3 on the card."""
+    return csr_raw_step("bool", frontier, src, dst, val)
+
+
+def csr_plustimes_spmv(frontier, src, dst, val, *, chunk: int = 128,
+                       interpret: bool = False) -> torch.Tensor:
+    """(B, n) f32 ⊗_+,× packed arcs -> (B, n) f32 (segment-sum by dst):
+    :func:`csr_raw_step`, K5 on the card."""
+    return csr_raw_step("plustimes", frontier, src, dst, val)
+
+
+def csr_minplus_spmv(frontier, src, dst, val, *, chunk: int = 32,
+                     bn: int = 128, interpret: bool = False) -> torch.Tensor:
+    """(B, n) f32 ⊗_min,+ packed arcs -> (B, n) f32 (segment-min by dst):
+    :func:`csr_raw_step`, K4 on the card."""
+    return csr_raw_step("minplus", frontier, src, dst, val)
+
+
+def csr_maxplus_spmv(frontier, src, dst, val, *, chunk: int = 32,
+                     bn: int = 128, interpret: bool = False) -> torch.Tensor:
+    """(B, n) f32 ⊗_max,+ packed arcs -> (B, n) f32 (segment-max by dst):
+    :func:`csr_raw_step`, K6 on the card."""
+    return csr_raw_step("maxplus", frontier, src, dst, val)
+
+
+def csr_minplus_spmv_tiled(frontier, src, dst, val, plan_tile, plan_chunk,
+                           plan_first, *, chunk: int, bn: int,
+                           interpret: bool = False) -> torch.Tensor:
+    """The min-plus step over the arcs' tile-skip plan, built with
+    ``(chunk, bn)``: :func:`csr_raw_minplus_tiled`, K7 on the card."""
+    return csr_raw_minplus_tiled(frontier, src, dst, val, plan_tile,
+                                 plan_chunk, plan_first, chunk, bn)

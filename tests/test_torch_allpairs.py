@@ -1,8 +1,10 @@
 """Port parity of the dense all-pairs path: the plain K8 (``relax_step``,
 the fused min-plus step, merge and per-row changed flags) against the JAX
 Pallas kernel in interpret mode and against ``ref.relax_ref`` at ragged
-sizes, the K8-driven shortest-path loop, the nonlinear and sandwich forms
-of ``fixpoint_dense``, the six all-pairs and single-source front-ends
+sizes, K8's arc-list route rendered in PyTorch (its column lists, their
+fold, the route choice at ``relax.ARC_DENSITY``), the K8-driven
+shortest-path loop, the nonlinear and sandwich forms of
+``fixpoint_dense``, the six all-pairs and single-source front-ends
 (table, iterations and generated facts), the ``ops`` entry names, and the
 example ``examples/graph_analytics_torch.py`` against the JAX functions.
 Inputs are made with numpy from a seed and fed to both packages; every
@@ -125,6 +127,102 @@ def test_k8_loop_matches_shortest_paths_dense(n, p):
     assert _same(d, want.table) and _same(got.table, want.table)
     assert trips == got.iterations == int(want.iterations)
     assert got.generated == int(want.generated)
+
+
+def _jax_relax(d, a, m):
+    """JAX's K8: the Pallas kernel (interpret mode) where n divides its
+    (64, 64, 32) blocks, its oracle ``ref.relax_ref`` otherwise."""
+    args = map(jnp.asarray, (d, a, m))
+    if len(d) % 64 == 0:
+        return jops.relax(*args, bm=64, bn=64, bk=32)
+    return jref.relax_ref(*args)
+
+
+@pytest.mark.parametrize("mask", ["random", "all", "none"])
+@pytest.mark.parametrize("n", [1, 50, 128, 130, 256])
+def test_k8_arc_route_matches_plain_and_jax(n, mask):
+    """K8's arc-list route in PyTorch (``relax.arcs_in_kernel_order``: A's
+    column lists as the pre-pass builds them, each Δ row's column folded
+    over its list, merged with d) equals the plain K8 and JAX's, at ragged
+    n, with whole +inf rows of d and an all-+inf column of A; then with an
+    all-+inf A."""
+    rng = np.random.default_rng(2000 + n + len(mask))
+    d, a, m = _dist(rng, (n, n), 0.3), _dist(rng, (n, n), 0.05), \
+        _mask(rng, n, mask)
+    d[::7] = np.inf
+    a[:, n // 3] = np.inf
+    for arcs in (a, np.full_like(a, np.inf)):
+        got = relax.arcs_in_kernel_order(*map(torch.from_numpy,
+                                              (d, arcs, m)))
+        plain = _relax_port(d, arcs, m)
+        assert torch.equal(got[0], plain[0])
+        assert torch.equal(got[1], plain[1])
+        want = _jax_relax(d, arcs, m)
+        assert _same(got[0], want[0]) and _same(got[1], want[1])
+
+
+def test_k8_column_lists_are_the_arcs_by_column():
+    """The pre-pass's layout: columns in groups of 32, group g's block
+    ``lists[gptr[g]:gptr[g + 1]]`` an (L, 32) array whose lane j % 32 holds
+    column j's entries ``(k, the f32 bits of a[k, j])`` for every a[k, j]
+    other than +inf, in ascending k, then ``(0, +inf)`` pads up to L, the
+    group's longest column; lanes past n hold pads only."""
+    rng = np.random.default_rng(31)
+    n = 150
+    a = _dist(rng, (n, n), 0.04)
+    a[:, 7] = np.inf
+    a[3, :] = np.inf
+    gptr, lists = relax.column_lists(torch.from_numpy(a))
+    assert gptr.dtype == lists.dtype == torch.int32
+    gp, ls = gptr.numpy(), lists.numpy()
+    pad = np.array([0, np.float32(np.inf).view(np.int32)])
+    counts = np.isfinite(a).sum(0)
+    assert len(gp) == -(-n // 32) + 1 and gp[0] == 0
+    for g in range(len(gp) - 1):
+        cols = range(32 * g, min(n, 32 * g + 32))
+        length = max(counts[j] for j in cols)
+        block = ls[gp[g]:gp[g + 1]].reshape(-1, 32, 2)
+        assert block.shape[0] == length
+        for lane in range(32):
+            j = 32 * g + lane
+            c = counts[j] if j < n else 0
+            if c:
+                k = np.nonzero(np.isfinite(a[:, j]))[0]
+                assert np.array_equal(block[:c, lane, 0], k)
+                assert np.array_equal(block[:c, lane, 1].view(np.float32),
+                                      a[k, j])
+            assert (block[c:, lane] == pad).all()
+
+
+@pytest.mark.parametrize("side", ["below", "above"])
+def test_k8_route_choice_at_the_threshold(side):
+    """``relax_step`` takes the arc-list route where ``relax.arcs_pay``:
+    with an A of exactly ``ARC_DENSITY·n²`` live entries its pre-pass
+    hands on the column lists (the arc-list route), with one more entry
+    None (the tiled route); either way the step equals the plain K8 and
+    JAX's.  An n past ``ARC_MAX_N`` never takes the arc-list route."""
+    n = 200
+    rng = np.random.default_rng(41)
+    live = int(relax.ARC_DENSITY * n * n) + (side == "above")
+    a = np.full(n * n, np.inf, np.float32)
+    a[rng.permutation(n * n)[:live]] = rng.integers(1, 10, live)
+    a = a.reshape(n, n)
+    d, m = _dist(rng, (n, n), 0.3), _mask(rng, n, "random")
+    assert relax.arcs_pay(n, live) == (side == "below")
+    assert not relax.arcs_pay(relax.ARC_MAX_N + 1, 0)
+    ta = torch.from_numpy(a)
+    td, tm = torch.from_numpy(d), torch.from_numpy(m)
+    pre = relax._prepass(ta, tm, pick=True)
+    assert (pre is None) == (side == "above")
+    if pre is not None:
+        assert pre[3].tolist() == np.nonzero(m)[0].tolist() == \
+            pre[3][:pre[4]].tolist()
+    got = relax.arcs_in_kernel_order(td, ta, tm) if pre is not None \
+        else relax.relax_tiled(td, ta, tm)
+    want = _jax_relax(d, a, m)
+    assert _same(got[0], want[0]) and _same(got[1], want[1])
+    plain = relax.relax_step(td, ta, tm)
+    assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
 
 
 # -- the dense forms and front-ends against JAX ------------------------------
@@ -278,8 +376,9 @@ def test_semiring_matmul_routes_like_jax(name):
 
 def test_relax_step_routes_by_device():
     """A CPU tensor runs the plain version and counts no launch; a tensor
-    on neither the CPU nor a CUDA device is refused, never computed; K8 is
-    a registered source with its own launch counter."""
+    on neither the CPU nor a CUDA device is refused, never computed, by
+    ``relax_step`` and by each of its routes; K8 is a registered source
+    with a launch counter for each route."""
     d = torch.full((8, 8), float("inf"))
     m = torch.ones(8, dtype=torch.bool)
     before = tops.launch_counts()
@@ -291,6 +390,12 @@ def test_relax_step_routes_by_device():
     with pytest.raises(ValueError, match="CUDA"):
         relax.relax_step(d, d.to("meta"), m)
     assert "relax" in build.SOURCES and "relax_step" in build.LAUNCHES
+    assert "relax_step_tiled" in build.LAUNCHES
+    for route in (relax.relax_arcs, relax.relax_tiled):
+        assert torch.equal(route(d, d, m)[0], d)
+        with pytest.raises(ValueError, match="CUDA"):
+            route(d.to("meta"), d.to("meta"), m.to("meta"))
+    assert tops.launch_counts() == before
     assert (build.CSRC / "relax.cu").is_file()
 
 

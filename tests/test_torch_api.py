@@ -5,8 +5,11 @@ which then answer alike; the dense frontier names ``ops.bool_frontier`` …
 ``ops.csr_minplus_tiled`` and ``core.sparse.csr_frontier_step`` /
 ``reachable_batch_csr`` / ``distances_batch_csr`` equal their JAX
 counterparts (the Pallas kernels in interpret mode) on the same numpy
-inputs.  The CSR the raw entries build for the card (``spmv.raw_csr``,
-``spmv.raw_tiled_csr``) is checked here through the kernels' plain versions.
+inputs, and so do the names of ROADMAP C.7: ``kernels.spmv``'s
+``padded_width`` and five Pallas entry names, ``core.semiring``'s
+``AGGREGATE_SEMIRING`` and ``core.seminaive``'s ``GEN_MAX``.  The CSR the
+raw entries build for the card (``spmv.raw_csr``, ``spmv.raw_tiled_csr``)
+is checked here through the kernels' plain versions.
 Every comparison is exact: plus-times values are small integers, so every
 sum is an integer below 2^24 in any order."""
 import inspect
@@ -16,12 +19,17 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import seminaive as jsn
+from repro.core import semiring as jsr
 from repro.core import sparse as jsp
 from repro.core.semiring import CarrierError as JCarrierError
 from repro.data import graphs as jgraphs
 from repro.kernels import ops as jops
+from repro.kernels import spmv as jspmv
 from repro.obs.metrics import MetricsRegistry
 from repro.service import DatalogService as JService
+from repro_torch.core import seminaive as tsn
+from repro_torch.core import semiring as tsr
 from repro_torch.core import sparse as tsp
 from repro_torch.core.semiring import CarrierError as TCarrierError
 from repro_torch.kernels import ops as tops
@@ -282,3 +290,68 @@ def test_batch_csr_front_ends_match_jax(name, kind):
     capped = getattr(tsp, name)(t_csr, srcs, max_iters=2)
     assert capped.iterations == int(getattr(jsp, name)(j_csr, srcs,
                                                        max_iters=2).iterations)
+
+
+C7_NAMES = ["padded_width", "csr_bool_spmv", "csr_plustimes_spmv",
+            "csr_minplus_spmv", "csr_maxplus_spmv", "csr_minplus_spmv_tiled",
+            "AGGREGATE_SEMIRING", "GEN_MAX"]
+
+
+@pytest.mark.parametrize("name", C7_NAMES)
+def test_c7_names_match_jax(name):
+    """C.7: each JAX public name the ported modules lacked exists in the
+    port with JAX's meaning.  ``padded_width`` at several (n, bn); each
+    ``spmv.csr_*_spmv`` on CPU tensors, with JAX's keywords, against the
+    JAX entry in interpret mode on a CSR's spine and tail arrays (the tiled
+    one over its plan); ``AGGREGATE_SEMIRING``'s keys and semirings;
+    ``GEN_MAX`` the int64 maximum."""
+    if name == "padded_width":
+        for n in (0, 1, 127, 128, 129, 300, 1000):
+            for bn in (1, 64, 128, 256, 1024):
+                assert spmv.padded_width(n, bn) == jspmv.padded_width(n, bn)
+        assert spmv.padded_width(300) == jspmv.padded_width(300)
+        return
+    if name == "AGGREGATE_SEMIRING":
+        assert list(tsr.AGGREGATE_SEMIRING) == list(jsr.AGGREGATE_SEMIRING)
+        for key, sr in jsr.AGGREGATE_SEMIRING.items():
+            got = tsr.AGGREGATE_SEMIRING[key]
+            assert got.name == sr.name and got is tsr.BY_NAME[sr.name]
+        return
+    if name == "GEN_MAX":
+        assert tsn.GEN_MAX == int(jsn.GEN_MAX) == 2 ** 63 - 1
+        assert tsn.GEN_MAX == torch.iinfo(tsn.GEN_DTYPE).max
+        return
+    n, b = 100, 4
+    if name == "csr_minplus_spmv_tiled":
+        e = jgraphs.gnp_graph(n, 0.05, seed=4)
+        e = np.concatenate([e, np.random.default_rng(4).integers(
+            1, 9, (len(e), 1))], 1)
+        j_csr = jsp.build_csr(e, n, "minplus", kernel_plan=(32, 128))
+        chunk, bn = j_csr.plan_cfg
+        arrays = [np.asarray(a) for a in (
+            j_csr.src_idx, j_csr.col_idx, j_csr.edge_val, j_csr.plan_tile,
+            j_csr.plan_chunk, j_csr.plan_first)]
+        f = _frontier("minplus", b, n, seed=6, p=0.3)
+        want = jspmv.csr_minplus_spmv_tiled(
+            jnp.asarray(f), *map(jnp.asarray, arrays), chunk=chunk, bn=bn,
+            interpret=True)
+        got = spmv.csr_minplus_spmv_tiled(
+            torch.from_numpy(f), *(torch.from_numpy(np.array(a))
+                                   for a in arrays),
+            chunk=chunk, bn=bn, interpret=True)
+        assert _same(got, want)
+        return
+    kind = name[len("csr_"):-len("_spmv")]
+    j_csr = _csr(kind, n, 0.05, seed=12)
+    f = _frontier(kind, b, n, seed=13)
+    for part in ("spine", "tail"):
+        src, dst, val = _arcs(j_csr, part)
+        want = getattr(jspmv, name)(jnp.asarray(f), *map(
+            jnp.asarray, (src, dst, val)), interpret=True)
+        args = [torch.from_numpy(np.array(x)) for x in (src, dst, val)]
+        ft = torch.from_numpy(f)
+        assert _same(getattr(spmv, name)(ft, *args), want)
+        kw = ({"chunk": 64} if kind in ("bool", "plustimes")
+              else {"chunk": 16, "bn": 64})
+        assert _same(getattr(spmv, name)(ft, *args, interpret=False, **kw),
+                     want)

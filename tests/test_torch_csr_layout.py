@@ -1,14 +1,16 @@
-"""The CSR layout that K3 and K5 read, checked on the CPU.
+"""The CSR layout that K3, K5 and K6 read, checked on the CPU.
 
-K3 (``csr_bool_step``) and K5 (``csr_plustimes_step``) run on the card only
-(``csrc/spmv.cu``).  What they read is built in PyTorch and is checked
-here: the derived ELL-ordered sources and values and the warp work list
-(``core.sparse._ell_order``) after every way a CSR comes to be, K3's bit
-pack and unpack (``spmv.pack_bits``/``unpack_bits``), and K5's order of
-summation (``spmv.plustimes_in_kernel_order``) against the plain step and
-the JAX Pallas kernel (interpret mode): exactly on integer inputs, within
-a stated tolerance otherwise.  Last, ``chip_smoke.capture_frontiers``, the
-spy that records the frontiers a warm batch's fixpoint passes to its step.
+K3 (``csr_bool_step``), K5 (``csr_plustimes_step``) and K6
+(``csr_maxplus_step``) run on the card only (``csrc/spmv.cu``).  What they
+read is built in PyTorch and is checked here: the derived ELL-ordered
+sources and values and the warp work list (``core.sparse._ell_order``)
+after every way a CSR comes to be, K3's bit pack and unpack
+(``spmv.pack_bits``/``unpack_bits``), and K5's and K6's walk of the items
+in the kernel's order (``spmv.ell_step_in_kernel_order``) against the plain
+step and the JAX Pallas kernel (interpret mode): exactly for max-plus and
+on integer sums, within a stated tolerance otherwise.  Last,
+``chip_smoke.capture_frontiers``, the spy that records the frontiers a warm
+batch's fixpoint passes to its step.
 """
 import sys
 from pathlib import Path
@@ -34,12 +36,12 @@ import chip_smoke  # noqa: E402
 #: the graphs of test_torch_sparse.py's layout test: (n, p, seed, powerlaw)
 GRAPHS = [(100, 0.05, 0, False), (100, 0.05, 1, False),
           (300, 0.02, 2, True), (300, 0.02, 3, True), (40, 0.0, 4, False)]
-LAYOUT_KINDS = ["bool", "plustimes"]
+LAYOUT_KINDS = ["bool", "plustimes", "maxplus"]
 
 
 def _edges(kind, n, p, seed, powerlaw):
-    """As test_torch_sparse.py makes them; plus-times keeps src < dst and
-    weights 1..2."""
+    """As test_torch_sparse.py makes them; the weighted carriers keep
+    src < dst and weights 1..2."""
     rng = np.random.default_rng(seed)
     if powerlaw:
         e = jgraphs.powerlaw_graph(n, int(p * n * n), alpha=1.2, seed=seed)
@@ -54,24 +56,30 @@ def _edges(kind, n, p, seed, powerlaw):
 def _check_ell_order(csr):
     """The derived fields against the spine they were built from: slot k
     of the slices laid end to end has ``ell_src = src_idx[p]`` (-1 where
-    ``edge_val[p]`` is the ⊕-zero) and ``ell_val = edge_val[p]``; the work
-    list's pieces tile each row from its first slot to its last live one
-    (the whole row where rows share an item), in order."""
+    ``edge_val[p]`` is the ⊕-zero, 0 or -inf: a sentinel) and ``ell_val =
+    edge_val[p]`` (equal to it at every live slot); the work list's pieces
+    tile each row from its first slot to its last live one (the whole row
+    where rows share an item), in order, so every live slot lies in
+    exactly one piece."""
     if csr.kind not in LAYOUT_KINDS:
         assert all(getattr(csr, k) is None for k in (
             "ell_src", "ell_val", "ell_items", "ell_row_piece"))
         return
     pos = torch.cat([t.reshape(-1) for t in csr.ell_slices]).long()
     val = csr.edge_val[pos]
-    live = val if csr.kind == "bool" else val != 0
+    live = val if csr.kind == "bool" else val != spmv.ref.CSR_ZERO[csr.kind]
     want = torch.where(live, csr.src_idx[pos], -1)
     assert csr.ell_src.dtype == torch.int32
     assert torch.equal(csr.ell_src, want)
-    if csr.kind == "plustimes":
+    if csr.kind == "bool":
+        assert csr.ell_val is None
+    else:
         assert csr.ell_val.dtype == torch.float32
         assert torch.equal(csr.ell_val, val)
-    else:
-        assert csr.ell_val is None
+        assert torch.equal(csr.ell_val[live], csr.edge_val[pos[live]])
+        if csr.kind == "maxplus":  # the sentinels: -1 sources, -inf values
+            assert bool((csr.ell_val[~live] == float("-inf")).all())
+            assert bool((csr.ell_src[~live] == -1).all())
     items = csr.ell_items.numpy().astype(np.int64)
     rp = csr.ell_row_piece.numpy()
     assert csr.ell_items.dtype == csr.ell_row_piece.dtype == torch.int32
@@ -81,6 +89,10 @@ def _check_ell_order(csr):
         for t in range(npc):
             spans[k0 + t] = (lo + t * length, length)
     assert sorted(spans) == list(range(int(rp[-1])))
+    covered = np.zeros(csr.ell_src.numel(), np.int64)
+    for a, la in spans.values():
+        covered[a:a + la] += 1
+    assert (covered[live.numpy()] == 1).all()
     slot = row = 0
     for tbl, lv in zip(csr.ell_slices,
                        torch.split(live, [t.numel() for t in csr.ell_slices])):
@@ -172,11 +184,12 @@ def test_ell_order_of_raw_triples(kind):
     assert csr.ell_src.tolist() == [-1]
     rng = np.random.default_rng(3)
     f = torch.from_numpy(rng.random((5, 200)) < 0.2)
-    if kind == "plustimes":
-        f = f.float() * 2
-        got = spmv.plustimes_in_kernel_order(f, csr)
-    else:
+    if kind == "bool":
         got = spmv.plain_bool(f, csr)
+    else:
+        f = f.float() * 2 if kind == "plustimes" else \
+            torch.where(f, 2.0, float("-inf"))
+        got = spmv.ell_step_in_kernel_order(f, csr)
     assert torch.equal(got, spmv.ref.csr_raw_ref(kind, f, src, dst, val))
 
 
@@ -195,14 +208,17 @@ def test_pack_bits_round_trip(B):
     assert torch.equal(spmv.unpack_bits(words, B), f)
 
 
-def _plustimes_case(n, p, seed, powerlaw, b):
-    edges = _edges("plustimes", n, p, seed, powerlaw)
-    j_csr = jsp.build_csr(edges, n + 28, "plustimes")
+def _plustimes_case(n, p, seed, powerlaw, b, kind="plustimes", fold=False):
+    """A JAX CSR of ``kind`` with up to six arcs appended into its COO tail
+    (or up to 40 through a fold), and the port's CSR from its state."""
+    edges = _edges(kind, n, p, seed, powerlaw)
+    j_csr = jsp.build_csr(edges, n + 28, kind)
     rng = np.random.default_rng(seed + 7)
-    extra = np.sort(rng.integers(0, n, (6, 2)), axis=1)
+    extra = np.sort(rng.integers(0, n, (40 if fold else 6, 2)), axis=1)
     extra = extra[extra[:, 0] < extra[:, 1]]
     j_csr = jsp.csr_append(j_csr, np.concatenate(
-        [extra, rng.integers(1, 3, (len(extra), 1))], 1))
+        [extra, rng.integers(1, 3, (len(extra), 1))], 1),
+        rebuild_frac=0.0 if fold else 1.0)
     t_csr = tsp.csr_from_state(*jsp.csr_to_state(j_csr), device="cpu")
     return j_csr, t_csr, rng
 
@@ -217,11 +233,11 @@ def test_k5_order_equals_plain_and_pallas_on_integers(n, p, seed, powerlaw,
     j_csr, t_csr, rng = _plustimes_case(n, p, seed, powerlaw, b)
     f = np.where(rng.random((b, n + 28)) < 0.3,
                  rng.integers(1, 4, (b, n + 28)), 0).astype(np.float32)
-    got = spmv.plustimes_in_kernel_order(torch.from_numpy(f), t_csr)
+    got = spmv.ell_step_in_kernel_order(torch.from_numpy(f), t_csr)
     assert torch.equal(got, spmv.plain_plustimes(torch.from_numpy(f), t_csr))
     want = jops.csr_frontier_step("plustimes")(jnp.asarray(f), j_csr)
     assert np.array_equal(got.numpy(), np.asarray(want))
-    one = spmv.plustimes_in_kernel_order(torch.from_numpy(f[0]), t_csr)
+    one = spmv.ell_step_in_kernel_order(torch.from_numpy(f[0]), t_csr)
     assert torch.equal(one, got[0])
 
 
@@ -234,12 +250,40 @@ def test_k5_order_on_non_integers_within_tolerance(n, p, seed, powerlaw):
     j_csr, t_csr, rng = _plustimes_case(n, p, seed, powerlaw, 4)
     f = (rng.random((4, n + 28)) * (rng.random((4, n + 28)) < 0.5)).astype(
         np.float32)
-    got = spmv.plustimes_in_kernel_order(torch.from_numpy(f), t_csr).numpy()
+    got = spmv.ell_step_in_kernel_order(torch.from_numpy(f), t_csr).numpy()
     plain = spmv.plain_plustimes(torch.from_numpy(f), t_csr).numpy()
     pallas = np.asarray(jops.csr_frontier_step("plustimes")(jnp.asarray(f),
                                                             j_csr))
     np.testing.assert_allclose(got, plain, rtol=5e-5, atol=0)
     np.testing.assert_allclose(got, pallas, rtol=5e-5, atol=0)
+
+
+@pytest.mark.parametrize("n,p,seed,powerlaw", GRAPHS)
+@pytest.mark.parametrize("append", ["tail", "fold"])
+def test_k6_walk_equals_plain_and_pallas(n, p, seed, powerlaw, append):
+    """K6's walk of the max-plus CSR's items in its own order
+    (``spmv.ell_step_in_kernel_order``: each piece's max from -inf, the
+    pieces, then the COO tail) equals the plain step and the JAX step over
+    the Pallas ``csr_maxplus_spmv`` (interpret mode) exactly, after arcs
+    went into the COO tail and after a fold, at B = 1, 3 and 8 and a
+    fully dead frontier."""
+    j_csr, t_csr, rng = _plustimes_case(n, p, seed, powerlaw, 1, "maxplus",
+                                        fold=append == "fold")
+    assert (int(t_csr.tail_nnz) > 0) == (append == "tail")
+    _check_ell_order(t_csr)
+    for b in (1, 3, 8):
+        f = np.where(rng.random((b, n + 28)) < 0.3,
+                     rng.integers(0, 5, (b, n + 28)), -np.inf).astype(
+                         np.float32)
+        if b == 8:
+            f[:] = -np.inf
+        got = spmv.ell_step_in_kernel_order(torch.from_numpy(f), t_csr)
+        assert torch.equal(got, spmv.plain_maxplus(torch.from_numpy(f),
+                                                   t_csr))
+        want = jops.csr_frontier_step("maxplus")(jnp.asarray(f), j_csr)
+        assert np.array_equal(got.numpy(), np.asarray(want))
+    one = spmv.ell_step_in_kernel_order(torch.from_numpy(f[0]), t_csr)
+    assert torch.equal(one, got[0])
 
 
 def _service(program, pred, edges):

@@ -297,8 +297,8 @@ def test_wrappers_route_by_device():
                            "csr_bool_step", "csr_minplus_step",
                            "csr_maxplus_step", "csr_plustimes_step",
                            "csr_minplus_tiled_step", "relax_step",
-                           "flash_attention", "flash_attention_f32",
-                           "rglru_scan"}
+                           "relax_step_tiled", "flash_attention",
+                           "flash_attention_f32", "rglru_scan"}
     assert build.SOURCES == ("boolmm", "minplus", "spmv", "relax",
                              "flash_attention", "rglru_scan")
 
