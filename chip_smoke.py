@@ -15,21 +15,22 @@ a non-zero exit and prints no result):
    and max of sums of small integers in f32 are exact and order-independent;
    K5's inputs are small integers whose sums stay below 2^24, where f32
    sums are exact in any order); B = 3, 32 and 130 (over the CSR kernels'
-   128-row split), hub rows wider than one 1024-position segment, and a
-   COO tail built by hand; then K1, K2 and K2-max at B = 1, 8, 64, 65, 128
+   128-row split), hub rows wider than one 256-slot piece, and a COO tail
+   built by hand; then K1, K2 and K2-max at B = 1, 8, 64, 65, 128
    and 129 and n = 15, 16, 17, 1003, 1024 and 4097 (across the 128 x 128
    tiles, the K splits and both load routes), fully dead frontiers, and
    operands off 16-byte boundaries; then K3, K5 and K6 at B = 1, 31, 32,
    33, 64, 65, 128 and 130 and frontier densities 0, 0.001, 0.1 and 1.0,
-   on a graph with a hub of in-degree about 4,000 (wider than K4's
-   1,024-position segment and the 256-slot piece), 37 empty rows and a COO
+   on a graph with a hub of in-degree about 4,000 (wider than the 256-slot
+   piece), 37 empty rows and a COO
    tail (K5 on small-integer counts), and K5 on a non-integer frontier: two
    calls bitwise equal, and equal to ``spmv.ell_step_in_kernel_order``;
    then K7 (the min-plus step over a tile-skip plan) against its plain
    version and K4's at (chunk, bn) = (32, 128), (64, 128), (32, 256) and
    (16, 64) and B = 3, 32 and 130, on a graph with empty column tiles, an
    allocation no tile width divides, a hub tile split into several work
-   units and a COO tail made by ``csr_append``; then K8 (the fused
+   units (``core.sparse.TILE_UNIT`` arcs each) and a COO tail made by
+   ``csr_append``; then K8 (the fused
    relaxation step) against its plain version at n = 1, 50, 130, 1000 and
    1025, with Δ masks all true, all false and random with a whole 64-row
    tile false, and a ``d`` with whole +inf rows, by each route (the
@@ -54,17 +55,19 @@ a non-zero exit and prints no result):
 5. CSR main path: TC and SPATH on ``powerlaw_graph(2**20, 16_000_000,
    alpha=0.8)`` (a social-graph shape; the density heuristic picks CSR),
    ``ask_batch`` of 32 sources, a second batch of 32 and a repeat; then
-   K3 at every frontier one warm TC batch passes its step
+   K3 and K4 at every frontier one warm TC or SPATH batch passes its step
    (:func:`capture_frontiers`: a spy on ``fixpoint_csr``'s step), each
-   output equal to the plain step, timed beside ``sparse.mm`` and the bound
-   at the same input;
+   output equal to the plain step, timed beside the bound at the same
+   input (K3 also beside ``sparse.mm``);
 5b. the tuned CSR path on phase 5's weighted arcs (not generated again):
    ``DatalogService(SPATH, sparse=True, tune=KernelConfig(use_kernel=True))``
    (tile-skip plan (32, 128)), the same traffic; K7 must launch once per
    iteration plus one seed step per fixpoint and K4 never; the plan's
-   length, padding and host build time; K7 timed beside its plain version,
-   its bound and K4 at the same frontier, then K7 against K4 (equal
-   exactly, and timed) at a frontier with every value finite.  Then two
+   length, padding and host build time, and K7's view of it (planned arcs,
+   work units, split tiles); K7 timed beside its plain version, its bound
+   and K4 at the same frontier, then K7 against K4 (equal exactly, and
+   timed) at a frontier with every value finite; K7 at every frontier one
+   warm batch passes its step, each equal to the plain step.  Then two
    appends to that
    service: 10,000 arcs (to the COO tail) and 4,100,000 (past
    ``csr_rebuild_frac``: a fold that rebuilds the pinned layout and its
@@ -361,7 +364,7 @@ def _hand_tailed_csr(kind, n, edges, tail, device):
 def _ragged_graph(rng, n, m, hub_deg):
     src = rng.integers(0, n, m)
     dst = rng.integers(0, n, m)
-    if hub_deg:  # vertex 1 gets hub_deg in-arcs: a slice wider than one segment
+    if hub_deg:  # vertex 1 gets hub_deg in-arcs: a row of several pieces
         src = np.concatenate([src, rng.permutation(n)[:hub_deg]])
         dst = np.concatenate([dst, np.ones(hub_deg, np.int64)])
     edges = np.unique(np.stack([src, dst], 1), axis=0)
@@ -436,8 +439,8 @@ def ragged_parity():
 def k35_ragged_parity():
     """K3, K5 and K6 against their plain versions at every batch size of
     :data:`K35_BATCHES` and density of :data:`K35_DENSITIES`, on a graph
-    whose vertex 1 has an in-degree near 4,000 (wider than K4's
-    1,024-position segment and the 256-slot piece), whose last 37 vertices
+    whose vertex 1 has an in-degree near 4,000 (wider than the 256-slot
+    piece), whose last 37 vertices
     have no arc (empty rows) and whose COO tail holds 40 arcs: K3 and K6
     exactly, K5 exactly on small-integer counts (sums far below 2^24).
     Then K5 on a non-integer frontier: two calls bitwise identical and
@@ -562,14 +565,15 @@ def k12_ragged_parity():
 def k7_ragged_parity():
     """K7 against its plain version, exactly: a graph whose upper column
     tiles are empty, an allocation that is no multiple of any tile width, a
-    hub whose tile's items split into several work units, and a COO tail
+    hub of 3 x ``TILE_UNIT`` in-arcs whose tile splits into several work
+    units, and a COO tail
     made by ``csr_append``; every plan of :data:`K7_PLANS` at every batch
     size of :data:`K7_BATCHES`."""
     import torch
     from repro_torch.core import sparse
     from repro_torch.kernels import spmv
     rng = np.random.default_rng(SEED + 5)
-    n_alloc, m, hub = 3000, 24000, 6000
+    n_alloc, m, hub = 3000, 24000, 3 * sparse.TILE_UNIT
     src = np.concatenate([rng.integers(0, n_alloc, m),
                           rng.integers(0, n_alloc, hub)])
     dst = np.concatenate([rng.integers(0, 1000, m // 2),
@@ -583,10 +587,10 @@ def k7_ragged_parity():
     for plan in K7_PLANS:
         csr = sparse.csr_append(sparse.build_csr(
             edges, n_alloc, "minplus", kernel_plan=plan, device=DEVICE), tail)
-        units = csr.plan_unit.cpu().numpy()
+        flags = csr.tile_units[:, 3].cpu().numpy()
         check(int(csr.tail_nnz) == len(tail) and csr.plan_cfg == plan,
               f"K7 case {plan}: tail or plan not built")
-        check(int(np.diff(units).max()) == sparse.PLAN_UNIT,
+        check(bool((flags & sparse.UNIT_WHOLE == 0).any()),
               f"K7 case {plan}: no tile was split into work units")
         for B in K7_BATCHES:
             f = torch.from_numpy(_rand_dist(rng, (B, n_alloc), 0.2)).to(DEVICE)
@@ -1257,12 +1261,13 @@ def capture_frontiers(svc, pred, srcs):
 
 
 def captured_frontiers(torch, name, svc, pred, srcs, plain, s, rate,
-                       library=True):
+                       library=True, bound=None):
     """The kernel of ``pred``'s CSR step at every frontier one warm batch
     passes (:func:`capture_frontiers`): each output held to the plain
     step, exactly; per input the share of active sources, the kernel's and
     (with ``library``) ``sparse.mm``'s ms (:func:`_sparse_mm_call`) and the
-    bound (:func:`_csr_seed_bound`); their sums, and the densest input's."""
+    bound (``bound(csr, f)``, by default :func:`_csr_seed_bound`); their
+    sums, and the densest input's."""
     from repro_torch.kernels import ops
     frontiers, res = capture_frontiers(svc, pred, srcs)
     check(len(frontiers) == res.iterations,
@@ -1279,7 +1284,8 @@ def captured_frontiers(torch, name, svc, pred, srcs, plain, s, rate,
         ms.append(time_ms(torch, lambda: step(f, csr), 10))
         if library:
             lib_ms.append(time_ms(torch, _sparse_mm_call(torch, csr, f), 10))
-        bound_ms.append(_csr_seed_bound(torch, csr, f, live, s, rate)[0])
+        bound_ms.append(bound(csr, f)[0] if bound else
+                        _csr_seed_bound(torch, csr, f, live, s, rate)[0])
     d = int(np.argmax(active))
     out = {"iterations": res.iterations, "generated": res.generated,
            "active": active, "ms": float(sum(ms)),
@@ -1354,6 +1360,9 @@ def csr_phase(results):
     results["csr_bool_step"]["captured"] = captured_frontiers(
         torch, "csr_bool_step", tc, "tc", srcs2, spmv.plain_bool, 1,
         INT8_OPS_S)
+    results["csr_minplus_step"]["captured"] = captured_frontiers(
+        torch, "csr_minplus_step", sp, "dpath", srcs2, spmv.plain_minplus, 4,
+        F32_OPS_S, library=False)
     del tc, sp
     torch.cuda.empty_cache()
     return edges, wedges, sp_oracle
@@ -1770,19 +1779,28 @@ def allpairs_phase(results):
 
 def _k7_bound(torch, csr, f):
     """K7's bound at frontier ``f``: K4's (the same function,
-    :func:`_csr_seed_work`) plus the plan entries the kernel must read, the
-    live items' chunk indices and the unit offsets (pad items are never
-    read; each unit reads its tile and first flags once, a few KB)."""
+    :func:`_csr_seed_work`) plus the plan's view the kernel must read: each
+    planned arc's source, destination and value once (12 bytes) and each
+    work unit's 16 bytes (``core.sparse._tile_order``)."""
     bytes_, ops = _csr_seed_work(torch, csr, f, torch.isfinite(f), 4)
-    plan = 4 * (int(csr.plan_unit[-1]) + csr.plan_unit.numel())
-    return _bound(bytes_ + plan, ops, F32_OPS_S)
+    view = 12 * csr.tile_dst.numel() + 16 * csr.tile_units.shape[0]
+    return _bound(bytes_ + view, ops, F32_OPS_S)
 
 
 def _plan_report(csr):
-    units = csr.plan_unit.cpu().numpy()
-    items, live = int(csr.plan_tile.numel()), int(units[-1])
-    return {"items": items, "live": live, "pad": items - live,
-            "units": len(units) - 1, "plan_cfg": list(csr.plan_cfg)}
+    """The plan's items (live and pad) and K7's view of it: planned arcs,
+    work units and the tiles split over several units."""
+    from repro_torch.core.sparse import UNIT_FIRST, UNIT_WHOLE
+    tiles = csr.plan_tile.cpu().numpy()
+    chunks = csr.plan_chunk.cpu().numpy()
+    moved = np.nonzero((tiles != tiles[-1]) | (chunks != chunks[-1]))[0]
+    live = int(moved[-1]) + 2 if len(moved) else 1
+    flags = csr.tile_units[:, 3].cpu().numpy()
+    return {"items": len(tiles), "live": live, "pad": len(tiles) - live,
+            "arcs": int(csr.tile_dst.numel()), "units": len(flags),
+            "split_tiles": int(((flags & UNIT_FIRST != 0)
+                                & (flags & UNIT_WHOLE == 0)).sum()),
+            "plan_cfg": list(csr.plan_cfg)}
 
 
 def _launch_check(label, counts, stats0, svc, kernel, absent):
@@ -1867,6 +1885,10 @@ def tuned_phase(results, wedges, oracle):
         f"{phase['dense_frontier_ms']['k7']:.3f} / "
         f"{phase['dense_frontier_ms']['k4']:.3f} ms")
     del f, fd
+    results["csr_minplus_tiled_step"]["captured"] = captured_frontiers(
+        torch, "csr_minplus_tiled_step", sp, "dpath", srcs2,
+        spmv.plain_minplus_tiled, 4, F32_OPS_S, library=False,
+        bound=lambda c, x: _k7_bound(torch, c, x))
 
     # appends: a tail append, then one past csr_rebuild_frac (a fold)
     appended = [wedges]

@@ -19,14 +19,17 @@ Layout (see the JAX module for the full story):
 * an optional tile-skip plan (``plan_tile``/``plan_chunk``/``plan_first``
   + ``plan_cfg``, from ``build_csr(kernel_plan=)``): the worklist of
   (column tile, arc chunk) pairs with a destination hit, the JAX arrays
-  exactly, plus ``plan_unit``, the Hopper kernel's work units over it
-  (``kernels.spmv.csr_minplus_tiled_step``);
-* for the bool, plus-times and max-plus carriers, ``ell_src``/``ell_val``
-  and the work list ``ell_items``/``ell_row_piece`` (:func:`_ell_order`):
-  the slices' slots in order with each slot's source and value, which K3,
-  K5 and K6 read instead of the positions, built on the card wherever the
-  spine is (``build_csr``, the fold, ``csr_from_state``, ``spmv.raw_csr``)
-  and never part of the state;
+  exactly, plus what the Hopper kernel K7 reads instead
+  (:func:`_tile_order`): the plan's arcs once each, in destination order,
+  and its work units over them (``tile_src``/``tile_dst``/``tile_val``,
+  ``tile_units``);
+* ``ell_src``/``ell_val`` and the work list ``ell_items``/
+  ``ell_row_piece`` (:func:`_ell_order`): the slices' slots in order with
+  each slot's source and value, which K3-K6 read instead of the
+  positions;
+* both derived views are built on the card wherever the spine is
+  (``build_csr``, the fold, ``csr_from_state``, ``spmv.raw_csr``/
+  ``raw_tiled_csr``) and are never part of the state;
 * a COO tail (``tail_src``/``tail_dst``/``tail_val``/``tail_ell``) that
   ``csr_append`` fills with appended arcs and folds into the spine once it
   outgrows ``rebuild_frac`` of it (the fold carries ``ell_cfg`` and
@@ -88,18 +91,22 @@ class CSRMatrix:
     plan_tile: torch.Tensor | None  # (L,) int32 — tile-skip worklist: the
     plan_chunk: torch.Tensor | None  # items' column tile, arc chunk and
     plan_first: torch.Tensor | None  # first-visit flag (JAX's arrays)
-    plan_unit: torch.Tensor | None  # (units + 1,) int32 — K7 work units
     n: int  # live domain size at build time
     n_alloc: int  # padded domain
     kind: str  # 'bool' | 'minplus' | 'maxplus' | 'plustimes'
     ell_cfg: tuple  # (floor, stride) capacity-ladder config
     plan_cfg: tuple | None  # (chunk, bn) of the tile-skip plan, or None
-    # K3/K5/K6's view of the slices (:func:`_ell_order`), bool, plus-times
-    # and max-plus only; derived on the card, never part of the state
+    # K3-K6's view of the slices (:func:`_ell_order`); derived on the
+    # card, never part of the state
     ell_src: torch.Tensor | None = None  # (E,) int32 — slot sources, -1 pad
-    ell_val: torch.Tensor | None = None  # (E,) f32 — slot values (K5, K6)
+    ell_val: torch.Tensor | None = None  # (E,) f32 — slot values (K4-K6)
     ell_items: torch.Tensor | None = None  # (I, 4) int32 — warp items
     ell_row_piece: torch.Tensor | None = None  # (rows + 1,) int32
+    # K7's view of the plan (:func:`_tile_order`), planned CSRs only
+    tile_src: torch.Tensor | None = None  # (A,) int32 — planned arcs by dst
+    tile_dst: torch.Tensor | None = None  # (A,) int32
+    tile_val: torch.Tensor | None = None  # (A,) f32
+    tile_units: torch.Tensor | None = None  # (U, 4) int32 — work units
 
     @property
     def semiring(self) -> Semiring:
@@ -237,12 +244,6 @@ def _sliced_ell_index(dst: np.ndarray, m: int, n_alloc: int,
     return tuple(tables), rank
 
 
-#: worklist items per K7 work unit: a tile's items are cut into units of at
-#: most this many, one CTA each, so a hub tile (a power-law graph's first
-#: tile collects a hit from almost every arc chunk) spreads over many SMs
-PLAN_UNIT = 256
-
-
 def padded_width(n: int, bn: int = 1) -> int:
     """The frontier width the JAX tile-skip kernel sees: ``n`` rounded up to
     ``max(128, bn)`` (``bn`` is a power of two).  Plans cover this width;
@@ -284,21 +285,7 @@ def _tile_plan(dst: np.ndarray, m: int, cap: int, n_alloc: int,
             np.concatenate([first, np.zeros(pad, np.int32)]))
 
 
-def _plan_units(tiles: np.ndarray, chunks: np.ndarray,
-                first: np.ndarray) -> np.ndarray:
-    """K7's work units over a plan: item offsets at every tile start and
-    every :data:`PLAN_UNIT` items within a tile, then the live item count
-    (the pad items, repeats of the last live item, belong to no unit)."""
-    moved = np.nonzero((tiles != tiles[-1]) | (chunks != chunks[-1]))[0]
-    live = int(moved[-1]) + 2 if len(moved) else 1
-    starts = np.nonzero(first[:live])[0]
-    k = -(-(np.append(starts[1:], live) - starts) // PLAN_UNIT)
-    within = np.arange(int(k.sum())) - np.repeat(np.cumsum(k) - k, k)
-    units = np.repeat(starts, k) + within * PLAN_UNIT
-    return np.append(units, live).astype(np.int32)
-
-
-#: slots per piece of a wide slice row: K3, K5 and K6 cut rows of capacity
+#: slots per piece of a wide slice row: K3-K6 cut rows of capacity
 #: above 16 into pieces of at most this many slots, one warp each, so a
 #: hub's row spreads over many SMs
 ELL_SEG = 256
@@ -306,15 +293,15 @@ ELL_SEG = 256
 
 def _ell_order(kind: str, src_idx: torch.Tensor, edge_val: torch.Tensor,
                slices: tuple) -> dict:
-    """K3's, K5's and K6's view of the sliced-ELL map, built with torch
-    indexing on the map's device (a port-only derivation, never part of the
+    """K3's to K6's view of the sliced-ELL map, built with torch indexing
+    on the map's device (a port-only derivation, never part of the
     state):
 
     * ``ell_src`` (E,) int32: the slices' slots laid end to end (slice,
       row, slot), each the source ``src_idx[p]`` of its position p, -1
       where ``edge_val[p]`` is the ⊕-zero (a sentinel);
-    * ``ell_val`` (E,) f32, plus-times and max-plus: ``edge_val[p]`` (the
-      ⊕-zero, 0 or -inf, at a sentinel);
+    * ``ell_val`` (E,) f32, the weighted carriers: ``edge_val[p]`` (the
+      ⊕-zero, +inf, 0 or -inf, at a sentinel);
     * ``ell_items`` (I, 4) int32, one warp item each: ``(first slot, first
       piece, first row, pieces | length << 6)``.  A row of capacity <= 16
       (a power of two) is one piece, and ``32 // cap`` of them share an
@@ -323,14 +310,7 @@ def _ell_order(kind: str, src_idx: torch.Tensor, edge_val: torch.Tensor,
       each;
     * ``ell_row_piece`` (rows + 1,) int32: row r's pieces are
       ``ell_row_piece[r]:ell_row_piece[r + 1]``, rows numbered as
-      ``ell_rank`` numbers them.
-
-    The min-plus steps (K4, K7) read none of it yet: all four are None
-    there."""
-    out = dict.fromkeys(("ell_src", "ell_val", "ell_items",
-                         "ell_row_piece"))
-    if kind not in ("bool", "plustimes", "maxplus"):
-        return out
+      ``ell_rank`` numbers them."""
     dev = src_idx.device
     zero = carrier_for(kind).zero
     srcs, vals, items, counts = [], [], [], []
@@ -363,21 +343,92 @@ def _ell_order(kind: str, src_idx: torch.Tensor, edge_val: torch.Tensor,
         counts.append(k)
         slot, row, piece = slot + R * C, row + R, piece + int(k.sum())
     if slot >= 2 ** 31:
-        raise ValueError(f"{slot} ELL slots: K3/K5/K6 index them with int32")
-    out["ell_src"] = torch.cat(srcs).int()
-    if kind != "bool":
-        out["ell_val"] = torch.cat(vals)
-    out["ell_items"] = torch.cat(items).int().contiguous()
+        raise ValueError(f"{slot} ELL slots: K3-K6 index them with int32")
     k = torch.cat(counts)
-    out["ell_row_piece"] = torch.cat(
-        [k.new_zeros(1), torch.cumsum(k, 0)]).int()
-    return out
+    return {"ell_src": torch.cat(srcs).int(),
+            "ell_val": None if kind == "bool" else torch.cat(vals),
+            "ell_items": torch.cat(items).int().contiguous(),
+            "ell_row_piece": torch.cat(
+                [k.new_zeros(1), torch.cumsum(k, 0)]).int()}
 
 
-def _with_ell_order(csr: "CSRMatrix") -> "CSRMatrix":
-    """``csr`` with its :func:`_ell_order` fields built from its spine."""
-    return dataclasses.replace(csr, **_ell_order(
+def _with_views(csr: "CSRMatrix") -> "CSRMatrix":
+    """``csr`` with its derived views built from its spine: the
+    :func:`_ell_order` fields, and the :func:`_tile_order` fields where it
+    carries a plan."""
+    csr = dataclasses.replace(csr, **_ell_order(
         csr.kind, csr.src_idx, csr.edge_val, csr.ell_slices))
+    return _with_tile_order(csr) if csr.plan_cfg is not None else csr
+
+
+#: planned arcs per K7 work unit: a column tile with more is cut into
+#: units of at most this many, one CTA each, so a hub's tile (a power-law
+#: graph's first tile of 128 columns holds about 1.8M of its 16M arcs)
+#: spreads over many SMs.  Of 1,024, 2,048, 4,096 and 8,192, the last two
+#: gave the fastest steps on an H100 at both the tuned CSR SPATH seed
+#: frontier and an all-finite one, 8,192 up to 3% faster than 4,096 and
+#: never 0.2% slower (scripts/k7_ab.py --units; the times are in PERF.md)
+TILE_UNIT = 8192
+#: ``tile_units`` flag bits: the tile's first unit (it folds the COO tail)
+#: and a unit that covers its whole tile (it stores its block)
+UNIT_FIRST, UNIT_WHOLE = 1, 2
+
+
+def _tile_order(src_idx: torch.Tensor, col_idx: torch.Tensor,
+                edge_val: torch.Tensor, plan_tile: torch.Tensor,
+                plan_chunk: torch.Tensor, plan_cfg: tuple, n_alloc: int,
+                unit: int = TILE_UNIT) -> dict:
+    """K7's view of a min-plus spine and its tile-skip plan, built with
+    torch on the plan's device (a port-only derivation, never part of the
+    state):
+
+    * the planned arcs: the live positions p (``edge_val[p]`` finite)
+      whose key ``(col_idx[p] // bn, p // chunk)`` is one of the plan's
+      (tile, chunk) items (a ``searchsorted`` over the items' sorted keys;
+      pad items repeat one), which is exactly the set of arcs the TPU
+      kernel visits, stable-sorted by destination: ``tile_src``,
+      ``tile_dst`` (int32) and ``tile_val`` (f32), 12 bytes an arc;
+    * ``tile_units`` (U, 4) int32, one CTA each: ``(tile, first arc, end
+      arc, flags)``.  Every column tile of ``bn`` below ``n_alloc`` has at
+      least one unit (an empty tile still folds the COO tail and stores
+      its +inf block); a tile of c arcs is cut into ``ceil(c / unit)``
+      units of near-equal size, in order.  Flags: :data:`UNIT_FIRST` on a
+      tile's first unit, :data:`UNIT_WHOLE` where one unit covers it."""
+    chunk, bn = plan_cfg
+    dev = col_idx.device
+    nchunks = -(-int(col_idx.shape[0]) // chunk)
+    items = torch.unique(plan_tile.long() * nchunks + plan_chunk.long())
+    p = torch.nonzero(edge_val != float("inf")).squeeze(1)
+    key = (col_idx[p].long() // bn) * nchunks + p // chunk
+    if len(items):
+        p = p[items[torch.searchsorted(items, key).clamp(
+            max=len(items) - 1)] == key]
+    else:
+        p = p[:0]
+    dst, order = torch.sort(col_idx[p], stable=True)
+    p = p[order]
+    ntiles = -(-n_alloc // bn)
+    count = torch.bincount(dst.long() // bn, minlength=ntiles)
+    k = torch.clamp(-(-count // unit), min=1)
+    tile = torch.repeat_interleave(torch.arange(ntiles, device=dev), k)
+    j = torch.arange(int(k.sum()), device=dev) - torch.repeat_interleave(
+        torch.cumsum(k, 0) - k, k)
+    c, kt = count[tile], k[tile]
+    start = (torch.cumsum(count, 0) - count)[tile]
+    flags = (j == 0).long() * UNIT_FIRST + (kt == 1).long() * UNIT_WHOLE
+    units = torch.stack([tile, start + c * j // kt, start + c * (j + 1) // kt,
+                         flags], 1)
+    return {"tile_src": src_idx[p].int(), "tile_dst": dst.int(),
+            "tile_val": edge_val[p].float(),
+            "tile_units": units.int().contiguous()}
+
+
+def _with_tile_order(csr: "CSRMatrix", unit: int = TILE_UNIT) -> "CSRMatrix":
+    """``csr`` with its :func:`_tile_order` fields built from its spine and
+    plan."""
+    return dataclasses.replace(csr, **_tile_order(
+        csr.src_idx, csr.col_idx, csr.edge_val, csr.plan_tile,
+        csr.plan_chunk, csr.plan_cfg, csr.n_alloc, unit))
 
 
 def _to(a: np.ndarray, device) -> torch.Tensor:
@@ -408,19 +459,18 @@ def build_csr(edges: np.ndarray, n_alloc: int, kind: str = "bool",
     sr = carrier_for(kind)
     pad = cap - m
     slices, rank = _sliced_ell_index(dst, m, n_alloc, cap - 1, tuple(ell_cfg))
-    plan_cfg, plan = None, (None,) * 4
+    plan_cfg, plan = None, (None,) * 3
     if kernel_plan is not None:
         chunk, bn = kernel_plan
         chunk = min(_pow2_floor(chunk), cap)  # cap is a power of two
         bn = _pow2_floor(bn)
-        tiles, chunks, first = _tile_plan(dst, m, cap, n_alloc, chunk, bn)
-        plan = tuple(_to(a, device) for a in (
-            tiles, chunks, first, _plan_units(tiles, chunks, first)))
+        plan = tuple(_to(a, device) for a in _tile_plan(
+            dst, m, cap, n_alloc, chunk, bn))
         plan_cfg = (chunk, bn)
     src = np.concatenate([src, np.zeros(pad, np.int32)])
     dst = np.concatenate([dst, np.zeros(pad, np.int32)])
     val = np.concatenate([val, np.full(pad, sr.zero, val.dtype)])
-    return _with_ell_order(CSRMatrix(
+    return _with_views(CSRMatrix(
         row_ptr=_to(row_ptr, device), col_idx=_to(dst, device),
         edge_val=_to(val, device), src_idx=_to(src, device),
         ell_slices=tuple(_to(t, device) for t in slices),
@@ -434,7 +484,7 @@ def build_csr(edges: np.ndarray, n_alloc: int, kind: str = "bool",
                             device=device),
         tail_nnz=torch.tensor(0, dtype=torch.int32, device=device),
         plan_tile=plan[0], plan_chunk=plan[1], plan_first=plan[2],
-        plan_unit=plan[3], n=n, n_alloc=n_alloc, kind=kind,
+        n=n, n_alloc=n_alloc, kind=kind,
         ell_cfg=tuple(ell_cfg), plan_cfg=plan_cfg))
 
 
@@ -755,18 +805,14 @@ def csr_from_state(arrays: dict, meta: dict, device=None) -> CSRMatrix:
     slices = tuple(_to(np.array(arrays[f"ell_slice_{i}"]), device)
                    for i in range(int(meta["n_slices"])))
     plan_cfg = tuple(meta["plan_cfg"]) if meta.get("plan_cfg") else None
-    units = None
-    if plan_cfg is not None:
-        units = _to(_plan_units(*(np.asarray(arrays[k]) for k in (
-            "plan_tile", "plan_chunk", "plan_first"))), device)
-    return _with_ell_order(CSRMatrix(
+    return _with_views(CSRMatrix(
         row_ptr=t["row_ptr"], col_idx=t["col_idx"], edge_val=t["edge_val"],
         src_idx=t["src_idx"], ell_slices=slices, ell_rank=t["ell_rank"],
         nnz=t["nnz"], tail_src=t["tail_src"], tail_dst=t["tail_dst"],
         tail_val=t["tail_val"], tail_ell=t["tail_ell"],
         tail_nnz=t["tail_nnz"],
         plan_tile=t.get("plan_tile"), plan_chunk=t.get("plan_chunk"),
-        plan_first=t.get("plan_first"), plan_unit=units,
+        plan_first=t.get("plan_first"),
         n=int(meta["n"]), n_alloc=int(meta["n_alloc"]),
         kind=str(meta["kind"]), ell_cfg=tuple(meta["ell_cfg"]),
         plan_cfg=plan_cfg))

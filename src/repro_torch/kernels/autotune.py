@@ -2,10 +2,13 @@
 ``repro.kernels.autotune``.
 
 A relation's fixpoint cost depends on knobs the engine can only guess at
-statically: the sliced-ELL capacity ladder (``ell_cfg``), the tile-skip
-plan's block sizes (``chunk``/``bn``) and whether the tile-skip kernel
-(K7) beats the untiled step (K4) at all on this graph.  So it is a
-measured search:
+statically: the sliced-ELL capacity ladder (``ell_cfg``; K4 reads the
+ladder's slots in ELL order), the tile-skip plan's block sizes
+(``chunk``/``bn``; K7 reads the plan's arcs once each in destination
+order, in work units of one ``bn``-column tile, so on the card ``bn``
+sets its units and ``chunk`` only which arcs a plan covers) and whether
+the tile-skip kernel (K7) beats the untiled step (K4) at all on this
+graph.  So it is a measured search:
 
 1. **Seed analytically.**  Every candidate layout's allocated segment slots
    (``e_alloc``) follow from the in-degree histogram alone, and the H100

@@ -1,50 +1,99 @@
-// K4 — one CSR frontier step on the min-plus carrier:
+// K3 / K4 / K5 / K6 — one CSR frontier step on the bool, min-plus,
+// plus-times and max-plus carriers — and K7, the min-plus step over a
+// tile-skip plan (below).
 //
-//   out[b, v] = min_{p in segments(v)} frontier[b, src_idx[p]] + edge_val[p]
+//   K3: out[b, v] = OR_{p in segments(v)} frontier[b, src_idx[p]] AND edge_val[p]
+//   K4: out[b, v] = min_{p in segments(v)} frontier[b, src_idx[p]] + edge_val[p]
+//   K5: out[b, v] = Σ_{p in segments(v)} frontier[b, src_idx[p]] × edge_val[p]
+//   K6: out[b, v] = max_{p in segments(v)} frontier[b, src_idx[p]] + edge_val[p]
 //
 // the segments of v being its row of the sliced-ELL map (ell_slices /
 // ell_rank) plus its row of the COO tail's single-width map (tail_ell /
 // tail_src / tail_val).
 //
-// Replaces: src/repro/kernels/spmv.py, `csr_minplus_spmv`, as driven by
-// ops._csr_minplus_step (spine + tail).  The TPU kernel keeps the whole
-// (B, n) frontier resident in VMEM and reduces by destination through a
-// masked broadcast-min over column tiles.  That does not carry over: at
-// B = 32 and n = 2^20 one frontier is 128 MB of f32.
+// Replaces: src/repro/kernels/spmv.py, `csr_bool_spmv` (K3),
+// `csr_minplus_spmv` (K4), `csr_plustimes_spmv` (K5) and `csr_maxplus_spmv`
+// (K6), as driven by ops._csr_<carrier>_step (spine + tail).  The TPU's
+// bool and plus-times kernels gather each arc chunk's frontier values, skip
+// a chunk whose sources are all inactive (`pl.when(act_ref[c] != 0)`), and
+// scatter by destination through a one-hot MXU product; its min-plus and
+// max-plus kernels reduce by destination through a masked broadcast-min or
+// -max over column tiles with the whole frontier in VMEM.  A one-hot
+// scatter is O(|E|·n) and a (B, n) f32 frontier is 128 MB at the CSR
+// paths' shapes (B = 32, n = 2^20), so the port pulls by destination
+// instead.
 //
-// What bounds it on the H100: device memory.  Per step the kernel reads the
-// frontier once, each live arc's position, source and value once, and
-// gathers one frontier row segment per live arc; the arithmetic (one ⊗ and
-// one ⊕ per arc and batch row) is negligible next to the gathers.
+// What bounds them on the H100: device memory.  The least work reads the
+// frontier once, the live sources' arcs once and writes the output once;
+// at the batch layer's first step almost no source is active.
 //
-// Design — a pull over the CSR's own segment map, no atomics:
-//  1. transpose the (B, n) frontier to (n, B), so the B values of one source
-//     vertex are one contiguous run: a warp's lanes (one per batch row)
-//     gather them in a single coalesced access;
-//  2. per ELL slice, one warp per (row, segment): lanes load 32 positions'
-//     (src, val) at once, sentinel positions (val = ⊕-zero) are skipped by
-//     a warp ballot, and the live ones are broadcast with shuffles and
-//     gathered eight at a time (eight loads in flight per lane).  Rows wider
-//     than SEG positions (the power-law hubs: one slice of 19 rows holds
-//     in-degrees up to ~184k) are cut into SEG-position segments, one warp
-//     each, and a second pass ⊕-reduces the per-segment partials — so a hub
-//     is spread over hundreds of warps instead of serializing one thread;
-//  3. per vertex, read its slice row's result through ell_rank (dead
-//     vertices share the all-sentinel row 0), fold in the COO tail the same
-//     way, and write out[b, v] through a shared-memory tile so the (B, n)
-//     stores are coalesced.
-// Min does not depend on order, so K4 is bit-identical to the plain PyTorch
-// step and to the JAX one.  It is the last kernel on this pull: K3, K5 and
-// K6 read the CSR's ELL-ordered sources (core.sparse._ell_order) with
-// kernels of their own below, and K6's template (⊕ a parameter) is the one
-// K4 moves to next; K7 closes the file.
+// Design.  All four read the CSR's derived, ELL-ordered arrays
+// (core.sparse._ell_order, built once per CSR on the card): ell_src[k] is
+// the source of slot k of the slices laid end to end (-1 for a sentinel),
+// ell_val[k] its value (K4-K6), and a work list of warp items over
+// *pieces*: a row of capacity <= 16 is one piece and 32 / cap such rows
+// share an item (one 32-slot load); a wider row is cut into pieces of up to
+// ELL_SEG slots, ending at its last live slot, one item each, so the hub
+// rungs spread over every SM.  All slices are one launch.  So a warp's 32
+// slots cost two coalesced loads (through the arc positions they would
+// cost one coalesced and two scattered), and no slot past a row's last
+// arc is read.
+//
+// K4, K5 and K6 are one template on the carrier's (⊕, ⊗) (MinPlusOp,
+// PlusTimesOp, MaxPlusOp below; lanes = batch rows, NB = ceil(B / 32)
+// values a lane):
+//  1. ell_transpose_kernel reads the (B, n) frontier once, writes the (n, B)
+//     rows of the *active* sources only (a value other than the ⊕-zero in
+//     some batch row) and a bitmask of them (n / 8 bytes, cached in L1);
+//  2. ell_pull_kernel, one warp per item: each lane loads a slot's source
+//     and its activity bit, the warp ballots "live and active", and only
+//     those arcs are gathered (one coalesced B-value row each, eight in
+//     flight).  Skipping is exact: an inactive source's values are the
+//     ⊕-zero in every row, and ⊗ keeps them so for every finite weight
+//     (+inf + w = +inf under a min; 0 × w = ±0 under a sum that starts at
+//     +0.0; -inf + w = -inf under a max), so its arc cannot change a
+//     result.  Each piece's ⊕ goes to part[piece]; a per-piece flag says
+//     whether any arc was live, so a dead piece writes nothing else;
+//  3. ell_gather_kernel, one warp per 32 vertices: lanes (one a vertex) find
+//     the vertices with a live piece or an active COO-tail arc; for each of
+//     those the warp (lanes = batch rows) folds its row's live pieces and
+//     then its tail arcs, and every vertex's B values leave through a
+//     shared-memory tile as coalesced (B, n) stores.
+// The order of the ⊕ is fixed by the data, never by scheduling: within a
+// row, the positions of each piece in slot order from the ⊕-zero; then the
+// pieces in order; then the COO tail's positions in order.  No atomics, so
+// repeated runs give identical bits (spmv.ell_step_in_kernel_order is the
+// same order in PyTorch).  Min and max are exact in any order, so K4 and K6
+// are bit-identical to the plain step and to JAX whatever the data (up to
+// the sign of a zero: fminf/fmaxf may return either of a -0.0 and +0.0
+// tie, which no served path sends, its weights being 1..9).  The plain
+// plus-times step sums in torch.sum's order instead, so K5 equals it (and
+// the JAX steps) exactly while every partial sum is an integer below 2^24 —
+// f32 adds integers exactly there, whatever the order.  The service's EDB
+// is integral and path counts are integers, so that is the contract (the
+// JAX package's plus-times kernel states the same one); non-integer sums
+// may differ from the plain step in the last bits.
+//
+// K3 (lanes = slots, W = ceil(B / 32) words a vertex):
+//  1. k3_pack_kernel packs the (B, n) bool frontier into (n, W) uint32
+//     words, bit b % 32 of word b / 32 (4 MiB a word at n = 2^20, resident
+//     in L2), plus the same activity bitmask as K4-K6;
+//  2. k3_pull_kernel, one warp per item: each lane takes one slot and, if
+//     its source is active, ORs in the source's W words; the lanes of one
+//     row OR-reduce by __shfl_xor_sync (a capacity below 32 puts 32 / cap
+//     rows in a warp), and the row's first lane ORs the result into its
+//     row's words (an atomicOr where a hub's pieces meet);
+//  3. k3_unpack_kernel, 256 vertices a block: each vertex's row words
+//     (through ell_rank), its COO tail's words ORed in shared memory, then
+//     unpacked into the (B, n) bool output in coalesced runs.
+// OR is order-free, so K3 is bit-identical to the plain step and to JAX
+// for every B.  All four take B <= 128; the wrappers split larger batches.
 #include "common.cuh"
 
 namespace {
 
-constexpr int PULL_THREADS = 256;   // 8 warps per block
-constexpr int GATHER_VERTS = 32;    // vertices per gather block
-constexpr int UNROLL = 8;           // gathers in flight per lane
+constexpr int K35_THREADS = 256;  // 8 warps a block
+constexpr int K35_UNROLL = 8;     // gathers in flight per lane
 
 // A carrier's (⊕, ⊗): zero() is the ⊕ identity ("no fact"), live(x) says
 // x is not it, combine(f, w) is ⊗ of a frontier value and an arc value,
@@ -72,312 +121,6 @@ struct PlusTimesOp {
   static __device__ __forceinline__ T combine(T f, T w) { return __fmul_rn(f, w); }
   static __device__ __forceinline__ T reduce(T a, T b) { return __fadd_rn(a, b); }
 };
-
-// ⊕-fold the positions idx[0 .. len) into acc (lane owns batch rows
-// lane + 32 q).  All 32 lanes of the warp must call it together.
-template <class Op, int NB>
-__device__ __forceinline__ void pull_positions(
-    const int* __restrict__ idx, int len, const int* __restrict__ src,
-    const typename Op::T* __restrict__ val, const typename Op::T* __restrict__ fT,
-    int B, int lane, typename Op::T (&acc)[NB]) {
-  using T = typename Op::T;
-  for (int c0 = 0; c0 < len; c0 += 32) {
-    const int c = c0 + lane;
-    int s = 0;
-    T w = Op::zero();
-    if (c < len) {
-      const int p = __ldg(idx + c);
-      s = __ldg(src + p);
-      w = val[p];
-    }
-    const unsigned live = __ballot_sync(REPRO_FULL_MASK, Op::live(w));
-#pragma unroll
-    for (int j0 = 0; j0 < 32; j0 += UNROLL) {
-      if (((live >> j0) & ((1u << UNROLL) - 1u)) == 0u) continue;  // uniform
-      T v[UNROLL][NB];
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int sj = __shfl_sync(REPRO_FULL_MASK, s, j0 + u);
-        const T wj = repro_shfl(w, j0 + u);
-        const bool lv = (live >> (j0 + u)) & 1u;
-        const T* frow = fT + (size_t)sj * B;
-#pragma unroll
-        for (int q = 0; q < NB; ++q) {
-          const int b = lane + 32 * q;
-          v[u][q] = (lv && b < B) ? Op::combine(frow[b], wj) : Op::zero();
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u)
-#pragma unroll
-        for (int q = 0; q < NB; ++q) acc[q] = Op::reduce(acc[q], v[u][q]);
-    }
-  }
-}
-
-// (rows, cols) -> (cols, rows), 32 x 32 shared-memory tiles.
-template <class T>
-__global__ void transpose_kernel(const T* __restrict__ in, T* __restrict__ out,
-                                 int rows, int cols) {
-  __shared__ T tile[32][33];
-  const int x = blockIdx.x * 32 + threadIdx.x;
-  const int y0 = blockIdx.y * 32;
-  for (int j = threadIdx.y; j < 32; j += blockDim.y) {
-    const int y = y0 + j;
-    if (x < cols && y < rows) tile[j][threadIdx.x] = in[(size_t)y * cols + x];
-  }
-  __syncthreads();
-  const int ox = y0 + threadIdx.x;
-  for (int j = threadIdx.y; j < 32; j += blockDim.y) {
-    const int oy = blockIdx.x * 32 + j;
-    if (ox < rows && oy < cols) out[(size_t)oy * rows + ox] = tile[threadIdx.x][j];
-  }
-}
-
-// One warp per (slice row, segment): dst[(row * nseg + sg) * B + b].
-template <class Op, int NB>
-__global__ void __launch_bounds__(PULL_THREADS)
-slice_pull_kernel(const int* __restrict__ ell, int rows, int cap, int seg,
-                  int nseg, const int* __restrict__ src,
-                  const typename Op::T* __restrict__ val,
-                  const typename Op::T* __restrict__ fT, int B,
-                  typename Op::T* __restrict__ dst) {
-  using T = typename Op::T;
-  const int warp = (int)((blockIdx.x * (size_t)blockDim.x + threadIdx.x) >> 5);
-  const int lane = threadIdx.x & 31;
-  if (warp >= rows * nseg) return;  // uniform across the warp
-  const int row = warp / nseg, sg = warp % nseg;
-  const int first = sg * seg;
-  const int len = min(seg, cap - first);
-  T acc[NB];
-#pragma unroll
-  for (int q = 0; q < NB; ++q) acc[q] = Op::zero();
-  pull_positions<Op, NB>(ell + (size_t)row * cap + first, len, src, val, fT, B,
-                         lane, acc);
-#pragma unroll
-  for (int q = 0; q < NB; ++q) {
-    const int b = lane + 32 * q;
-    if (b < B) dst[(size_t)warp * B + b] = acc[q];
-  }
-}
-
-// One warp per row: dst[row * B + b] = ⊕_sg part[(row * nseg + sg) * B + b].
-template <class Op, int NB>
-__global__ void __launch_bounds__(PULL_THREADS)
-segment_reduce_kernel(const typename Op::T* __restrict__ part, int rows,
-                      int nseg, int B, typename Op::T* __restrict__ dst) {
-  using T = typename Op::T;
-  const int row = (int)((blockIdx.x * (size_t)blockDim.x + threadIdx.x) >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-#pragma unroll
-  for (int q = 0; q < NB; ++q) {
-    const int b = lane + 32 * q;
-    if (b >= B) continue;
-    T acc = Op::zero();
-    for (int sg = 0; sg < nseg; ++sg)
-      acc = Op::reduce(acc, part[((size_t)row * nseg + sg) * B + b]);
-    dst[(size_t)row * B + b] = acc;
-  }
-}
-
-// Per vertex: its slice row's result (through ell_rank) ⊕ its COO tail row,
-// staged in shared memory and written to out (B, n) in coalesced runs.
-template <class Op, int NB>
-__global__ void __launch_bounds__(PULL_THREADS)
-gather_tail_kernel(const typename Op::T* __restrict__ cat,
-                   const int* __restrict__ rank,
-                   const int* __restrict__ tail_ell, int tdc,
-                   const int* __restrict__ tail_src,
-                   const typename Op::T* __restrict__ tail_val,
-                   const typename Op::T* __restrict__ fT, int B, int n,
-                   typename Op::T* __restrict__ out) {
-  using T = typename Op::T;
-  __shared__ T tile[GATHER_VERTS][32 * NB + 1];
-  const int lane = threadIdx.x & 31;
-  const int wid = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int v0 = blockIdx.x * GATHER_VERTS;
-  for (int i = wid; i < GATHER_VERTS; i += nwarps) {
-    const int v = v0 + i;
-    if (v >= n) break;  // uniform across the warp
-    const T* crow = cat + (size_t)__ldg(rank + v) * B;
-    T acc[NB];
-#pragma unroll
-    for (int q = 0; q < NB; ++q) {
-      const int b = lane + 32 * q;
-      acc[q] = b < B ? crow[b] : Op::zero();
-    }
-    pull_positions<Op, NB>(tail_ell + (size_t)v * tdc, tdc, tail_src,
-                           tail_val, fT, B, lane, acc);
-#pragma unroll
-    for (int q = 0; q < NB; ++q) tile[i][lane + 32 * q] = acc[q];
-  }
-  __syncthreads();
-  for (int k = threadIdx.x; k < B * GATHER_VERTS; k += blockDim.x) {
-    const int b = k / GATHER_VERTS, i = k % GATHER_VERTS;
-    const int v = v0 + i;
-    if (v < n) out[(size_t)b * n + v] = tile[i][b];
-  }
-}
-
-template <class T>
-int transpose(const T* in, T* out, int rows, int cols, cudaStream_t s) {
-  const dim3 block(32, 8);
-  const dim3 grid((cols + 31) / 32, (rows + 31) / 32);
-  transpose_kernel<T><<<grid, block, 0, s>>>(in, out, rows, cols);
-  REPRO_LAUNCH_CHECK();
-  return 0;
-}
-
-template <class Op, int NB>
-int csr_step(const typename Op::T* f, int B, int n, const int* src,
-             const typename Op::T* val, int n_slices, const int* const* ells,
-             const int* rows, const int* caps, int seg, const int* rank,
-             const int* tail_ell, int tdc, const int* tail_src,
-             const typename Op::T* tail_val, typename Op::T* fT,
-             typename Op::T* cat, typename Op::T* part,
-             typename Op::T* out, cudaStream_t s) {
-  const int warps_per_block = PULL_THREADS / 32;
-  int rc = transpose<typename Op::T>(f, fT, B, n, s);
-  if (rc) return rc;
-  size_t off = 0;  // row offset of this slice in the concatenated output
-  for (int i = 0; i < n_slices; ++i) {
-    const int R = rows[i], C = caps[i];
-    const int sseg = C < seg ? C : seg;
-    const int nseg = (C + sseg - 1) / sseg;
-    typename Op::T* dst = nseg == 1 ? cat + off * B : part;
-    const long long warps = (long long)R * nseg;
-    const unsigned blocks = (unsigned)((warps + warps_per_block - 1) / warps_per_block);
-    slice_pull_kernel<Op, NB><<<blocks, PULL_THREADS, 0, s>>>(
-        ells[i], R, C, sseg, nseg, src, val, fT, B, dst);
-    REPRO_LAUNCH_CHECK();
-    if (nseg > 1) {
-      const unsigned rblocks = (unsigned)((R + warps_per_block - 1) / warps_per_block);
-      segment_reduce_kernel<Op, NB><<<rblocks, PULL_THREADS, 0, s>>>(
-          part, R, nseg, B, cat + off * B);
-      REPRO_LAUNCH_CHECK();
-    }
-    off += (size_t)R;
-  }
-  const unsigned gblocks = (unsigned)((n + GATHER_VERTS - 1) / GATHER_VERTS);
-  gather_tail_kernel<Op, NB><<<gblocks, PULL_THREADS, 0, s>>>(
-      cat, rank, tail_ell, tdc, tail_src, tail_val, fT, B, n, out);
-  REPRO_LAUNCH_CHECK();
-  return 0;
-}
-
-template <class Op>
-int csr_step_dispatch(const void* f, int B, int n, const int* src,
-                      const void* val, int n_slices, const void* const* ells,
-                      const int* rows, const int* caps, int seg,
-                      const int* rank, const int* tail_ell, int tdc,
-                      const int* tail_src, const void* tail_val, void* fT,
-                      void* cat, void* part, void* out, void* stream) {
-  using T = typename Op::T;
-  if (B <= 0 || n <= 0) return 0;
-  if (B > 128) return (int)cudaErrorInvalidValue;  // the wrapper splits B
-  const T* pf = (const T*)f;
-  const T* pv = (const T*)val;
-  const T* ptv = (const T*)tail_val;
-  const int* const* pe = (const int* const*)ells;
-  T *pT = (T*)fT, *pc = (T*)cat, *pp = (T*)part, *po = (T*)out;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (B <= 32)
-    return csr_step<Op, 1>(pf, B, n, src, pv, n_slices, pe, rows, caps, seg,
-                           rank, tail_ell, tdc, tail_src, ptv, pT, pc, pp, po, s);
-  if (B <= 64)
-    return csr_step<Op, 2>(pf, B, n, src, pv, n_slices, pe, rows, caps, seg,
-                           rank, tail_ell, tdc, tail_src, ptv, pT, pc, pp, po, s);
-  return csr_step<Op, 4>(pf, B, n, src, pv, n_slices, pe, rows, caps, seg,
-                         rank, tail_ell, tdc, tail_src, ptv, pT, pc, pp, po, s);
-}
-
-
-// ---------------------------------------------------------------------------
-// K3 / K5 / K6 — the bool, plus-times and max-plus steps over ELL-ordered
-// sources.
-//
-//   K3: out[b, v] = OR_{p in segments(v)} frontier[b, src_idx[p]] AND edge_val[p]
-//   K5: out[b, v] = Σ_{p in segments(v)} frontier[b, src_idx[p]] × edge_val[p]
-//   K6: out[b, v] = max_{p in segments(v)} frontier[b, src_idx[p]] + edge_val[p]
-//
-// Replaces: src/repro/kernels/spmv.py, `csr_bool_spmv` (K3),
-// `csr_plustimes_spmv` (K5) and `csr_maxplus_spmv` (K6), as driven by
-// ops._csr_<carrier>_step (spine + tail).  The TPU's bool and plus-times
-// kernels gather each arc chunk's frontier values, skip a chunk whose
-// sources are all inactive (`pl.when(act_ref[c] != 0)`), and scatter by
-// destination through a one-hot MXU product; its max-plus kernel reduces
-// by destination through a masked broadcast-max over column tiles with
-// the whole frontier in VMEM.  A one-hot scatter is O(|E|·n) and a (B, n)
-// f32 frontier is 128 MB at the CSR paths' shapes, so the port pulls by
-// destination instead.
-//
-// What bounds them on the H100: device memory.  The least work reads the
-// frontier once, the live sources' arcs once and writes the output once;
-// at the batch layer's first step almost no source is active.
-//
-// Design.  All three read the CSR's derived, ELL-ordered arrays
-// (core.sparse._ell_order, built once per CSR on the card): ell_src[k] is
-// the source of slot k of the slices laid end to end (-1 for a sentinel),
-// ell_val[k] its value (K5, K6), and a work list of warp items over
-// *pieces*: a row of capacity <= 16 is one piece and 32 / cap such rows
-// share an item (one 32-slot load); a wider row is cut into pieces of up to
-// ELL_SEG slots, ending at its last live slot, one item each, so the hub
-// rungs spread over every SM.  All slices are one launch.  So a warp's 32
-// slots cost two coalesced loads (through the arc positions they would
-// cost one coalesced and two scattered), and no slot past a row's last
-// arc is read.
-//
-// K5 and K6 are one template on the carrier's (⊕, ⊗) (PlusTimesOp,
-// MaxPlusOp above; lanes = batch rows, NB = ceil(B / 32) values a lane):
-//  1. ell_transpose_kernel reads the (B, n) frontier once, writes the (n, B)
-//     rows of the *active* sources only (a value other than the ⊕-zero in
-//     some batch row) and a bitmask of them (n / 8 bytes, cached in L1);
-//  2. ell_pull_kernel, one warp per item: each lane loads a slot's source
-//     and its activity bit, the warp ballots "live and active", and only
-//     those arcs are gathered (one coalesced B-value row each, eight in
-//     flight).  Skipping is exact: an inactive source's values are the
-//     ⊕-zero in every row, and ⊗ keeps them so for every finite weight
-//     (0 × w = ±0 under a sum that starts at +0.0; -inf + w = -inf under a
-//     max), so its arc cannot change a result.  Each piece's ⊕ goes to
-//     part[piece]; a per-piece flag says whether any arc was live, so a
-//     dead piece writes nothing else;
-//  3. ell_gather_kernel, one warp per 32 vertices: lanes (one a vertex) find
-//     the vertices with a live piece or an active COO-tail arc; for each of
-//     those the warp (lanes = batch rows) folds its row's live pieces and
-//     then its tail arcs, and every vertex's B values leave through a
-//     shared-memory tile as coalesced (B, n) stores.
-// The order of the ⊕ is fixed by the data, never by scheduling: within a
-// row, the positions of each piece in slot order from the ⊕-zero; then the
-// pieces in order; then the COO tail's positions in order.  No atomics, so
-// repeated runs give identical bits (spmv.ell_step_in_kernel_order is the
-// same order in PyTorch).  Max is exact in any order, so K6 is
-// bit-identical to the plain step and to JAX whatever the data.  The plain
-// plus-times step sums in torch.sum's order instead, so K5 equals it (and
-// the JAX steps) exactly while every partial sum is an integer below 2^24 —
-// f32 adds integers exactly there, whatever the order.  The service's EDB
-// is integral and path counts are integers, so that is the contract (the
-// JAX package's plus-times kernel states the same one); non-integer sums
-// may differ from the plain step in the last bits.  K4 (min) is the next
-// instantiation.
-//
-// K3 (lanes = slots, W = ceil(B / 32) words a vertex):
-//  1. k3_pack_kernel packs the (B, n) bool frontier into (n, W) uint32
-//     words, bit b % 32 of word b / 32 (4 MiB a word at n = 2^20, resident
-//     in L2), plus the same activity bitmask as K5;
-//  2. k3_pull_kernel, one warp per item: each lane takes one slot and, if
-//     its source is active, ORs in the source's W words; the lanes of one
-//     row OR-reduce by __shfl_xor_sync (a capacity below 32 puts 32 / cap
-//     rows in a warp), and the row's first lane ORs the result into its
-//     row's words (an atomicOr where a hub's pieces meet);
-//  3. k3_unpack_kernel, 256 vertices a block: each vertex's row words
-//     (through ell_rank), its COO tail's words ORed in shared memory, then
-//     unpacked into the (B, n) bool output in coalesced runs.
-// OR is order-free, so K3 is bit-identical to the plain step and to JAX
-// for every B.  All three take B <= 128; the wrapper splits larger batches.
-constexpr int K35_THREADS = 256;  // 8 warps a block
-constexpr int K35_UNROLL = 8;     // gathers in flight per lane
 
 // Is source s (-1: a sentinel slot) active: live in some batch row?
 __device__ __forceinline__ bool k35_active(const unsigned* __restrict__ act,
@@ -799,51 +542,68 @@ int k3_step(const uint8_t* f, int B, int n, const int* ell_src,
 // ---------------------------------------------------------------------------
 // K7 — the min-plus step over a tile-skip plan (csr_minplus_tiled_step).
 //
-//   out[b, v] = min( min_{items (t, c) with v in tile t} min_{p in chunk c,
-//                          col_idx[p] = v} frontier[b, src[p]] + val[p],
+//   out[b, v] = min( min_{planned arcs p, col_idx[p] = v} frontier[b, src[p]] + val[p],
 //                    its COO-tail row as in K4 )
+//
+// the planned arcs being the ones the plan's (tile, chunk) items visit: the
+// live arcs of chunk c whose destination lies in tile t, for each item
+// (t, c).
 //
 // Replaces: src/repro/kernels/spmv.py, `csr_minplus_spmv_tiled`, as driven
 // by ops._csr_minplus_step on a CSR that carries a plan (plus the untiled
 // tail pass JAX launches after it: here the tail folds into the same
 // step).  The TPU kernel walks the (tile, chunk) worklist in order on one
 // core, revisiting each (B, bn) output block in VMEM and computing a
-// (B, chunk, bn) masked broadcast-min per item.  On Hopper blocks run in
-// no order and nothing carries between them, so:
+// (B, chunk, bn) masked broadcast-min per item.  The plan is cut for the
+// TPU's tiles and the arcs are stored in (src, dst) order, so that walk
+// reads an arc chunk once for every tile it hits (the power-law smoke
+// graph: about 14M items of 32 arcs for 16M arcs).  On Hopper blocks run
+// in no order and nothing carries between them, so:
 //
-//  * Work units, not grid steps: the host cuts each tile's items into units
-//    of at most PLAN_UNIT items (core.sparse._plan_units), one CTA per
-//    (unit, 32 batch rows).  Pad items (repeats of the last live item) lie
-//    past the last unit and are never read.  A power-law graph sends a hit
-//    from almost every arc chunk to its first tile; units spread that tile
-//    over many SMs instead of one.
-//  * A (32, bn) f32 accumulator in shared memory, starting at +inf (row
-//    pitch bn + 1, so the 32 lanes of a warp, one batch row each, hit 32
-//    banks).  A warp takes an item, loads its chunk's destinations 32 at a
-//    time, keeps the arcs whose destination lies in the tile and whose
-//    value is live (a ballot), and for each one gathers the 32 rows'
-//    frontier values in one coalesced access from the transposed frontier
-//    (n, B), as K4 does.  Warps of one CTA can meet at one (row, column),
-//    so the min goes through an order-free atomic min on the f32 bits
-//    (skipped when it would not lower the value).  Min is order-free and
-//    idempotent, so the result is bit-identical to the plain step.
-//  * The tile's first unit also folds the COO tail over tail_ell for the
-//    tile's columns (one warp per column), so a tuned step is one call.
+//  * K7 reads the plan's own arcs once each, in destination order
+//    (core.sparse._tile_order, built on the card from the spine and the
+//    plan): tile_src / tile_dst / tile_val, 12 bytes an arc, and work
+//    units (tile, first arc, end arc, flags) of at most TILE_UNIT arcs of
+//    one column tile, one CTA per (unit, 32 batch rows).  Every tile has a
+//    unit; a hub's tile spreads over many.
+//  * ell_transpose_kernel (K4-K6's) writes the (n, B) rows of the active
+//    sources and their bitmask.  Each warp takes a contiguous run of its
+//    unit's arcs, 32 at a time in coalesced loads (the source; the
+//    destination and value only where the source is active), ballots the
+//    active arcs and gathers only their rows, eight in flight (lanes =
+//    batch rows).  Skipping is exact: an inactive source is +inf in every
+//    row, and +inf + w = +inf for every finite w.  (Loading four such
+//    groups' sources at once took the seed step from 0.261 to 0.255 ms on
+//    an H100 but an all-finite one from 1.29 to 1.66 ms, so the loads go
+//    one group at a time.)
+//  * The arcs come sorted by destination, so a lane keeps a running min for
+//    the current column in a register and flushes it into the CTA's
+//    (32, bn + 1) f32 accumulator in shared memory (row pitch bn + 1: the
+//    32 lanes, one batch row each, hit 32 banks) when the column changes.
+//    A column inside a warp's run is that warp's alone: a plain min.  Only
+//    the run's first and last columns, where two warps' runs can meet,
+//    take an order-free atomic min on the f32 bits.
+//  * A tile's first unit then folds the COO tail over tail_ell for the
+//    tile's columns: lanes (one a column) find the columns with a live
+//    tail arc from an active source, and the warp (lanes = batch rows)
+//    folds each of those.
 //  * A unit that covers its whole tile stores its block; the units of a
-//    split tile meet in device memory through the same atomic min, on an
-//    output the wrapper fills with +inf.  Columns at or past n (the plan
-//    covers padded_width(n, bn) columns; the frontier is n wide) are
-//    masked, and tiles starting past n exit at once.
+//    split tile meet in device memory through the same atomic min, on
+//    blocks that tile_fill_kernel sets to +inf first (only the split
+//    tiles': a fill of the whole output took 0.04 ms a step on the smoke
+//    graph, where 196 of 8,192 tiles are split).  Columns at or past n
+//    (the last tile may be partial) are masked.
+// Min is order-free and idempotent, so K7 is bit-identical to the plain
+// step (up to the sign of a zero, as K4).
 //
 // What bounds it on the H100: device memory.  The least work reads the
-// frontier once, each live arc and plan entry once, and writes the output
-// once.  The plan is built for the TPU's tiles, so on a graph whose arcs
-// are in (src, dst) order each arc chunk is read once per tile it hits
-// (for the power-law smoke graph about 14M items of 32 arcs for 16M arcs):
-// that re-reading, not the bound, sets its time.  A plan for Hopper's own
-// tile shape (arcs reordered by destination tile) is later work.
+// frontier once, the active sources' arcs once and writes the output once;
+// K7 also streams every planned arc's source (12 bytes an arc where it is
+// active) and the unit table.
 constexpr int TILED_THREADS = 256;  // 8 warps per unit
 constexpr int TILED_ROWS = 32;      // batch rows per CTA (one per lane)
+constexpr int UNIT_FIRST = 1;       // tile_units flags, as core.sparse's
+constexpr int UNIT_WHOLE = 2;
 
 // min on f32 through the integer atomics: non-negative floats order like
 // their int bits, negative ones reverse like their unsigned bits.
@@ -854,97 +614,169 @@ __device__ __forceinline__ void atomic_min_f32(float* addr, float v) {
     atomicMax(reinterpret_cast<unsigned*>(addr), __float_as_uint(v));
 }
 
+// Fold a lane's running min for column `col` into its accumulator row: a
+// plain min where the column is this warp's alone, the atomic min where
+// another warp's run may share it (skipped when it would not lower the
+// value: values only fall, so a stale read never skips wrongly).
+__device__ __forceinline__ void tile_flush(float* my, int col, float run,
+                                           bool shared) {
+  if (col < 0 || run == INFINITY) return;
+  if (!shared)
+    my[col] = fminf(my[col], run);
+  else if (run < my[col])
+    atomic_min_f32(my + col, run);
+}
+
+// Fold one group of 32 arcs into a warp's running min (cur, run) for its
+// current column, flushing at each change of column: `live` is the ballot
+// of the lanes whose arc is active, lane j holding its arc's source s,
+// value w and column col; lanes = batch rows (b, row_ok), eight gathers in
+// flight.
+__device__ __forceinline__ void tile_group(unsigned live, int s, float w,
+                                           int col,
+                                           const float* __restrict__ fT,
+                                           int B, int b, bool row_ok,
+                                           int cfirst, int clast, float* my,
+                                           int& cur, float& run) {
+  while (live) {  // uniform: the active arcs in order
+    float v[K35_UNROLL];
+    int cj[K35_UNROLL];
+#pragma unroll
+    for (int q = 0; q < K35_UNROLL; ++q) {
+      const bool ok = live != 0u;
+      const int jj = ok ? __ffs(live) - 1 : 0;
+      live &= live - 1u;
+      const int sj = __shfl_sync(REPRO_FULL_MASK, s, jj);
+      const float wj = __shfl_sync(REPRO_FULL_MASK, w, jj);
+      const int cq = __shfl_sync(REPRO_FULL_MASK, col, jj);
+      cj[q] = ok ? cq : -1;
+      v[q] = ok && row_ok ? __fadd_rn(__ldg(fT + (size_t)sj * B + b), wj)
+                          : INFINITY;
+    }
+#pragma unroll
+    for (int q = 0; q < K35_UNROLL; ++q) {
+      if (cj[q] < 0) break;  // uniform: the rest are past the ballot
+      if (cj[q] != cur) {
+        tile_flush(my, cur, run, cur == cfirst || cur == clast);
+        cur = cj[q];
+        run = v[q];
+      } else {
+        run = fminf(run, v[q]);
+      }
+    }
+  }
+}
+
+// One CTA per unit: the first unit of a split tile sets the tile's (B, bn)
+// block of out to +inf, the other units exit.
 __global__ void __launch_bounds__(TILED_THREADS)
-minplus_tiled_kernel(const int* __restrict__ plan_tile,
-                     const int* __restrict__ plan_chunk,
-                     const int* __restrict__ plan_first,
-                     const int* __restrict__ plan_unit, int n_units,
-                     int chunk, int bn, int n,
-                     const int* __restrict__ col_idx,
-                     const int* __restrict__ src,
-                     const float* __restrict__ val,
-                     const int* __restrict__ tail_ell, int tdc,
-                     const int* __restrict__ tail_src,
-                     const float* __restrict__ tail_val,
-                     const float* __restrict__ fT, int B,
-                     float* __restrict__ out) {
+tile_fill_kernel(const int4* __restrict__ units, int bn, int n, int B,
+                 float* __restrict__ out) {
+  const int4 u = __ldg(units + blockIdx.x);
+  if ((u.w & (UNIT_FIRST | UNIT_WHOLE)) != UNIT_FIRST) return;  // uniform
+  const int col0 = u.x * bn, ncols = min(bn, n - col0);
+  const int shift = __ffs(bn) - 1;  // bn is a power of two
+  for (int k = threadIdx.x; k < B * bn; k += blockDim.x) {
+    const int r = k >> shift, c = k & (bn - 1);
+    if (c < ncols) out[(size_t)r * n + col0 + c] = INFINITY;
+  }
+}
+
+// One CTA per (unit, 32 batch rows): units[u] = (tile, lo, hi, flags).
+__global__ void __launch_bounds__(TILED_THREADS)
+minplus_tile_kernel(const int4* __restrict__ units, int bn, int n,
+                    const int* __restrict__ tsrc, const int* __restrict__ tdst,
+                    const float* __restrict__ tval,
+                    const int* __restrict__ tail_ell, int tdc,
+                    const int* __restrict__ tail_src,
+                    const float* __restrict__ tail_val,
+                    const unsigned* __restrict__ act,
+                    const float* __restrict__ fT, int B,
+                    float* __restrict__ out) {
   extern __shared__ float acc[];  // TILED_ROWS x (bn + 1)
-  const int u = blockIdx.x;
-  const int lo = plan_unit[u], hi = plan_unit[u + 1];
-  const int tile = plan_tile[lo];
-  const int col0 = tile * bn;
-  if (col0 >= n) return;  // a pad tile of the plan's width: uniform
+  const int4 u = __ldg(units + blockIdx.x);
+  const int col0 = u.x * bn, lo = u.y, hi = u.z;
   const int pitch = bn + 1;
-  const int lane = threadIdx.x & 31;
-  const int wid = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
-  const int b = blockIdx.y * TILED_ROWS + lane;
+  const int b0 = blockIdx.y * TILED_ROWS, b = b0 + lane;
   const bool row_ok = b < B;
   float* my = acc + lane * pitch;
   for (int k = threadIdx.x; k < TILED_ROWS * pitch; k += blockDim.x)
     acc[k] = INFINITY;
   __syncthreads();
 
-  for (int it = lo + wid; it < hi; it += nwarps) {
-    const long long base = (long long)__ldg(plan_chunk + it) * chunk;
-    for (int c0 = 0; c0 < chunk; c0 += 32) {
-      int s = 0, col = 0;
-      float w = INFINITY;
-      if (c0 + lane < chunk) {
-        const long long p = base + c0 + lane;
-        col = __ldg(col_idx + p) - col0;
-        if (col >= 0 && col < bn) {
-          w = val[p];
-          s = __ldg(src + p);
-        }
-      }
-      unsigned live = __ballot_sync(REPRO_FULL_MASK, w != INFINITY);
-      while (live) {  // uniform across the warp
-        const int j = __ffs(live) - 1;
-        live &= live - 1;
-        const int sj = __shfl_sync(REPRO_FULL_MASK, s, j);
-        const float wj = __shfl_sync(REPRO_FULL_MASK, w, j);
-        const int cj = __shfl_sync(REPRO_FULL_MASK, col, j);
-        if (row_ok) {
-          const float v = __fadd_rn(fT[(size_t)sj * B + b], wj);
-          if (v < my[cj]) atomic_min_f32(my + cj, v);
-        }
-      }
+  // this warp's run of the unit's arcs
+  const long long len = hi - lo;
+  const int rlo = lo + (int)(len * wid / nwarps);
+  const int rhi = lo + (int)(len * (wid + 1) / nwarps);
+  if (rlo < rhi) {  // uniform across the warp
+    const int cfirst = __ldg(tdst + rlo) - col0;
+    const int clast = __ldg(tdst + rhi - 1) - col0;
+    int cur = -1;
+    float run = INFINITY;
+    for (int c0 = rlo; c0 < rhi; c0 += 32) {
+      const int j = c0 + lane;
+      const int s = j < rhi ? __ldcs(tsrc + j) : -1;
+      const bool a = k35_active(act, s);
+      const unsigned live = __ballot_sync(REPRO_FULL_MASK, a);
+      if (!live) continue;  // uniform
+      const float w = a ? __ldcs(tval + j) : 0.0f;
+      const int col = a ? __ldcs(tdst + j) - col0 : 0;
+      tile_group(live, s, w, col, fT, B, b, row_ok, cfirst, clast, my, cur,
+                 run);
     }
+    tile_flush(my, cur, run, cur == cfirst || cur == clast);
   }
+
   const int ncols = min(bn, n - col0);
-  if (plan_first[lo]) {  // the tile's first unit folds the COO tail
+  if (u.w & UNIT_FIRST) {  // the tile's first unit folds the COO tail
     __syncthreads();
-    for (int c = wid; c < ncols; c += nwarps) {
-      const int v = col0 + c;
-      float a = my[c];
-      for (int q0 = 0; q0 < tdc; q0 += 32) {
-        int s = 0;
-        float w = INFINITY;
-        if (q0 + lane < tdc) {
-          const int p = __ldg(tail_ell + (size_t)v * tdc + q0 + lane);
-          s = __ldg(tail_src + p);
-          w = tail_val[p];
-        }
-        unsigned live = __ballot_sync(REPRO_FULL_MASK, w != INFINITY);
-        while (live) {
-          const int j = __ffs(live) - 1;
-          live &= live - 1;
-          const int sj = __shfl_sync(REPRO_FULL_MASK, s, j);
-          const float wj = __shfl_sync(REPRO_FULL_MASK, w, j);
-          if (row_ok) a = fminf(a, __fadd_rn(fT[(size_t)sj * B + b], wj));
-        }
+    for (int c0 = wid * 32; c0 < ncols; c0 += nwarps * 32) {
+      const int nv = min(32, ncols - c0);
+      const int* tl0 = tail_ell + (size_t)(col0 + c0) * tdc;
+      unsigned need = 0u;  // bit i: column c0 + i has an active tail arc
+      for (int i = lane; i < nv * tdc; i += 32) {
+        const int p = __ldg(tl0 + i);
+        if (__ldg(tail_val + p) != INFINITY &&
+            k35_active(act, __ldg(tail_src + p)))
+          need |= 1u << (i / tdc);
       }
-      my[c] = a;  // this warp owns column c now; lane owns its row
+      need = __reduce_or_sync(REPRO_FULL_MASK, need);
+      while (need) {  // uniform; this warp owns column c0 + jc now
+        const int jc = __ffs(need) - 1;
+        need &= need - 1u;
+        const int* tl = tl0 + (size_t)jc * tdc;
+        float a = my[c0 + jc];
+        for (int q0 = 0; q0 < tdc; q0 += 32) {
+          int s = -1;
+          float w = INFINITY;
+          if (q0 + lane < tdc) {
+            const int p = __ldg(tl + q0 + lane);
+            w = __ldg(tail_val + p);
+            if (w != INFINITY) s = __ldg(tail_src + p);
+          }
+          unsigned live = __ballot_sync(REPRO_FULL_MASK, k35_active(act, s));
+          while (live) {
+            const int jj = __ffs(live) - 1;
+            live &= live - 1u;
+            const int sj = __shfl_sync(REPRO_FULL_MASK, s, jj);
+            const float wj = __shfl_sync(REPRO_FULL_MASK, w, jj);
+            if (row_ok)
+              a = fminf(a, __fadd_rn(__ldg(fT + (size_t)sj * B + b), wj));
+          }
+        }
+        my[c0 + jc] = a;
+      }
     }
   }
   __syncthreads();
-  const int L = plan_unit[n_units];
-  const bool whole = plan_first[lo] && (hi == L || plan_first[hi]);
-  const int b0 = blockIdx.y * TILED_ROWS;
-  for (int k = threadIdx.x; k < TILED_ROWS * bn; k += blockDim.x) {
-    const int r = k / bn, c = k - r * bn;
-    if (b0 + r >= B || c >= ncols) continue;
+  const int rows = min(TILED_ROWS, B - b0);
+  const bool whole = (u.w & UNIT_WHOLE) != 0;
+  const int shift = __ffs(bn) - 1;  // bn is a power of two
+  for (int k = threadIdx.x; k < rows * bn; k += blockDim.x) {
+    const int r = k >> shift, c = k & (bn - 1);
+    if (c >= ncols) continue;
     const float a = acc[r * pitch + c];
     float* o = out + (size_t)(b0 + r) * n + col0 + c;
     if (whole)
@@ -955,22 +787,6 @@ minplus_tiled_kernel(const int* __restrict__ plan_tile,
 }
 
 }  // namespace
-
-// K4.  f: (B, n) frontier; src/val: (cap,) packed arcs; ells[i]:
-// (rows[i], caps[i]) int32 slice tables; rank: (n,) int32; tail_ell: (n,
-// tdc) int32; tail_src/tail_val: (tail_cap,); scratch fT: (n, B), cat: (sum
-// rows, B), part: (max rows·ceil(cap/seg) over wide slices, B); out: (B, n).
-// B <= 128 per call.
-extern "C" int repro_csr_minplus_step(
-    const void* f, int B, int n, const int* src, const void* val,
-    int n_slices, const void* const* ells, const int* rows, const int* caps,
-    int seg, const int* rank, const int* tail_ell, int tdc,
-    const int* tail_src, const void* tail_val, void* fT, void* cat,
-    void* part, void* out, void* stream) {
-  return csr_step_dispatch<MinPlusOp>(f, B, n, src, val, n_slices, ells, rows,
-                                      caps, seg, rank, tail_ell, tdc, tail_src,
-                                      tail_val, fT, cat, part, out, stream);
-}
 
 // K3.  f: (B, n) bool frontier (0/1 bytes); ell_src: (E,) int32 slot
 // sources; items: (n_items, 4) int32 warp items; n_rows: the slices' rows
@@ -1007,12 +823,22 @@ extern "C" int repro_csr_bool_step(
   }
 }
 
-// K5 / K6.  f: (B, n) f32 frontier; ell_src/ell_val: (E,) int32 / f32
+// K4 / K5 / K6.  f: (B, n) f32 frontier; ell_src/ell_val: (E,) int32 / f32
 // slot sources and values; items: (n_items, 4) int32 warp items;
 // row_piece: (rows + 1,) int32; rank: (n,) int32; tail_ell: (n, tdc)
 // int32; tail_src/tail_val: (tail_cap,) int32 / f32; scratch fT: (n, B)
 // f32, act: (ceil(n / 32),) uint32, part: (pieces, B) f32, live: (pieces,)
 // uint8; out: (B, n) f32.  B <= 128 per call.
+extern "C" int repro_csr_minplus_step(
+    const void* f, int B, int n, const int* ell_src, const void* ell_val,
+    const void* items, int n_items, const int* row_piece, const int* rank,
+    const int* tail_ell, int tdc, const int* tail_src, const void* tail_val,
+    void* fT, void* act, void* part, void* live, void* out, void* stream) {
+  return ell_step_dispatch<MinPlusOp>(
+      f, B, n, ell_src, ell_val, items, n_items, row_piece, rank, tail_ell,
+      tdc, tail_src, tail_val, fT, act, part, live, out, stream);
+}
+
 extern "C" int repro_csr_plustimes_step(
     const void* f, int B, int n, const int* ell_src, const void* ell_val,
     const void* items, int n_items, const int* row_piece, const int* rank,
@@ -1033,37 +859,46 @@ extern "C" int repro_csr_maxplus_step(
       tdc, tail_src, tail_val, fT, act, part, live, out, stream);
 }
 
-// K7.  f: (B, n) frontier; col_idx/src/val: (cap,) packed arcs;
-// plan_tile/plan_chunk/plan_first: (L,) worklist; plan_unit: (n_units + 1,)
-// unit offsets into it (the last is the live item count); chunk and bn:
-// the plan's block sizes (bn a power of two); tail_ell: (n, tdc) int32;
-// tail_src/tail_val: (tail_cap,); scratch fT: (n, B); out: (B, n), filled
-// with +inf by the caller.  Any B (32-row passes in the grid).
+// K7.  f: (B, n) f32 frontier; tsrc/tdst/tval: (A,) int32 / int32 / f32
+// planned arcs in destination order; units: (n_units, 4) int32 work units
+// (tile, first arc, end arc, flags); bn: the plan's tile width (a power of
+// two); tail_ell: (n, tdc) int32; tail_src/tail_val: (tail_cap,) int32 /
+// f32; scratch fT: (n, B) f32, act: (ceil(n / 32),) uint32; out: (B, n)
+// f32.  B <= 128 per call.
 extern "C" int repro_csr_minplus_tiled_step(
-    const void* f, int B, int n, const int* col_idx, const int* src,
-    const void* val, const int* plan_tile, const int* plan_chunk,
-    const int* plan_first, const int* plan_unit, int n_units, int chunk,
-    int bn, const int* tail_ell, int tdc, const int* tail_src,
-    const void* tail_val, void* fT, void* out, void* stream) {
+    const void* f, int B, int n, const int* tsrc, const int* tdst,
+    const void* tval, const void* units, int n_units, int bn,
+    const int* tail_ell, int tdc, const int* tail_src, const void* tail_val,
+    void* fT, void* act, void* out, void* stream) {
   if (B <= 0 || n <= 0 || n_units <= 0) return 0;
-  if (chunk <= 0 || bn <= 0 || (bn & (bn - 1)) != 0 ||
-      (B + TILED_ROWS - 1) / TILED_ROWS > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (B > 128 || bn <= 0 || (bn & (bn - 1)) != 0)
+    return (int)cudaErrorInvalidValue;  // the wrapper splits B
   cudaStream_t s = (cudaStream_t)stream;
-  int rc = transpose<float>((const float*)f, (float*)fT, B, n, s);
-  if (rc) return rc;
+  const float* pf = (const float*)f;
+  float* pT = (float*)fT;
+  unsigned* pa = (unsigned*)act;
+  const unsigned tblocks = (unsigned)((n + 31) / 32);
+  if (B <= 32)
+    ell_transpose_kernel<MinPlusOp, 1><<<tblocks, dim3(32, 8), 0, s>>>(pf, B, n, pT, pa);
+  else if (B <= 64)
+    ell_transpose_kernel<MinPlusOp, 2><<<tblocks, dim3(32, 8), 0, s>>>(pf, B, n, pT, pa);
+  else
+    ell_transpose_kernel<MinPlusOp, 4><<<tblocks, dim3(32, 8), 0, s>>>(pf, B, n, pT, pa);
+  REPRO_LAUNCH_CHECK();
+  tile_fill_kernel<<<(unsigned)n_units, TILED_THREADS, 0, s>>>(
+      (const int4*)units, bn, n, B, (float*)out);
+  REPRO_LAUNCH_CHECK();
   const size_t smem = (size_t)TILED_ROWS * (bn + 1) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        minplus_tiled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        minplus_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid((unsigned)n_units, (unsigned)((B + TILED_ROWS - 1) / TILED_ROWS));
-  minplus_tiled_kernel<<<grid, TILED_THREADS, smem, s>>>(
-      plan_tile, plan_chunk, plan_first, plan_unit, n_units, chunk, bn, n,
-      col_idx, src, (const float*)val, tail_ell, tdc, tail_src,
-      (const float*)tail_val, (const float*)fT, B, (float*)out);
+  minplus_tile_kernel<<<grid, TILED_THREADS, smem, s>>>(
+      (const int4*)units, bn, n, tsrc, tdst, (const float*)tval, tail_ell,
+      tdc, tail_src, (const float*)tail_val, pa, pT, B, (float*)out);
   REPRO_LAUNCH_CHECK();
   return 0;
 }

@@ -8,22 +8,26 @@ JAX serving path drives them (``ops._csr_<carrier>_step``: spine + COO
 tail).  The kernels (``csrc/spmv.cu``) compute the same function as a pull
 by destination: each output ``(b, v)`` ⊕-reduces ``frontier[b, src_idx[p]]
 ⊗ edge_val[p]`` over v's in-edge positions ``p``, then over its COO-tail
-positions.  K4 reads the positions through the CSR's sliced-ELL segment
-map, slice by slice; K3, K5 and K6 read the CSR's ELL-ordered sources and
-values (``core.sparse._ell_order``), skip arcs whose source holds the
-⊕-zero in every batch row, and run every slice in one launch; K3 gathers a
-bit-packed frontier (:func:`pack_bits`), K5 and K6 are one kernel template
-on (⊕, ⊗).  OR, min and max are order-independent, so K3, K4 and K6 are
-bit-identical to the plain step; K5 sums in a fixed order with no atomics
+positions.  They read the CSR's ELL-ordered sources and values
+(``core.sparse._ell_order``), skip arcs whose source holds the ⊕-zero in
+every batch row, and run every slice in one launch; K3 gathers a
+bit-packed frontier (:func:`pack_bits`), K4, K5 and K6 are one kernel
+template on (⊕, ⊗).  OR, min and max are order-independent, so K3, K4 and
+K6 are bit-identical to the plain step (K4 up to the sign of a zero
+between a -0.0 and a +0.0 tie, which no served path sends: its weights
+are 1..9); K5 sums in a fixed order with no atomics
 (:func:`ell_step_in_kernel_order`), so it is deterministic, and equals the
 plain step exactly while every partial sum is an integer below 2^24
 (integral EDBs and path counts).
 
 K7 (``csr_minplus_tiled_step``) replaces ``csr_minplus_spmv_tiled``: it
-walks the CSR's tile-skip worklist (``build_csr(kernel_plan=)``) in work
-units of one tile each, keeps a (32, bn) accumulator per unit in shared
-memory, and folds the COO tail in the same call (``csrc/spmv.cu`` says
-more).  Min is order-free, so it is bit-identical to the plain version.
+reads the plan's arcs once each, in destination order
+(``core.sparse._tile_order``), in work units of at most
+``core.sparse.TILE_UNIT`` arcs of one column tile, with the same activity
+skip; a unit keeps a (32, bn) accumulator in shared memory, and a tile's
+first unit folds the COO tail in the same call (``csrc/spmv.cu`` says
+more; :func:`tiled_step_in_kernel_order` is its walk in PyTorch).  Min is
+order-free, so it is bit-identical to the plain version.
 
 The wrappers take the CSR itself (``csr_bool_step(frontier, csr)``).  On
 CPU tensors they run the plain step (:data:`plain_bool`,
@@ -39,12 +43,11 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 
-import numpy as np
 import torch
 
 from ..core.seminaive import quantize_rows
-from ..core.sparse import (DEFAULT_ELL_CFG, CSRMatrix, _plan_units,
-                           _with_ell_order)
+from ..core.sparse import (DEFAULT_ELL_CFG, UNIT_FIRST, CSRMatrix,
+                           _with_tile_order, _with_views)
 from ..core.sparse import padded_width  # noqa: F401 (the JAX module's name)
 from . import build, ref
 
@@ -55,27 +58,22 @@ plain_plustimes = ref.csr_plustimes_step_ref
 plain_maxplus = ref.csr_maxplus_step_ref
 plain_minplus_tiled = ref.csr_minplus_tiled_step_ref
 
-#: positions per K4 warp work item: wider slice rows (power-law hubs)
-#: are cut into SEG-position segments, one warp each, then ⊕-reduced
-SEG = 1024
 #: batch rows per kernel call (lanes own rows lane + 32q, q < 4)
 MAX_BATCH = 128
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
-#: K5's and K6's entry points (one kernel template)
+#: K4's, K5's and K6's entry points (one kernel template)
 _ELL_ARGS = [_VP, _I, _I, _VP, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _VP,
              _VP, _VP, _VP, _VP, _VP]
 _PROTOTYPES = {"repro_csr_bool_step": [
                    _VP, _I, _I, _VP, _VP, _I, _I, _VP, _VP, _I, _VP, _VP,
                    _VP, _VP, _VP, _VP, _VP],
-               "repro_csr_minplus_step": [
-                   _VP, _I, _I, _VP, _VP, _I, _VP, _VP, _VP, _I, _VP, _VP, _I,
-                   _VP, _VP, _VP, _VP, _VP, _VP, _VP],
+               "repro_csr_minplus_step": _ELL_ARGS,
                "repro_csr_plustimes_step": _ELL_ARGS,
                "repro_csr_maxplus_step": _ELL_ARGS,
                "repro_csr_minplus_tiled_step": [
-                   _VP, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
-                   _VP, _I, _VP, _VP, _VP, _VP, _VP]}
+                   _VP, _I, _I, _VP, _VP, _VP, _VP, _I, _I, _VP, _I, _VP,
+                   _VP, _VP, _VP, _VP, _VP]}
 #: the widest column tile K7 takes: its (32, bn + 1) f32 accumulator must fit
 #: a block's 227 KB of shared memory
 MAX_TILED_BN = 1024
@@ -99,45 +97,6 @@ def _checked(what: str, dtype: torch.dtype, frontier, csr,
     build.require(f"{what} csr.edge_val", csr.edge_val, dtype, 1)
     build.require(f"{what} csr.tail_val", csr.tail_val, dtype, 1)
     return f
-
-
-def _launch(fn: str, counter: str, dtype: torch.dtype, frontier, csr):
-    f = _checked(counter, dtype, frontier, csr,
-                 ("src_idx", "ell_rank", "tail_src", "tail_ell"))
-    n = csr.n_alloc
-    for t in csr.ell_slices:
-        build.require(f"{counter} csr.ell_slices", t, torch.int32, 2)
-    slices = csr.ell_slices
-    rows = [int(t.shape[0]) for t in slices]
-    caps = [int(t.shape[1]) for t in slices]
-    part_rows = max([r * -(-c // SEG) for r, c in zip(rows, caps) if c > SEG],
-                    default=1)
-    k = len(slices)
-    ells = (ctypes.c_void_p * k)(*[t.data_ptr() for t in slices])
-    rows_c = (ctypes.c_int * k)(*rows)
-    caps_c = (ctypes.c_int * k)(*caps)
-    B = f.shape[0]
-    out = torch.empty_like(f)
-    bc = min(B, MAX_BATCH)
-    dev = f.device
-    fT = torch.empty((n, bc), dtype=dtype, device=dev)
-    cat = torch.empty((sum(rows), bc), dtype=dtype, device=dev)
-    part = torch.empty((part_rows, bc), dtype=dtype, device=dev)
-    lib = build.load("spmv", _PROTOTYPES)
-    with torch.cuda.device(dev):
-        stream = build.stream_handle(f)
-        for b0 in range(0, B, MAX_BATCH):
-            b = min(MAX_BATCH, B - b0)
-            rc = getattr(lib, fn)(
-                f[b0].data_ptr(), b, n, csr.src_idx.data_ptr(),
-                csr.edge_val.data_ptr(), k, ells, rows_c, caps_c, SEG,
-                csr.ell_rank.data_ptr(), csr.tail_ell.data_ptr(),
-                int(csr.tail_ell.shape[1]), csr.tail_src.data_ptr(),
-                csr.tail_val.data_ptr(), fT.data_ptr(), cat.data_ptr(),
-                part.data_ptr(), out[b0].data_ptr(), stream)
-            build.check(lib, rc, counter)
-    build.LAUNCHES[counter] += 1
-    return out[0] if frontier.ndim == 1 else out
 
 
 def _operands(frontier, csr) -> tuple:
@@ -168,19 +127,22 @@ def unpack_bits(words: torch.Tensor, B: int) -> torch.Tensor:
     return bits.reshape(-1, words.shape[0])[:B].bool()
 
 
-#: (⊗, ⊕) of the carriers K5 and K6 run, each rounded as the kernel does
-_ELL_OPS = {"plustimes": (torch.mul, torch.add),
+#: (⊗, ⊕) of the carriers K4, K5 and K6 run, each rounded as the kernel
+#: does
+_ELL_OPS = {"minplus": (torch.add, torch.minimum),
+            "plustimes": (torch.mul, torch.add),
             "maxplus": (torch.add, torch.maximum)}
 
 
 def ell_step_in_kernel_order(frontier: torch.Tensor, csr) -> torch.Tensor:
-    """K5's or K6's step in the kernel's own order, in PyTorch (f32, every
-    ⊗ and ⊕ rounded as the kernel rounds it): per piece of
+    """K4's, K5's or K6's step in the kernel's own order, in PyTorch (f32,
+    every ⊗ and ⊕ rounded as the kernel rounds it): per piece of
     ``csr.ell_items``, the slots in order from the ⊕-zero; per row, its
     pieces in order; then the COO tail's positions in order.  Equal to the
-    kernel bit for bit where every weight is finite; for max-plus, and for
-    plus-times while every partial sum is an integer below 2^24, equal to
-    the plain step (:data:`plain_maxplus`, :data:`plain_plustimes`)."""
+    kernel bit for bit where every weight is finite; for min-plus and
+    max-plus, and for plus-times while every partial sum is an integer
+    below 2^24, equal to the plain step (:data:`plain_minplus`,
+    :data:`plain_maxplus`, :data:`plain_plustimes`)."""
     mul, add = _ELL_OPS[csr.kind]
     zero = ref.CSR_ZERO[csr.kind]
     f = frontier[None, :] if frontier.ndim == 1 else frontier
@@ -219,14 +181,14 @@ def ell_step_in_kernel_order(frontier: torch.Tensor, csr) -> torch.Tensor:
 
 
 def _ell_operands(frontier, csr) -> tuple:
-    """Every tensor K3/K5/K6 read: :func:`_operands` and the derived ELL
+    """Every tensor K3-K6 read: :func:`_operands` and the derived ELL
     order (``core.sparse._ell_order``)."""
     derived = (csr.ell_src, csr.ell_val, csr.ell_items, csr.ell_row_piece)
     return (*_operands(frontier, csr), *(t for t in derived if t is not None))
 
 
 def _ell_checked(what: str, dtype, frontier, csr) -> torch.Tensor:
-    """The frontier as (B, n_alloc), after checking the arrays K3/K5/K6
+    """The frontier as (B, n_alloc), after checking the arrays K3-K6
     read."""
     if csr.ell_items is None:
         raise ValueError(f"{what}: the CSR has no ELL-ordered sources "
@@ -276,15 +238,16 @@ def csr_bool_step(frontier: torch.Tensor, csr) -> torch.Tensor:
 
 def csr_minplus_step(frontier: torch.Tensor, csr) -> torch.Tensor:
     """(B, n_alloc) f32 ⊗_min,+ packed arcs -> (B, n_alloc) f32:
-    segment-min by destination over the spine and the COO tail."""
-    if not build.on_card("csr_minplus_step", *_operands(frontier, csr)):
+    segment-min by destination over the spine and the COO tail (+inf
+    sentinels; K4, the ELL template with min for the sum)."""
+    if not build.on_card("csr_minplus_step", *_ell_operands(frontier, csr)):
         return plain_minplus(frontier, csr)
-    return _launch("repro_csr_minplus_step", "csr_minplus_step",
-                   torch.float32, frontier, csr)
+    return _ell_step("csr_minplus_step", "repro_csr_minplus_step", frontier,
+                     csr)
 
 
 def _ell_step(what: str, fn: str, frontier, csr) -> torch.Tensor:
-    """Launch K5 or K6 (entry ``fn``, counter ``what``): the template's
+    """Launch K4, K5 or K6 (entry ``fn``, counter ``what``): the template's
     three passes over the CSR's ELL order, once a 128-row batch slice."""
     f = _ell_checked(what, torch.float32, frontier, csr)
     build.require(f"{what} csr.ell_val", csr.ell_val, torch.float32, 1)
@@ -337,45 +300,97 @@ def csr_maxplus_step(frontier: torch.Tensor, csr) -> torch.Tensor:
                      csr)
 
 
+def tiled_step_in_kernel_order(frontier: torch.Tensor,
+                               csr) -> torch.Tensor:
+    """K7's walk in PyTorch: per work unit of ``csr.tile_units``, the
+    min of its planned arcs (``tile_src``/``tile_dst``/``tile_val``) into
+    a (B, bn) block from +inf; each tile's first unit folds the COO tail
+    into its columns; then the units of each tile meet by min.  Equal to
+    the plain tiled step (:data:`plain_minplus_tiled`) and to the kernel:
+    min is exact in any order."""
+    bn = csr.plan_cfg[1]
+    f = frontier[None, :] if frontier.ndim == 1 else frontier
+    B, n, dev = f.shape[0], f.shape[1], f.device
+    tile, lo, hi, flags = csr.tile_units.long().unbind(1)
+    k = len(tile)
+    unit_of = torch.repeat_interleave(torch.arange(k, device=dev), hi - lo)
+    col = csr.tile_dst.long() - tile[unit_of] * bn
+    if not bool(((col >= 0) & (col < bn)).all()):
+        raise ValueError("tiled_step_in_kernel_order: an arc outside its "
+                         "unit's tile")
+    acc = torch.full((B, k * bn), float("inf"), dtype=torch.float32,
+                     device=dev)
+    acc.scatter_reduce_(
+        1, (unit_of * bn + col).expand(B, -1),
+        f[:, csr.tile_src.long()] + csr.tile_val, "amin")
+    first = torch.nonzero(flags & UNIT_FIRST).squeeze(1)
+    cols = tile[first, None] * bn + torch.arange(bn, device=dev)
+    ok = cols < n
+    pos = csr.tail_ell[cols[ok]].long()  # the COO tail of those columns
+    tail = torch.full((B, len(first), bn), float("inf"), dtype=torch.float32,
+                      device=dev)
+    tail[:, ok] = (f[:, csr.tail_src[pos].long()]
+                   + csr.tail_val[pos]).amin(dim=2)
+    acc = acc.view(B, k, bn)
+    acc[:, first] = torch.minimum(acc[:, first], tail)
+    out = torch.full((B, -(-n // bn) * bn), float("inf"), dtype=torch.float32,
+                     device=dev)
+    out.scatter_reduce_(1, (tile[:, None] * bn + torch.arange(
+        bn, device=dev)).reshape(1, -1).expand(B, -1), acc.reshape(B, -1),
+        "amin")
+    out = out[:, :n]
+    return out[0] if frontier.ndim == 1 else out
+
+
+def _tiled_checked(what: str, frontier, csr) -> torch.Tensor:
+    """The frontier as (B, n_alloc), after checking the arrays K7 reads."""
+    f = _checked(what, torch.float32, frontier, csr,
+                 ("tile_src", "tile_dst", "tail_src", "tail_ell"))
+    build.require(f"{what} csr.tile_val", csr.tile_val, torch.float32, 1)
+    build.require(f"{what} csr.tile_units", csr.tile_units, torch.int32, 2)
+    if csr.tile_units.shape[1] != 4 or csr.tile_units.data_ptr() % 16:
+        raise ValueError(f"{what}: csr.tile_units must be (units, 4) and "
+                         "16-byte aligned")
+    chunk, bn = csr.plan_cfg
+    if bn > MAX_TILED_BN or bn & (bn - 1) or csr.capacity % chunk:
+        raise ValueError(f"{what}: plan (chunk={chunk}, bn={bn}) does not "
+                         f"fit the kernel (bn a power of two <= "
+                         f"{MAX_TILED_BN}, chunk dividing the capacity "
+                         f"{csr.capacity})")
+    return f
+
+
 def csr_minplus_tiled_step(frontier: torch.Tensor, csr) -> torch.Tensor:
     """(B, n_alloc) f32 ⊗_min,+ packed arcs -> (B, n_alloc) f32 over the
-    CSR's tile-skip plan (``csr.plan_cfg``), the COO tail folded in."""
-    plan = (csr.plan_tile, csr.plan_chunk, csr.plan_first, csr.plan_unit)
-    if csr.plan_cfg is None or any(t is None for t in plan):
-        raise ValueError("csr_minplus_tiled_step: the CSR has no tile-skip "
-                         "plan (build_csr(kernel_plan=...))")
-    if not build.on_card("csr_minplus_tiled_step",
-                         *_operands(frontier, csr), csr.col_idx, *plan):
-        return plain_minplus_tiled(frontier, csr)
+    CSR's tile-skip plan (``csr.plan_cfg``), the COO tail folded in (K7,
+    over the plan's arcs in destination order)."""
     what = "csr_minplus_tiled_step"
-    f = _checked(what, torch.float32, frontier, csr,
-                 ("col_idx", "src_idx", "tail_src", "tail_ell", "plan_tile",
-                  "plan_chunk", "plan_first", "plan_unit"))
-    n = csr.n_alloc
-    chunk, bn = csr.plan_cfg
-    if bn > MAX_TILED_BN or csr.capacity % chunk:
-        raise ValueError(f"{what}: plan (chunk={chunk}, bn={bn}) does not "
-                         f"fit the kernel (bn <= {MAX_TILED_BN}, chunk "
-                         f"dividing the capacity {csr.capacity})")
-    B = f.shape[0]
-    # +inf under the split tiles' atomic min.  Filling the whole output
-    # costs one fast pass; a kernel pass that fills only split tiles timed
-    # 0.04-0.05 ms slower a step on the power-law graph of chip_smoke.py,
-    # where most tiles are split (scripts/k7_ab.py, on an H100).
-    out = torch.full_like(f, float("inf"))
-    fT = torch.empty((n, B), dtype=torch.float32, device=f.device)
+    if csr.plan_cfg is None or csr.tile_units is None:
+        raise ValueError(f"{what}: the CSR has no tile-skip plan "
+                         "(build_csr(kernel_plan=...))")
+    derived = (csr.tile_src, csr.tile_dst, csr.tile_val, csr.tile_units)
+    if not build.on_card(what, *_operands(frontier, csr), *derived):
+        return plain_minplus_tiled(frontier, csr)
+    f = _tiled_checked(what, frontier, csr)
+    B, n = f.shape
+    bn = csr.plan_cfg[1]
+    n_units = int(csr.tile_units.shape[0])
+    out = torch.empty_like(f)  # every tile has a unit, which writes it
+    bc, dev = min(B, MAX_BATCH), f.device
+    fT = torch.empty((n, bc), dtype=torch.float32, device=dev)
+    act = torch.empty(-(-n // 32), dtype=torch.int32, device=dev)
     lib = build.load("spmv", _PROTOTYPES)
-    with torch.cuda.device(f.device):
-        rc = lib.repro_csr_minplus_tiled_step(
-            f.data_ptr(), B, n, csr.col_idx.data_ptr(),
-            csr.src_idx.data_ptr(), csr.edge_val.data_ptr(),
-            csr.plan_tile.data_ptr(), csr.plan_chunk.data_ptr(),
-            csr.plan_first.data_ptr(), csr.plan_unit.data_ptr(),
-            int(csr.plan_unit.shape[0]) - 1, chunk, bn,
-            csr.tail_ell.data_ptr(), int(csr.tail_ell.shape[1]),
-            csr.tail_src.data_ptr(), csr.tail_val.data_ptr(), fT.data_ptr(),
-            out.data_ptr(), build.stream_handle(f))
-        build.check(lib, rc, what)
+    with torch.cuda.device(dev):
+        stream = build.stream_handle(f)
+        for b0 in range(0, B, MAX_BATCH):
+            rc = lib.repro_csr_minplus_tiled_step(
+                f[b0].data_ptr(), min(MAX_BATCH, B - b0), n,
+                csr.tile_src.data_ptr(), csr.tile_dst.data_ptr(),
+                csr.tile_val.data_ptr(), csr.tile_units.data_ptr(), n_units,
+                bn, csr.tail_ell.data_ptr(), int(csr.tail_ell.shape[1]),
+                csr.tail_src.data_ptr(), csr.tail_val.data_ptr(),
+                fT.data_ptr(), act.data_ptr(), out[b0].data_ptr(), stream)
+            build.check(lib, rc, what)
     build.LAUNCHES[what] += 1
     return out[0] if frontier.ndim == 1 else out
 
@@ -386,10 +401,11 @@ _STEPS = {"bool": csr_bool_step, "minplus": csr_minplus_step,
 
 
 def _raw_csr(kind: str, n: int, spine: tuple, tail: tuple) -> CSRMatrix:
-    """A :class:`CSRMatrix` over n vertices from arrays on one device:
-    ``spine`` and ``tail`` are each ``(src, dst, val, ell)``, or None for
-    one ⊕-zero sentinel arc (a spine of one all-sentinel slice row, a tail
-    whose map points every vertex at that arc)."""
+    """A :class:`CSRMatrix` over n vertices from arrays on one device,
+    without its derived views: ``spine`` and ``tail`` are each ``(src,
+    dst, val, ell)``, or None for one ⊕-zero sentinel arc (a spine of one
+    all-sentinel slice row, a tail whose map points every vertex at that
+    arc)."""
     f = spine[0] if spine is not None else tail[0]
     dev, zero = f.device, ref.CSR_ZERO[kind]
     dtype = torch.bool if kind == "bool" else torch.float32
@@ -403,14 +419,14 @@ def _raw_csr(kind: str, n: int, spine: tuple, tail: tuple) -> CSRMatrix:
     s_src, s_dst, s_val, s_ell = spine if spine is not None else sentinel(1)
     t_src, t_dst, t_val, t_ell = tail if tail is not None else sentinel(n)
     i32 = dict(dtype=torch.int32, device=dev)
-    return _with_ell_order(CSRMatrix(
+    return CSRMatrix(
         row_ptr=torch.zeros(n + 1, **i32), col_idx=s_dst, edge_val=s_val,
         src_idx=s_src, ell_slices=(s_ell,),
         ell_rank=torch.zeros(n, **i32), nnz=torch.tensor(0, **i32),
         tail_src=t_src, tail_dst=t_dst, tail_val=t_val, tail_ell=t_ell,
         tail_nnz=torch.tensor(int(t_src.shape[0]) - 1, **i32),
-        plan_tile=None, plan_chunk=None, plan_first=None, plan_unit=None,
-        n=n, n_alloc=n, kind=kind, ell_cfg=DEFAULT_ELL_CFG, plan_cfg=None))
+        plan_tile=None, plan_chunk=None, plan_first=None, n=n, n_alloc=n,
+        kind=kind, ell_cfg=DEFAULT_ELL_CFG, plan_cfg=None)
 
 
 def _raw_tail(kind: str, n: int, src: torch.Tensor, dst: torch.Tensor,
@@ -451,8 +467,10 @@ def _raw_tail(kind: str, n: int, src: torch.Tensor, dst: torch.Tensor,
 def raw_csr(kind: str, n: int, src: torch.Tensor, dst: torch.Tensor,
             val: torch.Tensor) -> CSRMatrix:
     """An arc triple as a :class:`CSRMatrix` over n vertices that K3-K6
-    step: an empty spine, the triple as its COO tail (:func:`_raw_tail`)."""
-    return _raw_csr(kind, n, None, _raw_tail(kind, n, src, dst, val))
+    step: an empty spine, the triple as its COO tail (:func:`_raw_tail`),
+    and the spine's ELL order."""
+    return _with_views(_raw_csr(kind, n, None,
+                                _raw_tail(kind, n, src, dst, val)))
 
 
 def raw_tiled_csr(n: int, src: torch.Tensor, dst: torch.Tensor,
@@ -461,19 +479,17 @@ def raw_tiled_csr(n: int, src: torch.Tensor, dst: torch.Tensor,
                   chunk: int, bn: int) -> CSRMatrix:
     """An arc triple and its tile-skip plan as a min-plus
     :class:`CSRMatrix` over n vertices that K7 steps: the triple as the
-    spine (``col_idx = dst``), no tail, and K7's work units cut from the
-    plan on the host (``core.sparse._plan_units``; the plan is a few int32
-    a tile)."""
+    spine (``col_idx = dst``), no tail, and K7's view of the plan
+    (``core.sparse._tile_order``), built on the triple's device.  Its slice
+    map is a placeholder K7 never reads, so it carries no ELL order: K4
+    raises on it (``_ell_checked``)."""
     plan = tuple(t.int() for t in (plan_tile, plan_chunk, plan_first))
-    units = _plan_units(*(t.cpu().numpy() for t in plan))
-    # K7 reads col_idx, src_idx, edge_val and the plan, never the slice map
     spine = (src.int(), dst.int(), val,
              torch.zeros((1, 1), dtype=torch.int32, device=src.device))
-    return dataclasses.replace(
+    return _with_tile_order(dataclasses.replace(
         _raw_csr("minplus", n, spine, None), plan_tile=plan[0],
         plan_chunk=plan[1], plan_first=plan[2],
-        plan_unit=torch.from_numpy(np.ascontiguousarray(units)).to(
-            src.device), plan_cfg=(int(chunk), int(bn)))
+        plan_cfg=(int(chunk), int(bn))))
 
 
 def csr_raw_step(kind: str, frontier: torch.Tensor, src: torch.Tensor,

@@ -1,14 +1,15 @@
-"""The CSR layout that K3, K5 and K6 read, checked on the CPU.
+"""The CSR layout that K3-K6 read, checked on the CPU.
 
-K3 (``csr_bool_step``), K5 (``csr_plustimes_step``) and K6
-(``csr_maxplus_step``) run on the card only (``csrc/spmv.cu``).  What they
-read is built in PyTorch and is checked here: the derived ELL-ordered
-sources and values and the warp work list (``core.sparse._ell_order``)
-after every way a CSR comes to be, K3's bit pack and unpack
-(``spmv.pack_bits``/``unpack_bits``), and K5's and K6's walk of the items
-in the kernel's order (``spmv.ell_step_in_kernel_order``) against the plain
-step and the JAX Pallas kernel (interpret mode): exactly for max-plus and
-on integer sums, within a stated tolerance otherwise.  Last,
+K3 (``csr_bool_step``), K4 (``csr_minplus_step``), K5
+(``csr_plustimes_step``) and K6 (``csr_maxplus_step``) run on the card only
+(``csrc/spmv.cu``).  What they read is built in PyTorch and is checked
+here: the derived ELL-ordered sources and values and the warp work list
+(``core.sparse._ell_order``) after every way a CSR comes to be, K3's bit
+pack and unpack (``spmv.pack_bits``/``unpack_bits``), and K4's, K5's and
+K6's walk of the items in the kernel's order
+(``spmv.ell_step_in_kernel_order``) against the plain step and the JAX
+Pallas kernel (interpret mode): exactly for min-plus, max-plus and on
+integer sums, within a stated tolerance otherwise.  Last,
 ``chip_smoke.capture_frontiers``, the spy that records the frontiers a warm
 batch's fixpoint passes to its step.
 """
@@ -36,7 +37,7 @@ import chip_smoke  # noqa: E402
 #: the graphs of test_torch_sparse.py's layout test: (n, p, seed, powerlaw)
 GRAPHS = [(100, 0.05, 0, False), (100, 0.05, 1, False),
           (300, 0.02, 2, True), (300, 0.02, 3, True), (40, 0.0, 4, False)]
-LAYOUT_KINDS = ["bool", "plustimes", "maxplus"]
+LAYOUT_KINDS = ["bool", "minplus", "plustimes", "maxplus"]
 
 
 def _edges(kind, n, p, seed, powerlaw):
@@ -56,15 +57,11 @@ def _edges(kind, n, p, seed, powerlaw):
 def _check_ell_order(csr):
     """The derived fields against the spine they were built from: slot k
     of the slices laid end to end has ``ell_src = src_idx[p]`` (-1 where
-    ``edge_val[p]`` is the ⊕-zero, 0 or -inf: a sentinel) and ``ell_val =
-    edge_val[p]`` (equal to it at every live slot); the work list's pieces
-    tile each row from its first slot to its last live one (the whole row
-    where rows share an item), in order, so every live slot lies in
-    exactly one piece."""
-    if csr.kind not in LAYOUT_KINDS:
-        assert all(getattr(csr, k) is None for k in (
-            "ell_src", "ell_val", "ell_items", "ell_row_piece"))
-        return
+    ``edge_val[p]`` is the ⊕-zero, +inf, 0 or -inf: a sentinel) and
+    ``ell_val = edge_val[p]`` (equal to it at every live slot); the work
+    list's pieces tile each row from its first slot to its last live one
+    (the whole row where rows share an item), in order, so every live slot
+    lies in exactly one piece."""
     pos = torch.cat([t.reshape(-1) for t in csr.ell_slices]).long()
     val = csr.edge_val[pos]
     live = val if csr.kind == "bool" else val != spmv.ref.CSR_ZERO[csr.kind]
@@ -77,8 +74,10 @@ def _check_ell_order(csr):
         assert csr.ell_val.dtype == torch.float32
         assert torch.equal(csr.ell_val, val)
         assert torch.equal(csr.ell_val[live], csr.edge_val[pos[live]])
-        if csr.kind == "maxplus":  # the sentinels: -1 sources, -inf values
-            assert bool((csr.ell_val[~live] == float("-inf")).all())
+        if csr.kind in ("minplus", "maxplus"):
+            # the sentinels: -1 sources, +inf or -inf values
+            zero = spmv.ref.CSR_ZERO[csr.kind]
+            assert bool((csr.ell_val[~live] == zero).all())
             assert bool((csr.ell_src[~live] == -1).all())
     items = csr.ell_items.numpy().astype(np.int64)
     rp = csr.ell_row_piece.numpy()
@@ -137,16 +136,14 @@ def test_csr_from_state_keeps_the_jax_state(kind):
 
 
 @pytest.mark.parametrize("n,p,seed,powerlaw", GRAPHS)
-@pytest.mark.parametrize("kind", LAYOUT_KINDS + ["minplus"])
+@pytest.mark.parametrize("kind", LAYOUT_KINDS)
 def test_ell_order_after_build_append_fold_and_state(kind, n, p, seed,
                                                      powerlaw):
     """``build_csr``, ``csr_append`` into the COO tail and through a fold,
-    and ``csr_from_state`` of a JAX state: the derived fields hold, and the
-    state stays the JAX package's field for field."""
-    if kind == "minplus":
-        edges = _edges("plustimes", n, p, seed, powerlaw)
-    else:
-        edges = _edges(kind, n, p, seed, powerlaw)
+    and ``csr_from_state`` of a JAX state: the derived fields hold (min-plus
+    included: -1 sources and +inf values at its sentinels), and the state
+    stays the JAX package's field for field."""
+    edges = _edges(kind, n, p, seed, powerlaw)
     n_alloc = n + 28
     t_csr = tsp.build_csr(edges, n_alloc, kind, device="cpu")
     j_csr = jsp.build_csr(edges, n_alloc, kind)
@@ -188,7 +185,7 @@ def test_ell_order_of_raw_triples(kind):
         got = spmv.plain_bool(f, csr)
     else:
         f = f.float() * 2 if kind == "plustimes" else \
-            torch.where(f, 2.0, float("-inf"))
+            torch.where(f, 2.0, spmv.ref.CSR_ZERO[kind])
         got = spmv.ell_step_in_kernel_order(f, csr)
     assert torch.equal(got, spmv.ref.csr_raw_ref(kind, f, src, dst, val))
 
@@ -281,6 +278,35 @@ def test_k6_walk_equals_plain_and_pallas(n, p, seed, powerlaw, append):
         assert torch.equal(got, spmv.plain_maxplus(torch.from_numpy(f),
                                                    t_csr))
         want = jops.csr_frontier_step("maxplus")(jnp.asarray(f), j_csr)
+        assert np.array_equal(got.numpy(), np.asarray(want))
+    one = spmv.ell_step_in_kernel_order(torch.from_numpy(f[0]), t_csr)
+    assert torch.equal(one, got[0])
+
+
+@pytest.mark.parametrize("n,p,seed,powerlaw", GRAPHS)
+@pytest.mark.parametrize("append", ["tail", "fold"])
+def test_k4_walk_equals_plain_and_pallas(n, p, seed, powerlaw, append):
+    """K4's walk of the min-plus CSR's items in its own order
+    (``spmv.ell_step_in_kernel_order``: each piece's min from +inf, the
+    pieces, then the COO tail) equals the plain step and the JAX step over
+    the Pallas ``csr_minplus_spmv`` (interpret mode) exactly, after arcs
+    went into the COO tail and after a fold, at B = 1, 3 and 8 and a
+    fully +inf frontier."""
+    j_csr, t_csr, rng = _plustimes_case(n, p, seed, powerlaw, 1, "minplus",
+                                        fold=append == "fold")
+    assert (int(t_csr.tail_nnz) > 0) == (append == "tail")
+    assert j_csr.plan_cfg is None  # the untiled kernel
+    _check_ell_order(t_csr)
+    for b in (1, 3, 8):
+        f = np.where(rng.random((b, n + 28)) < 0.3,
+                     rng.integers(0, 5, (b, n + 28)), np.inf).astype(
+                         np.float32)
+        if b == 8:
+            f[:] = np.inf
+        got = spmv.ell_step_in_kernel_order(torch.from_numpy(f), t_csr)
+        assert torch.equal(got, spmv.plain_minplus(torch.from_numpy(f),
+                                                   t_csr))
+        want = jops.csr_frontier_step("minplus")(jnp.asarray(f), j_csr)
         assert np.array_equal(got.numpy(), np.asarray(want))
     one = spmv.ell_step_in_kernel_order(torch.from_numpy(f[0]), t_csr)
     assert torch.equal(one, got[0])

@@ -1,8 +1,12 @@
 """Port parity of the tuned CSR path: the tile-skip plan
 (``core.sparse._tile_plan``, ``build_csr(kernel_plan=)``) array for array,
-the plain K7 (``csr_minplus_tiled_step``) against the JAX Pallas
-``csr_minplus_spmv_tiled`` in interpret mode, a planned CSR with a COO tail
-through ``ops.csr_frontier_step("minplus")`` (table, iterations, generated),
+K7's view of it (``core.sparse._tile_order``: the planned arcs by
+destination and the work units) after build, tail, fold, state, a partial
+plan and raw triples, the plain K7 (``csr_minplus_tiled_step``) and K7's
+walk in PyTorch (``spmv.tiled_step_in_kernel_order``) against the JAX
+Pallas ``csr_minplus_spmv_tiled`` in interpret mode, a planned CSR with a
+COO tail through ``ops.csr_frontier_step("minplus")`` (table, iterations,
+generated),
 ``csr_append`` (tail arrays, tail map, fold rebuild, additive filter), the
 autotuner's signature, histogram and analytic ranking given the same
 hardware numbers, its CPU search and cache, and ``DatalogService(tune=)``
@@ -101,30 +105,211 @@ def test_tile_plan_and_planned_build_match_jax(case):
     for a, b in zip(tsp._tile_plan(dst, m, j.capacity, n_alloc, chunk, bn),
                     jsp._tile_plan(dst, m, j.capacity, n_alloc, chunk, bn)):
         assert a.dtype == b.dtype and np.array_equal(a, b)
-    # the plan survives a state round trip, work units included
+    # the plan survives a state round trip, K7's view of it included
     back = tsp.csr_from_state(*jsp.csr_to_state(j), device="cpu")
     assert back.plan_cfg == j.plan_cfg
-    assert torch.equal(back.plan_unit, t.plan_unit)
+    for name in TILE_FIELDS:
+        assert torch.equal(getattr(back, name), getattr(t, name)), name
+    _check_tile_order(t)
+
+
+#: K7's view of a planned CSR (``core.sparse._tile_order``)
+TILE_FIELDS = ("tile_src", "tile_dst", "tile_val", "tile_units")
+
+
+def _planned_positions(csr, items=None) -> np.ndarray:
+    """The live spine positions the plan's (tile, chunk) items visit (or
+    those of ``items``, an (L, 2) array), in (destination, position) order:
+    what K7's view must hold, computed with numpy from the spine."""
+    chunk, bn = csr.plan_cfg
+    dst = csr.col_idx.numpy().astype(np.int64)
+    val = csr.edge_val.numpy()
+    if items is None:
+        items = np.stack([csr.plan_tile.numpy(), csr.plan_chunk.numpy()], 1)
+    planned = {(int(t), int(c)) for t, c in items}
+    pos = [p for p in range(len(dst)) if np.isfinite(val[p])
+           and (dst[p] // bn, p // chunk) in planned]
+    return np.array(sorted(pos, key=lambda p: (dst[p], p)), np.int64)
+
+
+def _check_tile_order(csr, items=None, unit=tsp.TILE_UNIT):
+    """K7's view against the spine and plan it was built from: each
+    planned arc once, in destination order (ties in spine order), with
+    its source and value; units that cover the arcs in order, tile by
+    tile, every tile below n_alloc with one, none over ``unit`` arcs, and
+    the first/whole flags as the units lie."""
+    pos = _planned_positions(csr, items)
+    assert csr.tile_src.dtype == csr.tile_dst.dtype == torch.int32
+    assert csr.tile_val.dtype == torch.float32
+    assert np.array_equal(csr.tile_dst.numpy(), csr.col_idx.numpy()[pos])
+    assert np.array_equal(csr.tile_src.numpy(), csr.src_idx.numpy()[pos])
+    assert np.array_equal(csr.tile_val.numpy(), csr.edge_val.numpy()[pos])
+    bn = csr.plan_cfg[1]
+    units = csr.tile_units.numpy().astype(np.int64)
+    assert csr.tile_units.dtype == torch.int32 and units.shape[1] == 4
+    tile, lo, hi, flags = units.T
+    assert lo[0] == 0 and hi[-1] == len(pos) and (lo[1:] == hi[:-1]).all()
+    assert (hi >= lo).all() and (hi - lo <= unit).all()
+    assert np.array_equal(np.unique(tile), np.arange(-(-csr.n_alloc // bn)))
+    assert (np.diff(tile) >= 0).all()
+    dst_tile = csr.tile_dst.numpy() // bn
+    for u in range(len(units)):  # a unit's arcs lie in its tile
+        assert (dst_tile[lo[u]:hi[u]] == tile[u]).all()
+    first = np.r_[True, tile[1:] != tile[:-1]]
+    last = np.r_[tile[1:] != tile[:-1], True]
+    assert np.array_equal(flags & tsp.UNIT_FIRST != 0, first)
+    assert np.array_equal(flags & tsp.UNIT_WHOLE != 0, first & last)
+    return units
 
 
 def test_plan_units_cover_the_live_items_tile_by_tile():
-    """K7's work units: offsets at every tile start and every PLAN_UNIT
-    items within a tile, ending at the live item count (pads excluded)."""
+    """K7's work units over a plan with one hot tile: they cover the
+    planned arcs tile by tile in destination order, each at most
+    ``TILE_UNIT`` arcs (or the unit size given), and the hot tile is
+    split into near-equal units."""
     edges = _arcs(128, 12000, seed=4, dst_hi=40)  # one hot tile
     csr = tsp.build_csr(edges, 256, "minplus", kernel_plan=(8, 64),
                         device="cpu")
-    tiles = csr.plan_tile.numpy()
-    chunks = csr.plan_chunk.numpy()
-    units = csr.plan_unit.numpy()
-    live = units[-1]
-    keys = tiles[:live].astype(np.int64) * (1 << 32) + chunks[:live]
-    assert len(np.unique(keys)) == live and live < len(tiles)
-    assert (tiles[live:] == tiles[live - 1]).all()  # pads repeat the last
-    assert (chunks[live:] == chunks[live - 1]).all()
-    lo, hi = units[:-1], units[1:]
-    assert (hi > lo).all() and (hi - lo <= tsp.PLAN_UNIT).all()
-    assert (tiles[lo] == tiles[hi - 1]).all()  # a unit stays in its tile
-    assert max(hi - lo) == tsp.PLAN_UNIT  # the hot tile was split
+    assert 12000 > tsp.TILE_UNIT
+    for unit in (tsp.TILE_UNIT, 1000):
+        view = csr if unit == tsp.TILE_UNIT else \
+            tsp._with_tile_order(csr, unit)
+        units = _check_tile_order(view, unit=unit)
+        tile, lo, hi, _ = units.T
+        hot = tile == 0
+        assert hot.sum() == -(-12000 // unit)  # the hot tile was split
+        assert (hi - lo)[hot].max() - (hi - lo)[hot].min() <= 1
+    assert csr.tile_dst.numel() == int(csr.nnz)  # a full plan: every arc
+
+
+@pytest.mark.parametrize("case", sorted(PLANS))
+def test_tile_order_after_tail_fold_and_state(case):
+    """K7's view holds after an append into the COO tail (the spine does
+    not move, nor does the view), through a fold (rebuilt for the new
+    spine), and from a JAX state."""
+    n_alloc, n, m, dst_hi, plan = PLANS[case]
+    edges = _arcs(n, m, seed=len(case) + 1, dst_hi=dst_hi)
+    t = tsp.build_csr(edges, n_alloc, "minplus", kernel_plan=plan,
+                      device="cpu")
+    _check_tile_order(t)
+    new = _arcs(max(n, 2), 9, seed=99)  # more than the fold's floor of 8
+    tail = tsp.csr_append(t, new, rebuild_frac=10.0)
+    assert int(tail.tail_nnz) == 9 and tail.tile_src is t.tile_src
+    fold = tsp.csr_append(t, new, rebuild_frac=0.0)
+    assert int(fold.tail_nnz) == 0 and fold.plan_cfg == t.plan_cfg
+    _check_tile_order(fold)
+    j = jsp.csr_append(jsp.build_csr(edges, n_alloc, "minplus",
+                                     kernel_plan=plan), new,
+                       rebuild_frac=0.0)
+    carried = tsp.csr_from_state(*jsp.csr_to_state(j), device="cpu")
+    _check_tile_order(carried)
+    for name in TILE_FIELDS:
+        assert torch.equal(getattr(carried, name), getattr(fold, name)), name
+
+
+def _partial_plan(j, rng):
+    """A JAX plan with about half its non-first items dropped (each tile
+    keeps its first item, so the Pallas kernel still initializes every
+    output tile)."""
+    keep = np.asarray(j.plan_first) == 1
+    keep |= rng.random(len(keep)) < 0.5
+    return tuple(np.asarray(a)[keep] for a in (j.plan_tile, j.plan_chunk,
+                                               j.plan_first))
+
+
+def test_partial_plan_keeps_only_its_own_arcs():
+    """A plan that misses some (tile, chunk) items (the raw-triple entry
+    takes any plan): K7's view holds exactly the arcs of the items it
+    keeps, and its walk equals the plain tiled step and the Pallas kernel
+    (interpret mode) over that plan."""
+    rng = np.random.default_rng(21)
+    n = 200
+    edges = _arcs(n, 2500, seed=21)
+    j = jsp.build_csr(edges, n, "minplus", kernel_plan=(16, 64))
+    tiles, chunks, first = _partial_plan(j, rng)
+    assert len(tiles) < len(np.asarray(j.plan_tile))
+    src, dst, val = (torch.from_numpy(np.array(a)) for a in (
+        j.src_idx, j.col_idx, j.edge_val))
+    plan = tuple(torch.from_numpy(a) for a in (tiles, chunks, first))
+    csr = spmv.raw_tiled_csr(n, src, dst, val, *plan, 16, 64)
+    _check_tile_order(csr, np.stack([tiles, chunks], 1))
+    assert csr.tile_dst.numel() < int(j.nnz)
+    f = _dist(rng, 5, n)
+    got = spmv.tiled_step_in_kernel_order(torch.from_numpy(f), csr)
+    assert torch.equal(got, spmv.ref.csr_raw_minplus_tiled_ref(
+        torch.from_numpy(f), src, dst, val, plan[0], plan[1], 16, 64))
+    want = csr_minplus_spmv_tiled(
+        jnp.asarray(f), j.src_idx, j.col_idx, j.edge_val,
+        jnp.asarray(tiles), jnp.asarray(chunks), jnp.asarray(first),
+        chunk=16, bn=64, interpret=True)
+    assert _same(got, want)
+
+
+def test_raw_tiled_csr_has_no_untiled_view():
+    """``spmv.raw_tiled_csr`` (the raw-triple tiled entry on the card):
+    its slice map is a placeholder K7 never reads, so it carries no ELL
+    order and K4's check refuses it, while K7's view of the plan is whole
+    and its walk equals the triple's plain tiled step."""
+    n = 150
+    edges = _arcs(n, 1200, seed=23)
+    j = jsp.build_csr(edges, n, "minplus", kernel_plan=(32, 128))
+    arcs = tuple(torch.from_numpy(np.array(a)) for a in (
+        j.src_idx, j.col_idx, j.edge_val))
+    plan = tuple(torch.from_numpy(np.array(a)) for a in (
+        j.plan_tile, j.plan_chunk, j.plan_first))
+    csr = spmv.raw_tiled_csr(n, *arcs, *plan, 32, 128)
+    assert all(getattr(csr, k) is None for k in (
+        "ell_src", "ell_val", "ell_items", "ell_row_piece"))
+    f = torch.from_numpy(_dist(np.random.default_rng(2), 3, n))
+    with pytest.raises(ValueError, match="no ELL-ordered sources"):
+        spmv._ell_checked("csr_minplus_step", torch.float32, f, csr)
+    _check_tile_order(csr)
+    got = spmv.tiled_step_in_kernel_order(f, csr)
+    assert torch.equal(got, spmv.ref.csr_raw_minplus_tiled_ref(
+        f, *arcs, plan[0], plan[1], 32, 128))
+    assert torch.equal(got, spmv.ref.csr_raw_ref("minplus", f, *arcs))
+
+
+#: K7's plans in chip_smoke.py's ragged parity
+K7_PLANS = [(32, 128), (64, 128), (32, 256), (16, 64)]
+
+
+@pytest.mark.parametrize("plan", K7_PLANS)
+@pytest.mark.parametrize("append", ["tail", "fold"])
+def test_k7_walk_equals_plain_and_pallas(plan, append):
+    """K7's walk over the plan's arcs in destination order and its units
+    (``spmv.tiled_step_in_kernel_order``) equals the plain tiled step and
+    the JAX step over the Pallas ``csr_minplus_spmv_tiled`` (interpret
+    mode; JAX folds the COO tail in an untiled pass) exactly, after arcs
+    went into the COO tail and after a fold, with ``TILE_UNIT`` and with
+    units of 256 arcs (the hot tile split into several); at B = 1, 3 and
+    8 and a fully +inf frontier."""
+    rng = np.random.default_rng(plan[0] + plan[1])
+    n = 300
+    edges = np.concatenate([_arcs(n, 1500, seed=plan[1]),
+                            _arcs(n, 2600, seed=plan[0], dst_hi=30)])
+    new = _arcs(n, 40, seed=plan[0] + 1)
+    j = jsp.csr_append(jsp.build_csr(edges, n, "minplus", kernel_plan=plan),
+                       new, rebuild_frac=0.0 if append == "fold" else 1.0)
+    t = tsp.csr_from_state(*jsp.csr_to_state(j), device="cpu")
+    assert (int(t.tail_nnz) > 0) == (append == "tail")
+    _check_tile_order(t)
+    small = tsp._with_tile_order(t, 256)
+    units = _check_tile_order(small, unit=256)
+    assert (units[:, 0] == 0).sum() > 1  # the hot tile is split
+    for b in (1, 3, 8):
+        f = _dist(rng, b, n)
+        if b == 8:
+            f[:] = np.inf
+        got = spmv.tiled_step_in_kernel_order(torch.from_numpy(f), t)
+        assert torch.equal(got, spmv.plain_minplus_tiled(torch.from_numpy(f),
+                                                         t))
+        assert torch.equal(got, spmv.tiled_step_in_kernel_order(
+            torch.from_numpy(f), small))
+        want = jops.csr_frontier_step("minplus")(jnp.asarray(f), j)
+        assert _same(got, want)
+    one = spmv.tiled_step_in_kernel_order(torch.from_numpy(f[0]), t)
+    assert torch.equal(one, got[0])
 
 
 @pytest.mark.parametrize("chunk,bn", [(32, 128), (16, 64), (64, 128)])
