@@ -238,10 +238,11 @@ K35_DENSITIES = (0.0, 0.001, 0.1, 1.0)
 #: both load routes (n % 16 and n % 4 nonzero take the predicated one)
 K12_BATCHES = (1, 8, 64, 65, 128, 129)
 K12_SIZES = (15, 16, 17, 1003, 1024, 4097)
-#: K7's ragged cases: (chunk, bn) plans and batch sizes (130 crosses the
-#: 32-row passes more than four times)
+#: K7's ragged cases: (chunk, bn) plans and batch sizes (33 takes the
+#: transpose's two-word instantiation and a one-row second pass; 130
+#: crosses the 32-row passes more than four times)
 K7_PLANS = ((32, 128), (64, 128), (32, 256), (16, 64))
-K7_BATCHES = (3, 32, 130)
+K7_BATCHES = (3, 32, 33, 130)
 TAIL_APPEND, FOLD_APPEND = 10_000, 4_100_000
 #: the vertex the dense append phase adds: past n_alloc 10,112 (Gn-p 10k)
 DENSE_GROW = 10_200
@@ -437,12 +438,12 @@ def ragged_parity():
 
 
 def k35_ragged_parity():
-    """K3, K5 and K6 against their plain versions at every batch size of
-    :data:`K35_BATCHES` and density of :data:`K35_DENSITIES`, on a graph
+    """K3, K4, K5 and K6 against their plain versions at every batch size
+    of :data:`K35_BATCHES` and density of :data:`K35_DENSITIES`, on a graph
     whose vertex 1 has an in-degree near 4,000 (wider than the 256-slot
     piece), whose last 37 vertices
-    have no arc (empty rows) and whose COO tail holds 40 arcs: K3 and K6
-    exactly, K5 exactly on small-integer counts (sums far below 2^24).
+    have no arc (empty rows) and whose COO tail holds 40 arcs: K3, K4 and
+    K6 exactly, K5 exactly on small-integer counts (sums far below 2^24).
     Then K5 on a non-integer frontier: two calls bitwise identical and
     bitwise equal to ``spmv.ell_step_in_kernel_order``; its max abs error
     against the plain step is printed."""
@@ -459,6 +460,11 @@ def k35_ragged_parity():
         DEVICE)
     mcsr = _hand_tailed_csr(
         "maxplus", n_alloc,
+        np.concatenate([edges, rng.integers(1, 10, (len(edges), 1))], 1),
+        np.concatenate([tail, rng.integers(1, 10, (len(tail), 1))], 1),
+        DEVICE)
+    wcsr = _hand_tailed_csr(
+        "minplus", n_alloc,
         np.concatenate([edges, rng.integers(1, 10, (len(edges), 1))], 1),
         np.concatenate([tail, rng.integers(1, 10, (len(tail), 1))], 1),
         DEVICE)
@@ -482,7 +488,12 @@ def k35_ragged_parity():
                     np.float32)).to(DEVICE)
             equal_and_err(torch, spmv.csr_maxplus_step(fm, mcsr),
                           spmv.plain_maxplus(fm, mcsr))
-            cases += 3
+            fw = torch.from_numpy(np.where(
+                hit, rng.integers(0, 50, hit.shape), np.inf).astype(
+                    np.float32)).to(DEVICE)
+            equal_and_err(torch, spmv.csr_minplus_step(fw, wcsr),
+                          spmv.plain_minplus(fw, wcsr))
+            cases += 4
     fr = torch.from_numpy(rng.random((130, n_alloc)).astype(
         np.float32)).to(DEVICE)
     one, two = (spmv.csr_plustimes_step(fr, pcsr) for _ in range(2))
@@ -493,7 +504,7 @@ def k35_ragged_parity():
           "K5: != ell_step_in_kernel_order on a non-integer frontier")
     err = float((one - spmv.plain_plustimes(fr, pcsr)).abs().max())
     torch.cuda.synchronize()
-    say(f"parity (K3/K5/K6, ragged): {cases} cases exactly equal to plain (B "
+    say(f"parity (K3-K6, ragged): {cases} cases exactly equal to plain (B "
         f"{list(K35_BATCHES)}, densities {list(K35_DENSITIES)}, a hub of "
         f"in-degree {hub}, {n_alloc - n} empty rows, a 40-arc tail); K5 on "
         f"a non-integer (130, {n_alloc}) frontier: two calls bitwise equal "
@@ -1261,12 +1272,12 @@ def capture_frontiers(svc, pred, srcs):
 
 
 def captured_frontiers(torch, name, svc, pred, srcs, plain, s, rate,
-                       library=True, bound=None):
+                       library=True):
     """The kernel of ``pred``'s CSR step at every frontier one warm batch
     passes (:func:`capture_frontiers`): each output held to the plain
     step, exactly; per input the share of active sources, the kernel's and
     (with ``library``) ``sparse.mm``'s ms (:func:`_sparse_mm_call`) and the
-    bound (``bound(csr, f)``, by default :func:`_csr_seed_bound`); their
+    bound (:func:`_csr_seed_bound`); their
     sums, and the densest input's."""
     from repro_torch.kernels import ops
     frontiers, res = capture_frontiers(svc, pred, srcs)
@@ -1284,8 +1295,7 @@ def captured_frontiers(torch, name, svc, pred, srcs, plain, s, rate,
         ms.append(time_ms(torch, lambda: step(f, csr), 10))
         if library:
             lib_ms.append(time_ms(torch, _sparse_mm_call(torch, csr, f), 10))
-        bound_ms.append(bound(csr, f)[0] if bound else
-                        _csr_seed_bound(torch, csr, f, live, s, rate)[0])
+        bound_ms.append(_csr_seed_bound(torch, csr, f, live, s, rate)[0])
     d = int(np.argmax(active))
     out = {"iterations": res.iterations, "generated": res.generated,
            "active": active, "ms": float(sum(ms)),
@@ -1777,26 +1787,12 @@ def allpairs_phase(results):
     torch.cuda.empty_cache()
 
 
-def _k7_bound(torch, csr, f):
-    """K7's bound at frontier ``f``: K4's (the same function,
-    :func:`_csr_seed_work`) plus the plan's view the kernel must read: each
-    planned arc's source, destination and value once (12 bytes) and each
-    work unit's 16 bytes (``core.sparse._tile_order``)."""
-    bytes_, ops = _csr_seed_work(torch, csr, f, torch.isfinite(f), 4)
-    view = 12 * csr.tile_dst.numel() + 16 * csr.tile_units.shape[0]
-    return _bound(bytes_ + view, ops, F32_OPS_S)
-
-
 def _plan_report(csr):
-    """The plan's items (live and pad) and K7's view of it: planned arcs,
-    work units and the tiles split over several units."""
+    """The plan's items and K7's view of it: planned arcs, work units and
+    the tiles split over several units."""
     from repro_torch.core.sparse import UNIT_FIRST, UNIT_WHOLE
-    tiles = csr.plan_tile.cpu().numpy()
-    chunks = csr.plan_chunk.cpu().numpy()
-    moved = np.nonzero((tiles != tiles[-1]) | (chunks != chunks[-1]))[0]
-    live = int(moved[-1]) + 2 if len(moved) else 1
     flags = csr.tile_units[:, 3].cpu().numpy()
-    return {"items": len(tiles), "live": live, "pad": len(tiles) - live,
+    return {"items": int(csr.plan_tile.numel()),
             "arcs": int(csr.tile_dst.numel()), "units": len(flags),
             "split_tiles": int(((flags & UNIT_FIRST != 0)
                                 & (flags & UNIT_WHOLE == 0)).sum()),
@@ -1866,9 +1862,13 @@ def tuned_phase(results, wedges, oracle):
     results["csr_minplus_tiled_step"].update(measure(
         torch, "K7 csr_minplus_tiled_step (dpath)",
         spmv.csr_minplus_tiled_step, spmv.plain_minplus_tiled, (f, csr), 10,
-        _k7_bound(torch, csr, f)))
+        _csr_seed_bound(torch, csr, f, torch.isfinite(f), 4, F32_OPS_S)))
+    # K4 on the same CSR: a planned min-plus CSR carries only K7's view, so
+    # K4's ELL order is built here for the comparison
+    k4csr = dataclasses.replace(csr, **sparse._ell_order(
+        csr.kind, csr.src_idx, csr.edge_val, csr.ell_slices))
     phase["k4_ms_same_frontier"] = time_ms(
-        torch, lambda: spmv.csr_minplus_step(f, csr), 10)
+        torch, lambda: spmv.csr_minplus_step(f, k4csr), 10)
     say(f"K4 csr_minplus_step at the same frontier and CSR: "
         f"{phase['k4_ms_same_frontier']:.3f} ms")
     # a frontier with every value finite: K7 and K4 agree exactly there too
@@ -1876,19 +1876,18 @@ def tuned_phase(results, wedges, oracle):
     fd = torch.randint(0, 64, f.shape, generator=g, device=f.device,
                        dtype=torch.float32)
     check(torch.equal(spmv.csr_minplus_tiled_step(fd, csr),
-                      spmv.csr_minplus_step(fd, csr)),
+                      spmv.csr_minplus_step(fd, k4csr)),
           "K7 != K4 at a finite frontier")
     phase["dense_frontier_ms"] = {
         "k7": time_ms(torch, lambda: spmv.csr_minplus_tiled_step(fd, csr), 10),
-        "k4": time_ms(torch, lambda: spmv.csr_minplus_step(fd, csr), 10)}
+        "k4": time_ms(torch, lambda: spmv.csr_minplus_step(fd, k4csr), 10)}
     say(f"K7 / K4 at a finite {tuple(fd.shape)} frontier: "
         f"{phase['dense_frontier_ms']['k7']:.3f} / "
         f"{phase['dense_frontier_ms']['k4']:.3f} ms")
-    del f, fd
+    del f, fd, k4csr
     results["csr_minplus_tiled_step"]["captured"] = captured_frontiers(
         torch, "csr_minplus_tiled_step", sp, "dpath", srcs2,
-        spmv.plain_minplus_tiled, 4, F32_OPS_S, library=False,
-        bound=lambda c, x: _k7_bound(torch, c, x))
+        spmv.plain_minplus_tiled, 4, F32_OPS_S, library=False)
 
     # appends: a tail append, then one past csr_rebuild_frac (a fold)
     appended = [wedges]

@@ -27,9 +27,10 @@ Layout (see the JAX module for the full story):
   ``ell_row_piece`` (:func:`_ell_order`): the slices' slots in order with
   each slot's source and value, which K3-K6 read instead of the
   positions;
-* both derived views are built on the card wherever the spine is
+* a CSR carries the one derived view its step reads (a planned min-plus
+  CSR K7's, every other K3-K6's), built on the card wherever the spine is
   (``build_csr``, the fold, ``csr_from_state``, ``spmv.raw_csr``/
-  ``raw_tiled_csr``) and are never part of the state;
+  ``raw_tiled_csr``) and never part of the state;
 * a COO tail (``tail_src``/``tail_dst``/``tail_val``/``tail_ell``) that
   ``csr_append`` fills with appended arcs and folds into the spine once it
   outgrows ``rebuild_frac`` of it (the fold carries ``ell_cfg`` and
@@ -96,13 +97,14 @@ class CSRMatrix:
     kind: str  # 'bool' | 'minplus' | 'maxplus' | 'plustimes'
     ell_cfg: tuple  # (floor, stride) capacity-ladder config
     plan_cfg: tuple | None  # (chunk, bn) of the tile-skip plan, or None
-    # K3-K6's view of the slices (:func:`_ell_order`); derived on the
-    # card, never part of the state
+    # K3-K6's view of the slices (:func:`_ell_order`), every CSR but a
+    # planned min-plus one; derived on the card, never part of the state
     ell_src: torch.Tensor | None = None  # (E,) int32 — slot sources, -1 pad
     ell_val: torch.Tensor | None = None  # (E,) f32 — slot values (K4-K6)
     ell_items: torch.Tensor | None = None  # (I, 4) int32 — warp items
     ell_row_piece: torch.Tensor | None = None  # (rows + 1,) int32
-    # K7's view of the plan (:func:`_tile_order`), planned CSRs only
+    # K7's view of the plan (:func:`_tile_order`), planned min-plus CSRs
+    # only
     tile_src: torch.Tensor | None = None  # (A,) int32 — planned arcs by dst
     tile_dst: torch.Tensor | None = None  # (A,) int32
     tile_val: torch.Tensor | None = None  # (A,) f32
@@ -353,12 +355,14 @@ def _ell_order(kind: str, src_idx: torch.Tensor, edge_val: torch.Tensor,
 
 
 def _with_views(csr: "CSRMatrix") -> "CSRMatrix":
-    """``csr`` with its derived views built from its spine: the
-    :func:`_ell_order` fields, and the :func:`_tile_order` fields where it
-    carries a plan."""
-    csr = dataclasses.replace(csr, **_ell_order(
+    """``csr`` with the one derived view its step reads, built from its
+    spine: the :func:`_tile_order` fields for a min-plus CSR with a plan
+    (``kernels.ops`` steps it with K7 only), the :func:`_ell_order` fields
+    otherwise."""
+    if csr.kind == "minplus" and csr.plan_cfg is not None:
+        return _with_tile_order(csr)
+    return dataclasses.replace(csr, **_ell_order(
         csr.kind, csr.src_idx, csr.edge_val, csr.ell_slices))
-    return _with_tile_order(csr) if csr.plan_cfg is not None else csr
 
 
 #: planned arcs per K7 work unit: a column tile with more is cut into

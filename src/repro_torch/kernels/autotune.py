@@ -21,7 +21,8 @@ graph.  So it is a measured search:
    around each timed run).
 3. **Score** by the roofline fraction of useful work; the fastest wins.
 
-A layout whose segment tables would not fit a quarter of the card's memory
+A layout whose segment tables and the view its kernel reads
+(:func:`layout_bytes`) would not fit a quarter of the card's memory
 (``hw.hbm_bytes``; the rest holds the other carriers, the frontier and the
 scratch) is never built: on a power-law graph the single-width ladder pads
 every vertex to the largest in-degree (2^20 rows of 2^18 slots for the
@@ -168,6 +169,20 @@ def _predicted_e_alloc(indeg: np.ndarray, ell_cfg: tuple) -> int:
     return int((counts * caps).sum())
 
 
+def layout_bytes(kind: str, cfg: KernelConfig, indeg: np.ndarray,
+                 m: int) -> int:
+    """The device bytes a candidate's tables take while they are built: the
+    slice map (4 a slot) and the one view its step reads
+    (``core.sparse._with_views``).  For a planned min-plus CSR that is
+    K7's arcs, 12 bytes each beside the build's int64 positions, keys and
+    order (24 more); otherwise the ELL order, 4 bytes a slot (bool) or 8
+    (a source and a value), twice over while its pieces are concatenated."""
+    slots = _predicted_e_alloc(indeg, cfg.ell_cfg)
+    if cfg.use_kernel and kind == "minplus":
+        return 4 * slots + 36 * m
+    return 4 * slots + 2 * (4 if kind == "bool" else 8) * slots
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -223,16 +238,16 @@ def autotune(edges: np.ndarray, n_alloc: int, kind: str, *, batch: int = 8,
     ranked.sort(key=lambda t: t[0])
 
     def fits(cfg):
-        return 4 * _predicted_e_alloc(indeg, cfg.ell_cfg) <= hw.hbm_bytes / 4
+        return layout_bytes(kind, cfg, indeg, m) <= hw.hbm_bytes / 4
 
     shortlist = [cfg for _, cfg in ranked[:top_k] if fits(cfg)]
     baseline_cfg = SINGLE_WIDTH if fits(SINGLE_WIDTH) else KernelConfig()
     if baseline_cfg not in shortlist:
         shortlist.append(baseline_cfg)  # the gain denominator always runs
     if include_kernels:
-        shortlist += [dataclasses.replace(shortlist[0], use_kernel=True,
-                                          chunk=c, bn=b)
-                      for c, b in block_candidates]
+        shortlist += [cfg for cfg in (
+            dataclasses.replace(shortlist[0], use_kernel=True, chunk=c, bn=b)
+            for c, b in block_candidates) if fits(cfg)]
     predicted = {cfg: p for p, cfg in ranked}
 
     # -- 2./3. measure the shortlist, score by useful-work roofline fraction

@@ -47,7 +47,7 @@ import torch
 
 from ..core.seminaive import quantize_rows
 from ..core.sparse import (DEFAULT_ELL_CFG, UNIT_FIRST, CSRMatrix,
-                           _with_tile_order, _with_views)
+                           _with_views)
 from ..core.sparse import padded_width  # noqa: F401 (the JAX module's name)
 from . import build, ref
 
@@ -481,12 +481,12 @@ def raw_tiled_csr(n: int, src: torch.Tensor, dst: torch.Tensor,
     :class:`CSRMatrix` over n vertices that K7 steps: the triple as the
     spine (``col_idx = dst``), no tail, and K7's view of the plan
     (``core.sparse._tile_order``), built on the triple's device.  Its slice
-    map is a placeholder K7 never reads, so it carries no ELL order: K4
-    raises on it (``_ell_checked``)."""
+    map is a placeholder K7 never reads; as every planned min-plus CSR, it
+    carries no ELL order, and K4 raises on it (``_ell_checked``)."""
     plan = tuple(t.int() for t in (plan_tile, plan_chunk, plan_first))
     spine = (src.int(), dst.int(), val,
              torch.zeros((1, 1), dtype=torch.int32, device=src.device))
-    return _with_tile_order(dataclasses.replace(
+    return _with_views(dataclasses.replace(
         _raw_csr("minplus", n, spine, None), plan_tile=plan[0],
         plan_chunk=plan[1], plan_first=plan[2],
         plan_cfg=(int(chunk), int(bn))))

@@ -115,6 +115,10 @@ def test_tile_plan_and_planned_build_match_jax(case):
 
 #: K7's view of a planned CSR (``core.sparse._tile_order``)
 TILE_FIELDS = ("tile_src", "tile_dst", "tile_val", "tile_units")
+#: K3-K6's view of every other CSR (``core.sparse._ell_order``)
+ELL_FIELDS = ("ell_src", "ell_val", "ell_items", "ell_row_piece")
+#: the carriers and their largest weight
+KINDS = {"bool": None, "minplus": 9, "maxplus": 9, "plustimes": 2}
 
 
 def _planned_positions(csr, items=None) -> np.ndarray:
@@ -137,7 +141,8 @@ def _check_tile_order(csr, items=None, unit=tsp.TILE_UNIT):
     planned arc once, in destination order (ties in spine order), with
     its source and value; units that cover the arcs in order, tile by
     tile, every tile below n_alloc with one, none over ``unit`` arcs, and
-    the first/whole flags as the units lie."""
+    the first/whole flags as the units lie; no ELL order beside it."""
+    assert all(getattr(csr, k) is None for k in ELL_FIELDS)
     pos = _planned_positions(csr, items)
     assert csr.tile_src.dtype == csr.tile_dst.dtype == torch.int32
     assert csr.tile_val.dtype == torch.float32
@@ -207,6 +212,31 @@ def test_tile_order_after_tail_fold_and_state(case):
         assert torch.equal(getattr(carried, name), getattr(fold, name)), name
 
 
+@pytest.mark.parametrize("kind", sorted(KINDS))
+@pytest.mark.parametrize("planned", [False, True])
+def test_each_csr_carries_the_view_its_step_reads(kind, planned):
+    """A planned min-plus CSR (stepped by K7 alone) carries K7's view and
+    no ELL order; every other CSR, a planned one of another carrier (K3,
+    K5 and K6 ignore the plan) included, carries the ELL order and no K7
+    view, after a build, a fold and from a JAX state."""
+    rng = np.random.default_rng(len(kind) + planned)
+    e = jgraphs.gnp_graph(100, 0.04, seed=7)
+    edges = e if kind == "bool" else _weighted(rng, e, KINDS[kind])
+    plan = (16, 64) if planned else None
+    k7 = planned and kind == "minplus"
+    new = jgraphs.gnp_graph(100, 0.01, seed=8)
+    t = tsp.build_csr(edges, 128, kind, kernel_plan=plan, device="cpu")
+    fold = tsp.csr_append(t, new if kind == "bool" else _weighted(
+        rng, new, KINDS[kind]), rebuild_frac=0.0)
+    j = jsp.build_csr(edges, 128, kind, kernel_plan=plan)
+    carried = tsp.csr_from_state(*jsp.csr_to_state(j), device="cpu")
+    for csr in (t, fold, carried):
+        assert csr.plan_cfg == plan
+        assert all((getattr(csr, k) is not None) == k7 for k in TILE_FIELDS)
+        assert all((getattr(csr, k) is None) == (k7 or (
+            k == "ell_val" and kind == "bool")) for k in ELL_FIELDS)
+
+
 def _partial_plan(j, rng):
     """A JAX plan with about half its non-first items dropped (each tile
     keeps its first item, so the Pallas kernel still initializes every
@@ -258,8 +288,7 @@ def test_raw_tiled_csr_has_no_untiled_view():
     plan = tuple(torch.from_numpy(np.array(a)) for a in (
         j.plan_tile, j.plan_chunk, j.plan_first))
     csr = spmv.raw_tiled_csr(n, *arcs, *plan, 32, 128)
-    assert all(getattr(csr, k) is None for k in (
-        "ell_src", "ell_val", "ell_items", "ell_row_piece"))
+    assert all(getattr(csr, k) is None for k in ELL_FIELDS)
     f = torch.from_numpy(_dist(np.random.default_rng(2), 3, n))
     with pytest.raises(ValueError, match="no ELL-ordered sources"):
         spmv._ell_checked("csr_minplus_step", torch.float32, f, csr)
@@ -358,9 +387,6 @@ def test_planned_csr_with_tail_drives_the_fixpoint_like_jax():
     assert _same(got.table, want.table)
     assert got.iterations == int(want.iterations)
     assert got.generated == int(want.generated)
-
-
-KINDS = {"bool": None, "minplus": 9, "maxplus": 9, "plustimes": 2}
 
 
 @pytest.mark.parametrize("kind", sorted(KINDS))
@@ -466,6 +492,36 @@ def test_autotune_search_on_cpu_matches_jax_and_caches():
     assert sw and sw[0]["measured_s"] is None
     default = [c for c in cut.candidates if c["config"] == tat.KernelConfig()]
     assert default[0]["measured_s"] == cut.baseline_seconds
+
+
+def test_layout_bytes_charge_the_view_and_guard_kernel_candidates():
+    """The autotuner's memory guard charges each candidate the slice map
+    and the view its step reads (``tat.layout_bytes``): the ELL order
+    (twice, as it is concatenated) or, for a planned min-plus CSR, K7's
+    arcs and their build's temporaries.  On a card whose quarter holds the
+    default layout but not K7's view, no tile-skip candidate is built."""
+    edges = _weighted(np.random.default_rng(2),
+                      jgraphs.powerlaw_graph(200, 1200, alpha=1.3, seed=5))
+    indeg = tat._indegree(edges, 256)
+    m = len(edges)
+    for cfg in (tat.KernelConfig(), tat.SINGLE_WIDTH):
+        slots = tat._predicted_e_alloc(indeg, cfg.ell_cfg)
+        assert tat.layout_bytes("bool", cfg, indeg, m) == 12 * slots
+        for kind in ("minplus", "maxplus", "plustimes"):
+            assert tat.layout_bytes(kind, cfg, indeg, m) == 20 * slots
+        ker = dataclasses.replace(cfg, use_kernel=True, chunk=32, bn=128)
+        assert tat.layout_bytes("minplus", ker, indeg, m) == \
+            4 * slots + 36 * m
+        assert tat.layout_bytes("bool", ker, indeg, m) == 12 * slots
+    default = tat.layout_bytes("minplus", tat.KernelConfig(), indeg, m)
+    ker = tat.KernelConfig(use_kernel=True, chunk=32, bn=128)
+    assert tat.layout_bytes("minplus", ker, indeg, m) > default
+    small = dataclasses.replace(H100, hbm_bytes=4 * default)
+    got = tat.autotune(edges, 256, "minplus", include_kernels=True,
+                       device="cpu", hw=small, use_cache=False)
+    assert not any(c["config"].use_kernel for c in got.candidates)
+    assert any(c["config"] == tat.KernelConfig() and c["measured_s"]
+               is not None for c in got.candidates)
 
 
 def test_build_tuned_applies_layout_and_plan():
