@@ -41,7 +41,7 @@ a non-zero exit and prints no result):
    ``csr_maxplus``, ``csr_plustimes``, ``csr_minplus_tiled``) against
    their plain versions, exactly, on the spine and on the COO-tail arrays
    of a CSR with a hub, each call launching its kernel (K3, K4, K6, K5,
-   K7) once;
+   K7) once; then K10 at its ragged shapes (listed in phase 8);
 4. dense main path: ``DatalogService`` TC and SPATH on ``gnp_graph(10_000,
    0.1)`` (the paper's Table-6 Gn-p family; density 0.1 picks the dense
    carrier), ``ask_batch`` of 100 sources, a second batch of 100, a repeat
@@ -129,12 +129,18 @@ a non-zero exit and prints no result):
    versions at the inputs captured from the first ``local`` and ``rg``
    blocks (K9 within the tolerance of :data:`K9_ATOL`, K10 exactly), timed
    beside them, their bounds and, for K9, ``scaled_dot_product_attention``
-   on the same tensors (kv repeated, a boolean mask); then at ragged
-   shapes (K9: sq = sk in 1, 63, 130, 2049 across windows (all-masked
+   on the same tensors (kv repeated, a boolean mask), and K10 also at a
+   one-prompt (1, 4096, 2560) input with its bound; then K9 at ragged
+   shapes (sq = sk in 1, 63, 130, 2049 across windows (all-masked
    rows too), softcaps, causal or not, GQA repeats 1/2/10, head dims
    16/128/256, bf16 on the tensor-core route and f32 on the CUDA-core
-   route, each case checked to launch its route; K10: B 1/3, S
-   1/255/4097, W 1/130/2560).  Then ``launch.serve``'s loop
+   route, each case checked to launch its route; K10's ragged cases run
+   in phase 3, before any other K10 launch: B 1/3, S 1, T - 1, T, T + 1,
+   2T + 1, 4T + 1 (the ring wraps at its default plan's 2 and 4 stages)
+   and 4097, W 1, 4, 16, 33, 130 and 2564, and the widths that are
+   multiples of 4 again off a 16-byte boundary, so that both routes (TMA
+   and cp.async) run, each case awaited by a watchdog that fails the run
+   on a hang).  Then ``launch.serve``'s loop
    through ``make_serve_step``: batch 4, a 64-token prompt fed token by
    token, 16 generated; ms a token, every logit finite, and the logits at
    the prompt's last position against the prefill's on the same tokens
@@ -161,6 +167,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1967,8 +1974,13 @@ K9_WINDOWS = (None, 64, 2048, 0, -3)
 K9_SOFTCAPS = (None, 50.0)
 K9_REPS = (1, 2, 10)
 K9_DIMS = (16, 128, 256)
-#: K10's ragged cases: B, S and W
-K10_BATCHES, K10_SEQS, K10_WIDTHS = (1, 3), (1, 255, 4097), (1, 130, 2560)
+#: K10's ragged cases: B, W and the longest S; the other S straddle the
+#: default plan's ring (:func:`k10_ragged_parity`).  Widths that are
+#: multiples of 4 take the TMA route, the others (and copies of the former
+#: off a 16-byte boundary) the cp.async route
+K10_BATCHES, K10_WIDTHS, K10_LONG = (1, 3), (1, 4, 16, 33, 130, 2564), 4097
+#: seconds a K10 case may take before the run fails as hung
+K10_WATCHDOG_S = 30.0
 #: decode's logits at the prompt's last position against the prefill's on
 #: the same tokens: max |Δ| within DECODE_MAX_FRAC of the largest |logit|,
 #: mean |Δ| within DECODE_MEAN_FRAC.  The two paths compute the same
@@ -2043,28 +2055,66 @@ def k9_ragged_parity():
         f"{worst[torch.bfloat16]:.3e} ({time.perf_counter() - t0:.1f} s)")
 
 
+def _watchdog(torch, what: str, seconds: float) -> None:
+    """Wait for the work queued so far on the current stream, failing the
+    run (at once, without the interpreter's teardown, which would wait on
+    the card) if it has not finished within ``seconds``: a ring whose
+    barriers never complete hangs instead of giving a wrong answer."""
+    done = torch.cuda.Event()
+    done.record()
+    deadline = time.monotonic() + seconds
+    while not done.query():
+        if time.monotonic() > deadline:
+            say(f"chip_smoke FAILED: {what} still running after {seconds} s "
+                f"(hung)")
+            sys.stderr.flush()
+            os._exit(1)
+        time.sleep(0.001)
+
+
 def k10_ragged_parity():
     """K10 against its plain version, exactly, at every (B, S, W) of the
-    ``K10_*`` grids."""
+    ``K10_*`` grids, S across the default plan's ring (1, T - 1, T, T + 1,
+    2T + 1 and 4T + 1, where 2 and 4 stages wrap, and :data:`K10_LONG`),
+    and at the widths that are multiples of 4 again from operands off a
+    16-byte boundary; each launch awaited by :func:`_watchdog`, and both
+    routes must have run."""
     import torch
     from repro_torch.kernels import rglru_scan as rg
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 16)
-    cases = 0
+    seqs = (1, rg.T - 1, rg.T, rg.T + 1, 2 * rg.T + 1, 4 * rg.T + 1,
+            K10_LONG)
+    t0 = time.perf_counter()
+    routes: dict = {}
     for b in K10_BATCHES:
-        for s in K10_SEQS:
+        for s in seqs:
             for w in K10_WIDTHS:
                 a = torch.rand((b, s, w), generator=gen, device=DEVICE)
                 a = 0.5 + 0.49 * a
                 x = torch.randn((b, s, w), generator=gen, device=DEVICE)
-                equal_and_err(torch, rg.rglru_scan(a, x), rg.plain(a, x))
-                cases += 1
+                pairs = [(a, x)]
+                if w % 4 == 0 and b == K10_BATCHES[-1] and s == seqs[-2]:
+                    pairs.append((_misaligned(torch, a),
+                                  _misaligned(torch, x)))
+                for pa, px in pairs:
+                    route = rg.route(pa, px)
+                    got = rg.rglru_scan(pa, px)
+                    _watchdog(torch, f"K10 at {(b, s, w)} ({route})",
+                              K10_WATCHDOG_S)
+                    equal_and_err(torch, got, rg.plain(pa, px))
+                    routes[route] = routes.get(route, 0) + 1
     torch.cuda.synchronize()
-    say(f"parity (K10, ragged): {cases} cases exactly equal to plain (B "
-        f"{list(K10_BATCHES)}, S {list(K10_SEQS)}, W {list(K10_WIDTHS)})")
+    check(set(routes) == {"tma", "cp.async"},
+          f"K10's ragged cases ran the routes {routes}, want both")
+    say(f"parity (K10, ragged): {sum(routes.values())} cases exactly equal "
+        f"to plain (B {list(K10_BATCHES)}, S {list(seqs)}, W "
+        f"{list(K10_WIDTHS)}; default plan (CW, T) = {(rg.CW, rg.T)}; "
+        f"routes {routes}) "
+        f"({time.perf_counter() - t0:.1f} s)")
 
 
 #: kernel-name fragments of the device-time breakdown, in the order tried
-KERNEL_CLASSES = (("K9", ("flash_kernel",)), ("K10", ("rglru_scan_kernel",)),
+KERNEL_CLASSES = (("K9", ("flash_kernel",)), ("K10", ("rglru_scan",)),
                   ("GEMM", ("gemm", "nvjet", "xmma", "cutlass")))
 
 
@@ -2239,13 +2289,25 @@ def lm_phase(results):
         "launches": counts["flash_attention"], **_k9_at_path(torch, q, k, v,
                                                              kw)}
     (a, b), _ = captured["rglru"]
+    say(f"rglru_scan (K10) at the prefill's input: route {rg.route(a, b)}, "
+        f"plan (CW, T, stages) = "
+        f"{(rg.CW, rg.T, rg.stages(a.shape[0], a.shape[2]))}")
     results["rglru_scan"] = {
         "launches": counts["rglru_scan"],
         **measure(torch, "rglru_scan (K10)", rg.rglru_scan, rg.plain, (a, b),
                   20, _bound(12 * a.numel(), 2 * a.numel(), F32_OPS_S))}
-    del captured, q, k, v, a, b
+    # one prompt: half the CTAs of the captured input; a in [0, 1), the
+    # gates' range
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 17)
+    a1 = torch.rand((1,) + tuple(a.shape[1:]), generator=gen, device=DEVICE)
+    b1 = torch.randn(a1.shape, generator=gen, device=DEVICE)
+    one = measure(torch, "rglru_scan (K10, one prompt)", rg.rglru_scan,
+                  rg.plain, (a1, b1), 20,
+                  _bound(12 * a1.numel(), 2 * a1.numel(), F32_OPS_S))
+    results["rglru_scan"]["one_prompt"] = {
+        k: one[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms")}
+    del captured, q, k, v, a, b, a1, b1
     k9_ragged_parity()
-    k10_ragged_parity()
 
     # decode: the serve loop, checked against the prefill on its prompt
     prompts = torch.from_numpy(rng.integers(
@@ -2295,6 +2357,7 @@ def main():
     k7_ragged_parity()
     k8_ragged_parity()
     raw_entry_parity()
+    k10_ragged_parity()
     results: dict = {}
     dense_phase(results)
     edges, wedges, sp_oracle = csr_phase(results)
@@ -2310,7 +2373,7 @@ def main():
              "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
              "bound_by", "library_ms")},
          **{k: v for k, v in results[name].items()
-            if k in ("captured", "ask", "full")}}
+            if k in ("captured", "ask", "full", "one_prompt")}}
         for name, (src, rep) in KERNELS.items()]}
     say("phases: " + json.dumps({k: results[k]
                                  for k in ("dense_phase", "csr_phase",

@@ -3,10 +3,17 @@
 Replaces the Pallas kernel ``repro.kernels.rglru_scan.rglru_scan``:
 ``h_t = a_t ⊙ h_{t-1} + b_t`` over the sequence from ``h_0 = 0``, the scan
 of every RG-LRU block of a RecurrentGemma prefill (``models.recurrent.
-rglru_seq``).  ``csrc/rglru_scan.cu``: one thread per (batch, channel),
-coalesced across channels, the time loop unrolled with its loads issued
-ahead; the same two roundings a step as the plain version, so the two are
-equal bit for bit.
+rglru_seq``).  ``csrc/rglru_scan.cu``: one CTA a (batch, block of ``CW``
+channels); a producer warp keeps a shared-memory ring of stages of ``T``
+steps full, and a consumer warp, one thread a channel, walks t in order
+through it.  Where the width is a multiple of 4 and a and b lie on 16-byte
+boundaries, TMA boxes fill the ring and store h back from shared memory;
+otherwise 4-byte ``cp.async`` fills it and the consumer stores h itself
+(:func:`route`).  Each channel takes the same two roundings a step as the
+plain version, in the same order, so the two are equal bit for bit; a
+chunked two-pass scan would give the card more threads but round in
+another order, and the ring comes near the card's byte rate without it.
+:func:`scan_in_kernel_order` is the kernel's walk in PyTorch.
 
 On CPU tensors the wrapper runs the plain version (:data:`plain`); on CUDA
 tensors it launches the kernel or raises.
@@ -22,19 +29,33 @@ from . import build, ref
 #: the plain PyTorch version of this kernel
 plain = ref.rglru_scan_ref
 
+#: the kernel's default plan (``csrc/rglru_scan.cu``): channels a CTA and
+#: steps a ring stage; its stage count, 2 to 4, follows the shape
+#: (:func:`stages`)
+CW, T = 32, 64
+#: the (channels, steps) a stage the kernel is built for; any 2..16 stages
+#: that fit a block's shared memory
+PLANS = ((16, 32), (16, 64), (16, 128), (32, 32), (32, 64), (32, 128))
+
 _VP, _I = ctypes.c_void_p, ctypes.c_int
-_PROTOTYPES = {"repro_rglru_scan": [_VP, _VP, _VP, _I, _I, _I, _VP]}
+_PROTOTYPES = {
+    "repro_rglru_scan": [_VP, _VP, _VP, _I, _I, _I, _VP],
+    "repro_rglru_scan_plan": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP],
+    "repro_rglru_scan_route": [_VP, _VP, _I],
+    "repro_rglru_scan_stages": [_I, _I]}
 
 
 def rglru_scan(a: torch.Tensor, b: torch.Tensor, *, bw: int | None = None,
-               bs: int | None = None) -> torch.Tensor:
+               bs: int | None = None,
+               plan: tuple[int, int, int] | None = None) -> torch.Tensor:
     """a, b: (B, S, W) -> h: (B, S, W) f32 with ``h_t = a_t h_{t-1} + b_t``.
 
     Inputs are taken as f32, as the JAX kernel casts them.  ``bw`` and
     ``bs`` are the JAX kernel's block sizes, accepted so that one kwargs
-    dict drives both packages; the Hopper kernel has no sequence tiles and
-    masks a ragged S and W, where the JAX kernel asserts that its blocks
-    divide them.
+    dict drives both packages; the Hopper kernel masks a ragged S and W,
+    where the JAX kernel asserts that its blocks divide them.  ``plan``
+    (``(cw, t, stages)``, ``(cw, t)`` one of :data:`PLANS`) replaces the
+    kernel's default plan; it changes no bit of the result.
     """
     del bw, bs
     if not build.on_card("rglru_scan", a, b):
@@ -51,8 +72,61 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, *, bw: int | None = None,
         return h
     lib = build.load("rglru_scan", _PROTOTYPES)
     with torch.cuda.device(a.device):
-        rc = lib.repro_rglru_scan(a.data_ptr(), b.data_ptr(), h.data_ptr(),
-                                  batch, seq, width, build.stream_handle(a))
-    build.check(lib, rc, "rglru_scan")
+        stream = build.stream_handle(a)
+        if plan is None:
+            rc = lib.repro_rglru_scan(a.data_ptr(), b.data_ptr(),
+                                      h.data_ptr(), batch, seq, width, stream)
+        else:
+            rc = lib.repro_rglru_scan_plan(a.data_ptr(), b.data_ptr(),
+                                           h.data_ptr(), batch, seq, width,
+                                           *plan, stream)
+    build.check(lib, rc, f"rglru_scan (plan {plan or 'default'})")
     build.LAUNCHES["rglru_scan"] += 1
     return h
+
+
+def route(a: torch.Tensor, b: torch.Tensor) -> str:
+    """The route the kernel takes for these (contiguous f32, CUDA)
+    operands, as the kernel's library decides it: ``"tma"`` (width a
+    multiple of 4, both on 16-byte boundaries: a, b and h move by TMA) or
+    ``"cp.async"``."""
+    lib = build.load("rglru_scan", _PROTOTYPES)
+    return ("tma" if lib.repro_rglru_scan_route(a.data_ptr(), b.data_ptr(),
+                                                a.shape[-1]) else "cp.async")
+
+
+def stages(batch: int, width: int) -> int:
+    """The ring stages of the kernel's default plan at ``batch`` x
+    ``width`` channels, as its library decides them: as many as bring the
+    ring across the card to about 4 MB, 2 to 4.  They change no bit."""
+    lib = build.load("rglru_scan", _PROTOTYPES)
+    return lib.repro_rglru_scan_stages(batch, width)
+
+
+def scan_in_kernel_order(a: torch.Tensor, b: torch.Tensor, cw: int = CW,
+                         t: int = T) -> torch.Tensor:
+    """The kernel's walk in PyTorch: per block of ``cw`` channels (a CTA),
+    per ring stage of ``t`` steps, the stage's rows as the producer lands
+    them (zeros past S and past the width, as the TMA route fills them; no
+    live channel reads them), then the
+    consumer's steps over the rows that exist, one rounded product and one
+    rounded sum each, storing only the live channels.  Equal to
+    :data:`plain` bit for bit at every shape and plan."""
+    a = a.to(torch.float32)
+    b = b.to(torch.float32)
+    batch, seq, width = a.shape
+    out = torch.empty_like(a)
+    for w0 in range(0, width, cw):
+        live = min(cw, width - w0)
+        hv = torch.zeros((batch, cw), dtype=torch.float32, device=a.device)
+        for t0 in range(0, seq, t):
+            rows = min(t, seq - t0)
+            sa = torch.zeros((batch, t, cw), dtype=torch.float32,
+                             device=a.device)
+            sb = torch.zeros_like(sa)
+            sa[:, :rows, :live] = a[:, t0:t0 + rows, w0:w0 + live]
+            sb[:, :rows, :live] = b[:, t0:t0 + rows, w0:w0 + live]
+            for u in range(rows):
+                hv = torch.add(torch.mul(sa[:, u], hv), sb[:, u])
+                out[:, t0 + u, w0:w0 + live] = hv[:, :live]
+    return out

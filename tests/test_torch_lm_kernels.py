@@ -3,7 +3,9 @@ forward GQA attention with causal, window and softcap masks) against the
 JAX Pallas kernel in interpret mode and against the JAX
 ``ref.flash_attention_ref`` at ragged sizes; K10 (``rglru_scan``, the
 RG-LRU recurrence) against the JAX ``ref.rglru_scan_ref`` (the Pallas
-kernel itself does not run under this jax: ROADMAP C.1).  Inputs are made
+kernel itself does not run under this jax: ROADMAP C.1), and the Hopper
+kernel's walk rendered in PyTorch (``rglru_scan.scan_in_kernel_order``)
+against the plain version, exactly.  Inputs are made
 with numpy from a seed and fed to both packages; each comparison states
 its tolerance."""
 import jax
@@ -147,6 +149,31 @@ def test_rglru_plain_is_the_sequential_recurrence():
         want[:, t] = h
     got = rglru_scan.rglru_scan(torch.from_numpy(a), torch.from_numpy(x))
     assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("b,s,w,cw,t", [
+    (1, 1, 1, 32, 64), (3, 63, 4, 32, 64), (1, 64, 16, 16, 32),
+    (2, 65, 33, 32, 64), (3, 257, 130, 32, 64), (1, 300, 36, 16, 128),
+    (2, 129, 64, 32, 128), (1, 97, 300, 16, 32)])
+def test_rglru_kernel_order_equals_plain(b, s, w, cw, t):
+    """K10's walk in PyTorch (``rglru_scan.scan_in_kernel_order``: channel
+    blocks of ``cw``, ring stages of ``t``, a ragged last block and a
+    partial last stage masked) equals the plain version bit for bit: the
+    Hopper kernel's exact check, here with no tolerance."""
+    rng = np.random.default_rng(RNG_SEED + 5 + s + w)
+    a = torch.from_numpy(rng.uniform(0.0, 1.0, (b, s, w)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((b, s, w)).astype(np.float32))
+    got = rglru_scan.scan_in_kernel_order(a, x, cw=cw, t=t)
+    assert torch.equal(got, rglru_scan.plain(a, x))
+
+
+def test_rglru_default_plan_is_a_built_plan():
+    """The wrapper's default plan is one the kernel is built for, and a
+    ``plan=`` on CPU tensors runs the plain version."""
+    assert (rglru_scan.CW, rglru_scan.T) in rglru_scan.PLANS
+    a = torch.rand((2, 9, 5), generator=torch.Generator().manual_seed(0))
+    got = rglru_scan.rglru_scan(a, a, plan=(16, 32, 3))
+    assert torch.equal(got, rglru_scan.plain(a, a))
 
 
 def test_wrappers_accept_jax_block_sizes_and_count_no_cpu_launch():
