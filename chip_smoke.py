@@ -115,6 +115,28 @@ a non-zero exit and prints no result):
    matrices drawn on the card at densities 0.1%, 1%, 3%, 10%, 20% and 30%
    (equal to each other), the sweep that sets ``relax.ARC_DENSITY``; K1
    and K2 are timed at M = n;
+7b. the tuple engine (``core.engine.Engine`` and the service's tuple
+   path; no hand-written kernel runs in it, so each step is driven between
+   launch-count reads that must show none, ``ask_dense`` aside): the full
+   model of TC on G10K (``Engine.run``, ``caps={"tc": 1 << 27}``,
+   ``join_cap=1 << 30``; 10^8 facts, a 5 × 10^8-binding iteration, joins
+   expanded in chunks) equal to the nonzeros of ``transitive_closure_dense``
+   (K1) on the card, its ``iterations`` and ``generated`` equal to the BFS
+   hop layers computed by K1 (each pair at hop distance k meets its end's
+   out-degree), with its wall time, facts a second, peak device memory and
+   a ``torch.profiler`` breakdown of its largest iteration by stage (join,
+   project, compact, merge, host sync); magic sets on G10K: ``ask`` for 4
+   sources, ``ask_batch`` of 32 as ONE qid-batched fixpoint (a spy on
+   ``Engine._try_batch``), each the closure's row, and ``ask_dense`` (K3)
+   equal to ``ask``; ``ask_batch`` of 32 ``dpath(s, X, min<D>)`` on G10K
+   with phase 7's weights against Dijkstra; ``ask_batch`` of 16
+   ``cpath(s, X, sum<C>)`` on phase 6's CPATH DAG against the int64 DP; the
+   non-linear TC (the shuffle join) on G1K (``gnp_graph(1_000, 0.005,
+   seed=10)``) equal to its K1 closure; and ``DatalogService(TC + SG,
+   device="cuda")`` on G1K: 8 ``tc(X, s)`` and 8 ``sg(s, X)`` in one batch,
+   each equal to a full-model engine's rows, the repeat from the cache, an
+   append of 1,000 new arcs that resumes the ``sg`` batch's snapshot, and 4
+   resumed answers equal to a cold engine's on the union;
 8. the LM serving path: RecurrentGemma-2B (``recurrentgemma-2b``) at its
    published widths and depth (26 layers, 18 ``rg`` and 8 ``local``,
    d_model 2560, vocab 256,000; 2.89 × 10^9 parameters drawn on the card
@@ -1958,6 +1980,386 @@ def tuned_phase(results, wedges, oracle):
     results["tuned_phase"] = phase
 
 
+# -- phase 7b: the tuple engine ------------------------------------------------
+
+#: non-linear TC (the shuffle join) and the service run on the paper's
+#: Table-6 G1K; G10K is the all-pairs phase's graph
+NL_N, NL_P, NL_SEED = 1_000, 0.005, 10
+TC_NONLINEAR = """
+tc(X,Y) <- arc(X,Y).
+tc(X,Y) <- tc(X,Z), tc(Z,Y).
+"""
+SG = """
+sg(X,Y) <- arc(P,X), arc(P,Y), X != Y.
+sg(X,Y) <- arc(A,X), sg(A,B), arc(B,Y).
+"""
+#: G10K's full TC: table and join capacities, and the PSN iteration whose
+#: join is the largest (the 4th), profiled in a second run
+TUPLE_CAP, TUPLE_JOIN_CAP, TUPLE_PROFILE_ITER = 1 << 27, 1 << 30, 3
+#: the service's table and join capacities: its ``sg`` batch holds a (qid,
+#: X, Y) row for each of 8 sources and nearly every pair of G1K, and the
+#: qid-batched plan (the planner's, as in JAX) probes the magic set by qid
+#: before the arc, so each Δ row meets every vertex its query demands:
+#: 2-3 × 10^9 bindings in the largest join
+TUPLE_SVC_CAP, TUPLE_SVC_JOIN_CAP = 1 << 24, 1 << 34
+#: sources: ``ask`` and ``ask_dense`` (4), the ``tc``/``dpath`` batches
+#: (32), the ``cpath`` batch (16), the service's ``tc(X, s)``/``sg(s, X)``
+#: batches (8 each) and arcs appended to it
+TUPLE_ASK, TUPLE_BATCH, TUPLE_CPATH, TUPLE_SVC, TUPLE_APPEND = 4, 32, 16, 8, 1000
+TUPLE_LABELS = ("tuple.join", "tuple.project", "tuple.compact",
+                "tuple.merge", "tuple.sync")
+
+
+def _hop_layers(torch, adj):
+    """The closure of ``adj`` by BFS layers on the card (K1 at M = n):
+    layer k holds the pairs at hop distance k.  Returns the closure and,
+    per layer, its pair count and the join bindings a linear PSN iteration
+    over it produces (each pair (x, z) meets z's out-degree), the oracle of
+    the tuple engine's ``iterations`` and ``generated``."""
+    from repro_torch.kernels import ops
+    mm = ops.semiring_matmul("bool")
+    outdeg = adj.sum(1, dtype=torch.int64)
+    seen, layer, per = adj.clone(), adj, []
+    while bool(layer.any()):
+        per.append((int(layer.sum()),
+                    int((layer.sum(0, dtype=torch.int64) * outdeg).sum())))
+        layer = mm(layer, adj) & ~seen
+        seen |= layer
+    return seen, per
+
+
+def _tuple_profile(torch, eng, it):
+    """Run ``eng`` with PSN iteration ``it`` traced by ``torch.profiler``:
+    per stage label (``GroupExecutor``'s), host ms and device ms, and the
+    iteration's wall ms, device busy ms and idle share."""
+    import contextlib
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+
+    @contextlib.contextmanager
+    def traced():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            yield
+            torch.cuda.synchronize()
+            out["wall_ms"] = (time.perf_counter() - t0) * 1e3
+        out["prof"] = prof
+
+    eng.iteration_hook = lambda i: traced() if i == it else \
+        contextlib.nullcontext()
+    eng.run()
+    eng.iteration_hook = None
+    prof = out.pop("prof")
+    busy, stages = 0.0, {}
+    for e in prof.key_averages():
+        dev = getattr(e, "device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "cuda_time_total", 0)
+        if e.key in TUPLE_LABELS:
+            st = stages.setdefault(e.key, {})
+            if e.device_type == DeviceType.CUDA:  # the label's device span
+                st["device_ms"] = dev / 1e3
+            else:  # the host's time inside the label
+                st.update(host_ms=e.cpu_time_total / 1e3, calls=e.count)
+        elif e.device_type == DeviceType.CUDA:
+            selfdev = getattr(e, "self_device_time_total", None)
+            busy += (selfdev if selfdev is not None
+                     else getattr(e, "self_cuda_time_total", 0)) / 1e3
+    out.update(device_ms=busy, stages=stages,
+               idle_share=max(0.0, 1.0 - busy / out["wall_ms"])
+               if busy > 0 else None)
+    if busy <= 0:
+        say("tuple iteration breakdown: not measured (no device time in the "
+            "trace)")
+    say(f"G10K TC, iteration {it + 1} traced: wall {out['wall_ms']:.1f} ms, "
+        f"device {busy:.1f} ms, idle {out['idle_share']}; " + ", ".join(
+            f"{k.split('.')[1]} host {v.get('host_ms', 0):.1f} / device "
+            f"{v.get('device_ms', 0):.1f} ms ({v.get('calls', 0)} calls)"
+            for k, v in stages.items()))
+    return out
+
+
+def _rows_equal_closure(torch, rows, closure, label):
+    """The tuple engine's rows (numpy, lexicographic) equal the closure
+    matrix's nonzeros (row-major, hence lexicographic), exactly."""
+    n = closure.shape[0]
+    got = torch.from_numpy(rows).to(closure.device).to(torch.int64)
+    got = got[:, 0] * n + got[:, 1]
+    want = closure.reshape(-1).nonzero().reshape(-1)
+    check(torch.equal(got, want), f"{label}: {len(rows)} rows against "
+          f"{len(want)} nonzeros of the K1 closure")
+
+
+def tuple_phase(results):
+    """The tuple engine (module docstring, phase 7b), each step between
+    launch-count reads."""
+    import torch
+    from repro_torch.core import engine as eng_mod
+    from repro_torch.core import seminaive as sn
+    from repro_torch.core.engine import Engine
+    from repro_torch.data import dag_graph, gnp_graph
+    from repro_torch.kernels import ops
+    from repro_torch.service import DatalogService
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    phase = {}
+
+    def counted(label, want):
+        counts = ops.launch_counts()
+        launched = {k: v for k, v in counts.items() if v}
+        say(f"{label} launches: {launched}")
+        check(set(launched) == set(want),
+              f"{label}: launched {launched}, expected {sorted(want)}")
+        return launched
+
+    # (1) the full model of TC on G10K
+    n = AP_N
+    edges = gnp_graph(n, AP_P, seed=SEED)
+    rng = np.random.default_rng(SEED + 8)
+    wedges = _weighted(rng, edges)  # phase 7's weights
+    adj = torch.zeros((n, n), dtype=torch.bool, device=DEVICE)
+    adj[torch.from_numpy(edges[:, 0]).to(DEVICE),
+        torch.from_numpy(edges[:, 1]).to(DEVICE)] = True
+    closure = sn.transitive_closure_dense(adj).table
+    layers, per = _hop_layers(torch, adj)
+    check(torch.equal(layers, closure), "the BFS layers' closure differs "
+          "from transitive_closure_dense")
+    del layers
+    want_iters = len(per)
+    want_gen = len(edges) + sum(b for _, b in per)
+    say(f"G10K TC oracle (K1 on the card): {int(closure.sum())} facts, "
+        f"{want_iters} hop layers, generated {want_gen}, largest iteration "
+        f"{max(b for _, b in per)} bindings; per layer "
+        f"{[p for p, _ in per]}")
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = Engine(TC, db={"arc": edges}, caps={"tc": TUPLE_CAP},
+                 join_cap=TUPLE_JOIN_CAP, device=DEVICE).run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counted("G10K TC (tuple engine)", ())
+    rows, st = eng.query("tc"), eng.stats["tc"]
+    _rows_equal_closure(torch, rows, closure, "G10K TC")
+    check(st.iterations == want_iters and st.generated == want_gen,
+          f"G10K TC: iterations {st.iterations}, generated {st.generated}; "
+          f"the oracle {want_iters}, {want_gen}")
+    say(f"G10K TC (Engine.run, full model): {len(rows)} facts in {secs:.2f} s "
+        f"({len(rows) / secs:.4g} facts/s), {st.iterations} iterations, "
+        f"generated {st.generated} ({st.generated / secs:.4g} bindings/s), "
+        f"peak {peak / 2 ** 30:.2f} GiB allocated; join chunk "
+        f"{eng_mod.JOIN_CHUNK} bindings")
+    phase["tc_full"] = {"facts": len(rows), "seconds": secs,
+                        "facts_per_s": len(rows) / secs,
+                        "iterations": st.iterations,
+                        "generated": st.generated,
+                        "largest_iteration": max(b for _, b in per),
+                        "peak_bytes": peak}
+    del eng, rows
+    # the largest iteration again, traced (the run stops after it)
+    prof_eng = Engine(TC, db={"arc": edges}, caps={"tc": TUPLE_CAP},
+                      join_cap=TUPLE_JOIN_CAP,
+                      max_iters=TUPLE_PROFILE_ITER + 1, device=DEVICE)
+    phase["tc_full"]["iteration_profile"] = _tuple_profile(
+        torch, prof_eng, TUPLE_PROFILE_ITER)
+    del prof_eng
+    torch.cuda.empty_cache()
+
+    # (2) magic sets on G10K: ask, one qid-batched fixpoint, ask_dense
+    picks = [int(s) for s in rng.permutation(n)[:TUPLE_BATCH]]
+    crow = closure[torch.tensor(picks, device=DEVICE)].cpu().numpy()
+    want_row = dict(zip(picks, crow))
+
+    def check_tc(label, s, ans):
+        dst = np.nonzero(want_row[s])[0]
+        check(np.array_equal(ans[:, 0], np.full(len(dst), s))
+              and np.array_equal(ans[:, 1], dst),
+              f"{label} tc({s}, X): {len(ans)} answers, the closure row "
+              f"{len(dst)}")
+
+    eng = Engine(TC, db={"arc": edges}, default_cap=1 << 22, device=DEVICE)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    asked = {s: eng.ask("tc", (s, None)) for s in picks[:TUPLE_ASK]}
+    ask_s = (time.perf_counter() - t0) / TUPLE_ASK
+    counted("G10K ask", ())
+    for s, ans in asked.items():
+        check_tc("ask", s, ans)
+    tries, asks = [], []
+    try_batch, ask = Engine._try_batch, Engine.ask
+    Engine._try_batch = lambda self, *a, **k: tries.append(
+        try_batch(self, *a, **k)) or tries[-1]
+    Engine.ask = lambda self, *a, **k: asks.append(1) or ask(self, *a, **k)
+    ops.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        batch = eng.ask_batch([("tc", (s, None)) for s in picks])
+        batch_s = time.perf_counter() - t0
+    finally:
+        Engine._try_batch, Engine.ask = try_batch, ask
+    check(len(tries) == 1 and tries[0] is not None and not asks,
+          f"G10K ask_batch: {len(tries)} batch attempts "
+          f"({sum(t is not None for t in tries)} ran), {len(asks)} asks")
+    counted("G10K ask_batch", ())
+    for s, ans in zip(picks, batch):
+        check_tc("ask_batch", s, ans)
+    bst = eng.stats["tc__bf"]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    dense = {s: eng.ask_dense("tc", (s, None)) for s in picks[:TUPLE_ASK]}
+    dense_s = (time.perf_counter() - t0) / TUPLE_ASK
+    counted("G10K ask_dense", ("csr_bool_step",))
+    for s, d in dense.items():
+        check(np.array_equal(d, asked[s]), f"ask_dense tc({s}, X) != ask")
+    say(f"G10K magic sets: ask {ask_s * 1e3:.1f} ms a query, ask_batch of "
+        f"{len(picks)} as one fixpoint in {batch_s:.2f} s ({bst.iterations} "
+        f"iterations, generated {bst.generated}), ask_dense {dense_s * 1e3:.1f}"
+        " ms a query; every answer the closure's row")
+    phase["magic"] = {"ask_ms": ask_s * 1e3, "batch_s": batch_s,
+                      "batch_iterations": bst.iterations,
+                      "batch_generated": bst.generated,
+                      "ask_dense_ms": dense_s * 1e3}
+    del eng, closure, crow, want_row
+
+    # (3) min<> in recursion: dpath on G10K, phase 7's weights
+    eng = Engine(SPATH, db={"darc": wedges}, default_cap=1 << 22,
+                 device=DEVICE)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    ans = eng.ask_batch([("dpath", (s, None, None)) for s in picks])
+    dp_s = time.perf_counter() - t0
+    counted("G10K dpath ask_batch", ())
+    oracle = Oracle(wedges, n, True)
+    for s, a in zip(picks, ans):
+        oracle.check(s, a)
+    dst = eng.stats["dpath__bff"]
+    say(f"G10K dpath: ask_batch of {len(picks)} in {dp_s:.2f} s "
+        f"({dst.iterations} iterations, generated {dst.generated}); every "
+        "answer Dijkstra's")
+    phase["dpath"] = {"batch_s": dp_s, "iterations": dst.iterations,
+                      "generated": dst.generated}
+
+    # (4) sum<> increments: cpath on phase 6's DAG
+    cedges = dag_graph(CPATH_N, CPATH_P, seed=SEED)
+    csrcs = [int(s) for s in rng.permutation(CPATH_N)[:TUPLE_CPATH]]
+    eng = Engine(CPATH, db={"d": cedges}, default_cap=1 << 22, device=DEVICE)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    ans = eng.ask_batch([("cpath", (s, None, None)) for s in csrcs])
+    cp_s = time.perf_counter() - t0
+    counted("cpath ask_batch", ())
+    oracle = DagOracle(cedges, CPATH_N, "sum")
+    for s, a in zip(csrcs, ans):
+        oracle.check(s, a)
+    cst = eng.stats.get("cpath__bff")
+    say(f"DAG cpath: ask_batch of {len(csrcs)} in {cp_s:.2f} s"
+        + (f" ({cst.iterations} iterations, generated {cst.generated})"
+           if cst else "") + "; every count the int64 DP's")
+    phase["cpath"] = {"batch_s": cp_s}
+    del eng, oracle
+
+    # (5) non-linear TC on G1K: the shuffle join
+    g1k = gnp_graph(NL_N, NL_P, seed=NL_SEED)
+    adj1 = torch.zeros((NL_N, NL_N), dtype=torch.bool, device=DEVICE)
+    adj1[torch.from_numpy(g1k[:, 0]).to(DEVICE),
+         torch.from_numpy(g1k[:, 1]).to(DEVICE)] = True
+    closure1 = sn.transitive_closure_dense(adj1).table
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = Engine(TC_NONLINEAR, db={"arc": g1k}, caps={"tc": 1 << 21},
+                 join_cap=TUPLE_JOIN_CAP, device=DEVICE).run()
+    torch.cuda.synchronize()
+    nl_s = time.perf_counter() - t0
+    counted("G1K non-linear TC", ())
+    _rows_equal_closure(torch, eng.query("tc"), closure1, "G1K non-linear TC")
+    nst = eng.stats["tc"]
+    say(f"G1K non-linear TC: {len(eng.query('tc'))} facts in {nl_s:.2f} s, "
+        f"{nst.iterations} iterations, generated {nst.generated}; equal to "
+        "the K1 closure")
+    phase["tc_nonlinear"] = {"seconds": nl_s, "iterations": nst.iterations,
+                             "generated": nst.generated}
+    del eng, closure1, adj1
+    torch.cuda.empty_cache()
+
+    # (6) the service's tuple path on G1K
+    svc = DatalogService(TC + SG, db={"arc": g1k}, default_cap=TUPLE_SVC_CAP,
+                         join_cap=TUPLE_SVC_JOIN_CAP, device=DEVICE)
+    full = Engine(TC + SG, db={"arc": g1k}, default_cap=TUPLE_SVC_CAP,
+                  join_cap=TUPLE_JOIN_CAP, device=DEVICE).run()
+    spicks = [int(s) for s in rng.permutation(NL_N)[:TUPLE_SVC]]
+    qs = [f"tc(X, {s})" for s in spicks] + [f"sg({s}, X)" for s in spicks]
+
+    def check_svc(label, answers, model):
+        tc_rows, sg_rows = model.query("tc"), model.query("sg")
+        for q, a, s in zip(qs, answers, spicks + spicks):
+            want = tc_rows[tc_rows[:, 1] == s] if q.startswith("tc") \
+                else sg_rows[sg_rows[:, 0] == s]
+            check(np.array_equal(a, want), f"{label} {q}: {len(a)} answers, "
+                  f"the full model {len(want)}")
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    answers = svc.ask_batch(qs)
+    svc_s = time.perf_counter() - t0
+    counted("G1K service batch", ())
+    check_svc("service", answers, full)
+    st0 = dict(svc.explain()["service"])
+    check(st0["tuple_fixpoints"] == 1
+          and st0["tuple_batched_queries"] == TUPLE_SVC,
+          f"the sg(s, X) batch did not run as one qid-batched fixpoint: {st0}")
+    hits0 = svc.cache.hits
+    check_svc("service (repeat)", svc.ask_batch(qs), full)
+    check(svc.cache.hits - hits0 == len(qs),
+          f"the repeated batch hit the cache {svc.cache.hits - hits0} times")
+    have = {tuple(r) for r in g1k.tolist()}
+    extra = []
+    while len(extra) < TUPLE_APPEND:
+        a, b = (int(x) for x in rng.integers(0, NL_N, 2))
+        if a != b and (a, b) not in have:
+            have.add((a, b))
+            extra.append((a, b))
+    extra = np.asarray(extra, np.int64)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    svc.append("arc", extra)
+    app_s = time.perf_counter() - t0
+    counted("G1K service append", ())
+    resumed = svc.stats.resumed_tuple_rows
+    check(resumed > 0, "the append resumed no tuple snapshot")
+    union = np.concatenate([g1k, extra])
+    cold = Engine(SG, db={"arc": union}, default_cap=TUPLE_SVC_CAP,
+                  join_cap=TUPLE_JOIN_CAP, device=DEVICE)
+    hits0 = svc.cache.hits
+    for s in spicks[:TUPLE_ASK]:
+        got = svc.ask("sg", (s, None))
+        check(np.array_equal(got, cold.ask("sg", (s, None))),
+              f"resumed sg({s}, X) differs from a cold engine on the union")
+    check(svc.cache.hits - hits0 == TUPLE_ASK,
+          "the resumed answers were not served from the refreshed cache")
+    rep = svc.explain()
+    say(f"G1K service: batch of {len(qs)} ({TUPLE_SVC} tc(X, s), "
+        f"{TUPLE_SVC} sg(s, X)) in {svc_s:.2f} s, {st0['tuple_fixpoints']} "
+        f"qid-batched fixpoint(s) for {st0['tuple_batched_queries']} queries, "
+        f"{st0['tuple_runs']} tuple runs, {st0['plans_built']} plans; "
+        f"the repeat from the cache; append of {len(extra)} arcs in "
+        f"{app_s:.2f} s resumed {resumed} answers; templates "
+        f"{rep['templates']}")
+    phase["service"] = {"batch_s": svc_s, "append_s": app_s,
+                        "resumed_tuple_rows": resumed,
+                        "stats": rep["service"]}
+    del svc, full, cold
+    torch.cuda.empty_cache()
+    phase["seconds"] = time.perf_counter() - t_phase
+    say(f"tuple phase: {phase['seconds']:.1f} s")
+    results["tuple_phase"] = phase
+
+
 # -- phase 8: the LM serving path ----------------------------------------------
 
 #: RecurrentGemma-2B at its published widths and depth; the prefill is cut
@@ -2366,6 +2768,7 @@ def main():
     dag_phase(results, edges)
     del edges
     allpairs_phase(results)
+    tuple_phase(results)
     lm_phase(results)
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -2378,7 +2781,8 @@ def main():
     say("phases: " + json.dumps({k: results[k]
                                  for k in ("dense_phase", "csr_phase",
                                            "tuned_phase", "dag_phase",
-                                           "allpairs_phase", "lm_phase")}))
+                                           "allpairs_phase", "tuple_phase",
+                                           "lm_phase")}))
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(card)
     say(json.dumps(line))

@@ -1,7 +1,8 @@
-"""Query normalization and EDB selection, ported from ``repro.core.engine``
-(``as_query_literal``, ``repeated_var_groups``, ``query_row_mask``) and the
-planner's ``PlanError``.  The port has no tuple engine yet (ROADMAP A.6), so
-these pieces live on their own."""
+"""Query normalization and row selection, ported from ``repro.core.engine``
+(``as_query_literal``, ``repeated_var_groups``, ``query_row_mask``), with
+the planner's ``PlanError`` re-exported, and the host-side row-set helpers
+the serving layer dedupes and filters with (sorting, never ``np.unique``'s
+hash table)."""
 from __future__ import annotations
 
 from typing import Union
@@ -10,10 +11,11 @@ import numpy as np
 
 from .ir import Const, Literal, Term, Var, fresh_var
 from .parser import parse_query
+from .planner import PlanError
 
-
-class PlanError(ValueError):
-    """A query or program the engine cannot plan."""
+__all__ = ["PlanError", "QuerySpec", "as_query_literal", "repeated_var_groups",
+           "query_row_mask", "row_keys", "sorted_unique", "unique_rows",
+           "RowSet", "new_rows", "sorted_contains", "normalize_db"]
 
 
 QuerySpec = Union[str, Literal, tuple]
@@ -49,16 +51,27 @@ def repeated_var_groups(q: Literal) -> list[list[int]]:
     return [ps for ps in groups.values() if len(ps) > 1]
 
 
-def query_row_mask(q: Literal, rows: np.ndarray) -> np.ndarray:
-    """Row mask restricting an EDB relation to a query goal: constants match
-    their column, repeated variables must be pairwise equal."""
+def query_row_mask(q: Literal, rows, vals=None, info=None) -> np.ndarray:
+    """Row mask restricting an evaluated model to a query goal: constants
+    match their column, repeated variables must be pairwise equal.
+
+    The one filtering semantics shared by ``Engine.ask`` (EDB selections),
+    the engine's query finalization and verification, and the serving
+    layer's templates.  ``info`` (a planner ``PredInfo``) maps aggregate
+    literal positions onto key columns / the ``vals`` array; ``info=None``
+    treats every position as a direct row column (EDB relations)."""
+    def col(pos):
+        if info is not None and info.is_agg and pos == info.agg_pos:
+            return np.asarray(vals)
+        return np.asarray(rows[:, pos if info is None else info.key_rank(pos)])
+
     mask = np.ones(len(rows), bool)
     for i, a in enumerate(q.args):
         if isinstance(a, Const):
-            mask &= rows[:, i] == a.value
+            mask &= col(i) == a.value
     for ps in repeated_var_groups(q):
         for pos in ps[1:]:
-            mask &= rows[:, ps[0]] == rows[:, pos]
+            mask &= col(ps[0]) == col(pos)
     return mask
 
 

@@ -1,6 +1,6 @@
-"""Semi-naive dense fixpoints over torch tensors.
+"""Semi-naive fixpoints over torch tensors: port of ``repro.core.seminaive``.
 
-Port of the dense half of ``repro.core.seminaive``.  Each iteration is one
+**Dense half.**  Each iteration is one
 ⊕.⊗ product (two for the nonlinear and sandwich forms), with semi-naive
 evaluation realized as delta-row masking (idempotent ⊕) or delta
 accumulation (additive ⊕).  ``lax.while_loop`` becomes a host loop: the
@@ -14,15 +14,93 @@ CPU tensor.  The all-pairs front-ends (transitive closure, shortest paths,
 same generation, connected components) and the single-source ones run on
 it; the fused relaxation step K8 is reached through ``kernels.ops.relax``,
 as in the JAX package.
+
+**Tuple half** (Algorithm 1's building blocks, driven by
+``engine.GroupExecutor``): EDB join indexes, binding tables and the joins
+that expand them, over the exact-size packed tables of ``relation.py``.
+
+**Trace accounting.**  The JAX package counts fixpoint (re-)traces, which
+happen at the first call of each jitted fixpoint with a new static key or
+new argument shapes; the serving layer's tests assert that warm batches
+compile nothing.  There is no jit here, so :func:`note_trace` keeps the
+keys and argument shapes JAX's caches would hold and bumps the same
+counter at the same calls: group runners (``engine.GroupExecutor``, keyed
+by their structural key and ``quantize_rows``-bucketed shapes),
+:func:`fixpoint_dense_cached` and ``sparse.fixpoint_csr_cached``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+import threading
+from collections import OrderedDict
+from typing import Callable, Hashable
 
+import numpy as np
 import torch
 
+from ..device import resolve_device
+from .relation import (EMPTY, Schema, expand_matches, match_ranges,
+                       sorted_member)
 from .semiring import BOOL, MIN_PLUS, PLUS_TIMES, Semiring
+
+# ---------------------------------------------------------------------------
+# Trace accounting
+# ---------------------------------------------------------------------------
+
+_TRACE_COUNT = 0
+_TRACE_LOCK = threading.Lock()
+#: per cache: static key -> the argument signatures it has been called with,
+#: oldest static key first (JAX's group-runner cache evicts FIFO at 256)
+_TRACED: dict[str, "OrderedDict[Hashable, set]"] = {}
+_TRACE_LIMITS = {"group": 256}
+
+
+def bump_trace_count() -> None:
+    global _TRACE_COUNT
+    with _TRACE_LOCK:
+        _TRACE_COUNT += 1
+
+
+def trace_count() -> int:
+    return _TRACE_COUNT
+
+
+def note_trace(cache: str, static_key: Hashable, signature: Hashable) -> bool:
+    """Record a call of a fixpoint that JAX runs under a jit: bump the
+    trace count (and return True) when JAX would trace it, i.e. at the
+    first call with this static key and argument signature since the key
+    entered ``cache``."""
+    with _TRACE_LOCK:
+        seen = _TRACED.setdefault(cache, OrderedDict())
+        sigs = seen.get(static_key)
+        if sigs is None:
+            limit = _TRACE_LIMITS.get(cache)
+            if limit is not None and len(seen) >= limit:
+                seen.pop(next(iter(seen)))
+            sigs = seen[static_key] = set()
+        if signature in sigs:
+            return False
+        sigs.add(signature)
+    bump_trace_count()
+    return True
+
+
+def forget_trace(cache: str, static_key: Hashable,
+                 signature: Hashable) -> None:
+    """Undo :func:`note_trace` for a call whose trace raised (JAX caches
+    nothing for it, so the next call traces again)."""
+    with _TRACE_LOCK:
+        _TRACED.get(cache, {}).get(static_key, set()).discard(signature)
+
+
+def clear_traces(cache: str) -> None:
+    """Forget a cache's keys (JAX: the cached jitted functions dropped)."""
+    with _TRACE_LOCK:
+        _TRACED.pop(cache, None)
+
+
+def _shape_sig(t: torch.Tensor | None):
+    return None if t is None else (tuple(t.shape), str(t.dtype))
 
 #: generated-fact accumulator dtype (int64, as in the x64 JAX run)
 GEN_DTYPE = torch.int64
@@ -141,9 +219,12 @@ def fixpoint_dense_cached(
 ) -> DenseResult:
     """:func:`fixpoint_dense` with the JAX cached twin's signature.  There is
     no jit to cache; ``max_iters`` resolves here (``4n + 8`` over the domain
-    size) exactly as the JAX twin resolves it."""
+    size) exactly as the JAX twin resolves it, and the call is counted as
+    the JAX twin's trace cache would count it (:func:`note_trace`)."""
     if max_iters is None:
         max_iters = 4 * init.shape[-1] + 8
+    note_trace("dense", (sr.name, form, matmul, max_iters),
+               (_shape_sig(arc), _shape_sig(init)))
     return fixpoint_dense(sr, arc, init, form=form, matmul=matmul,
                           max_iters=max_iters)
 
@@ -284,3 +365,213 @@ def quantize_ladder(floor: int, stride: int, top: int) -> tuple[int, ...]:
     while caps[-1] < top:
         caps.append(caps[-1] << stride)
     return tuple(caps)
+
+
+# ---------------------------------------------------------------------------
+# Tuple PSN — Algorithm 1's building blocks
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class EdbIndex:
+    """A base relation indexed for equi-joins on a column subset: the join
+    columns packed and sorted (the build side), every column gathered into
+    the same order.  ``bucket`` is the row capacity JAX pads the index to
+    (:func:`quantize_rows`); it enters only the trace signature."""
+
+    keys: torch.Tensor  # (count,) int64, ascending
+    count: int
+    cols: tuple[torch.Tensor, ...]  # (count,) int32 each, sorted by keys
+    bucket: int
+
+
+def build_edb_index(rows: np.ndarray, key_cols: tuple[int, ...],
+                    schema_bits: int, minimum: int = 8,
+                    device=None) -> EdbIndex:
+    """Index ``rows`` on ``key_cols`` (packed at ``schema_bits`` a column)
+    on ``device`` (``None``: the card).  ``minimum`` is the relation's
+    shape-bucket floor (``PlanOptions.bucket_floors``), as in JAX."""
+    dev = resolve_device(device)
+    rows = np.asarray(rows, np.int64)
+    minimum = max(minimum, 8)
+    if rows.ndim == 1:  # single-column relation
+        rows = rows[:, None]
+    if len(rows) == 0:
+        width = rows.shape[1] if rows.size or rows.ndim > 1 else 1
+        return EdbIndex(
+            keys=torch.zeros((0,), dtype=torch.int64, device=dev), count=0,
+            cols=tuple(torch.zeros((0,), dtype=torch.int32, device=dev)
+                       for _ in range(width)),
+            bucket=quantize_rows(1, minimum=minimum))
+    t = torch.from_numpy(rows).to(dev)
+    keys = Schema(tuple([schema_bits] * len(key_cols))).pack(
+        [t[:, c] for c in key_cols])
+    skeys, order = torch.sort(keys, stable=True)
+    cols = t[order].to(torch.int32)
+    return EdbIndex(keys=skeys, count=len(rows),
+                    cols=tuple(cols[:, i].contiguous()
+                               for i in range(rows.shape[1])),
+                    bucket=quantize_rows(len(rows), minimum=minimum))
+
+
+def pack_warm_rows(rows: np.ndarray, vals: np.ndarray | None, schema: Schema,
+                   agg_init: int | None = None, device=None):
+    """Pack previously materialized rows for *warm-starting* a later
+    fixpoint: monotone tables make any earlier model a lower bound of the
+    post-append model, so an appended engine re-enters the fixpoint from
+    ``prev ∪ exit(T_new)`` and converges in the delta's propagation depth.
+    Returns JAX's arrays: int64 keys ``EMPTY``-padded to a
+    :func:`quantize_rows` bucket (and int32 values padded with
+    ``agg_init``), on ``device`` (``None``: the card)."""
+    dev = resolve_device(device)
+    n = len(rows)
+    cap = quantize_rows(max(n, 1))
+    keys = np.full((cap,), EMPTY, np.int64)
+    if n:
+        rows = np.asarray(rows, np.int64)
+        for c, hi in enumerate(schema.max_values()):
+            col = rows[:, c]
+            if col.min() < 0 or col.max() > hi:
+                raise ValueError(
+                    f"warm rows exceed the packed domain in column {c} "
+                    f"(max {hi}); packing would silently truncate")
+        packed = np.zeros((n,), np.int64)
+        for c, shift in enumerate(schema.shifts):
+            packed |= rows[:, c] << shift
+        keys[:n] = packed
+    if vals is None:
+        return torch.from_numpy(keys).to(dev), None
+    v = np.full((cap,), agg_init, np.int32)
+    if n:
+        v[:n] = np.asarray(vals, np.int32)
+    return torch.from_numpy(keys).to(dev), torch.from_numpy(v).to(dev)
+
+
+@dataclasses.dataclass
+class Bindings:
+    """Variable bindings flowing through a rule body (columnar).  ``valid``
+    marks the live rows; the joins below drop the others, so their outputs
+    hold live rows only."""
+
+    cols: dict[str, torch.Tensor]  # var name -> (k,) int32
+    valid: torch.Tensor  # (k,) bool
+    overflow: bool = False
+
+
+def _live(b: Bindings) -> Bindings:
+    if bool(b.valid.all()):
+        return b
+    return Bindings({v: c[b.valid] for v, c in b.cols.items()},
+                    b.valid[b.valid], b.overflow)
+
+
+def _probe_cols(b: Bindings, probe_vars) -> list[torch.Tensor]:
+    """Probe columns: binding columns by name, int constants as columns."""
+    return [b.cols[v] if isinstance(v, str)
+            else torch.full(b.valid.shape, v, dtype=torch.int32,
+                            device=b.valid.device) for v in probe_vars]
+
+
+def edb_probe(b: Bindings, probe_vars, schema_bits: int) -> torch.Tensor:
+    """The packed probe keys of a join or anti-join against an EDB index."""
+    return Schema(tuple([schema_bits] * len(probe_vars))).pack(
+        _probe_cols(b, probe_vars))
+
+
+def edb_antijoin(b: Bindings, index: EdbIndex, probe_vars,
+                 schema_bits: int) -> Bindings:
+    """Negated EDB literal: the bindings whose probe key the index lacks."""
+    hit = sorted_member(edb_probe(b, probe_vars, schema_bits), index.keys)
+    return Bindings(b.cols, b.valid & ~hit, b.overflow)
+
+
+def expand_bindings(b: Bindings, lo: torch.Tensor, matches: torch.Tensor,
+                    total: int, fetch, keep=None) -> Bindings:
+    """The bindings a join makes of the live bindings ``b``: row ``i`` once
+    for each of its ``matches[i]`` build positions from ``lo[i]``
+    (``total`` in all; probe order, then build order), with the columns
+    ``fetch(build_idx)`` introduces.  ``keep``, when given, names the
+    columns to keep."""
+    pi, bi = expand_matches(lo, matches, total)
+    cols = {v: c[pi] for v, c in b.cols.items() if keep is None or v in keep}
+    cols.update((v, c) for v, c in fetch(bi).items()
+                if keep is None or v in keep)
+    return Bindings(cols, torch.ones(pi.shape, dtype=torch.bool,
+                                     device=pi.device), b.overflow)
+
+
+def _join_capped(b: Bindings, lo, matches, fetch, out_cap) -> Bindings:
+    """The first ``out_cap`` joined bindings (JAX's truncation), with
+    ``overflow`` set when there were more."""
+    cum = torch.cumsum(matches, 0)
+    total = int(cum[-1]) if cum.numel() else 0
+    if total > out_cap:  # the row counts of the first out_cap matches
+        cum = cum.clamp(max=out_cap)
+        matches = torch.diff(cum, prepend=cum.new_zeros(1))
+    out = expand_bindings(b, lo, matches, min(total, out_cap), fetch)
+    out.overflow = b.overflow or total > out_cap
+    return out
+
+
+def edb_intro(index: EdbIndex, build_idx: torch.Tensor, intro) -> dict:
+    """The columns a join introduces from an EDB index, at ``build_idx``."""
+    return {var: index.cols[c][build_idx] for var, c in dict(intro).items()}
+
+
+def idb_intro(keys: torch.Tensor, values, idx: torch.Tensor,
+              pred_schema: Schema, intro) -> dict:
+    """The columns a join introduces from an IDB table (key column ``c`` or
+    the aggregate ``"value"``), at table positions ``idx``."""
+    intro = dict(intro)
+    if not intro:
+        return {}
+    k = keys[idx]
+    out = {}
+    for var, c in intro.items():
+        if c == "value":
+            out[var] = values[idx]
+        else:
+            b, shift = pred_schema.bits[c], pred_schema.shifts[c]
+            out[var] = ((k >> shift) & ((1 << b) - 1)).to(torch.int32)
+    return out
+
+
+def join_edb(b: Bindings, index: EdbIndex, probe_vars, build_key_cols, intro,
+             schema_bits, out_cap) -> Bindings:
+    """Join the bindings against an EDB index, introducing new columns.
+    ``probe_vars`` entries are binding-column names or int constants (the
+    planner's constant probes).  More than ``out_cap`` matches set
+    ``overflow`` and keep the first ``out_cap``, as in JAX."""
+    b = _live(b)
+    lo, matches = match_ranges(index.keys,
+                               edb_probe(b, probe_vars, schema_bits))
+    return _join_capped(b, lo, matches,
+                        lambda bi: edb_intro(index, bi, intro), out_cap)
+
+
+def idb_prefix_ranges(b: Bindings, table_keys: torch.Tensor, probe_vars,
+                      pred_schema: Schema, n_key_cols: int):
+    """Per live binding: the range of an IDB table's keys whose first
+    ``n_key_cols`` columns equal the probe (a range over the high bits of
+    the sorted packed keys)."""
+    rem_shift = sum(pred_schema.bits[n_key_cols:])
+    prefix = Schema(tuple(pred_schema.bits[:n_key_cols])).pack(
+        [b.cols[v] for v in probe_vars])
+    return match_ranges(table_keys, prefix << rem_shift,
+                        (prefix + 1) << rem_shift)
+
+
+def join_idb_prefix(b: Bindings, table_keys, table_count, probe_vars,
+                    pred_schema: Schema, n_key_cols: int, values, intro_vars,
+                    out_cap) -> Bindings:
+    """Join the bindings against an IDB table on a *prefix* of its columns:
+    the table is sorted by its packed tuple, hence by any column prefix, so
+    a range query finds every match without re-indexing the table."""
+    b = _live(b)
+    keys = table_keys[:int(table_count)]
+    lo, matches = idb_prefix_ranges(b, keys, probe_vars, pred_schema,
+                                    n_key_cols)
+    return _join_capped(
+        b, lo, matches,
+        lambda ti: idb_intro(keys, values, ti, pred_schema, intro_vars),
+        out_cap)

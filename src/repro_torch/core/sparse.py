@@ -54,7 +54,7 @@ from ..device import resolve_device
 from .query import new_rows, sorted_unique, unique_rows
 from .semiring import Semiring, carrier_for
 from .seminaive import (GEN_DTYPE, DenseResult, _ne, additive_max_iters,
-                        check_additive_converged, quantize_ladder,
+                        check_additive_converged, note_trace, quantize_ladder,
                         quantize_rows)
 
 #: density |E|/n² below which the serving layer prefers CSR over the dense
@@ -741,10 +741,27 @@ def fixpoint_csr_cached(csr: CSRMatrix, init: torch.Tensor,
                         spmv: Callable | None = None,
                         max_iters: int | None = None) -> DenseResult:
     """:func:`fixpoint_csr` with the JAX cached twin's signature (no jit
-    here; ``max_iters`` resolves per carrier as there)."""
+    here; ``max_iters`` resolves per carrier as there).  The call is counted
+    as the JAX twin's trace cache would count it: its static key is the
+    step and the bound, its signature the carrier's static fields and the
+    shapes of its arrays and of ``init`` (``seminaive.note_trace``)."""
     if max_iters is None:
         max_iters = _default_max_iters(csr, init)
+    note_trace("csr", (spmv, max_iters), _csr_signature(csr, init))
     return fixpoint_csr(csr, init, spmv=spmv, max_iters=max_iters)
+
+
+def _csr_signature(csr: CSRMatrix, init: torch.Tensor) -> tuple:
+    """What a JAX jit keys a CSR argument on: the static fields and the
+    shape of every array of JAX's layout (the derived views excluded)."""
+    arrays = (csr.row_ptr, csr.col_idx, csr.edge_val, csr.src_idx,
+              *csr.ell_slices, csr.ell_rank, csr.nnz, csr.tail_src,
+              csr.tail_dst, csr.tail_val, csr.tail_ell, csr.tail_nnz,
+              csr.plan_tile, csr.plan_chunk, csr.plan_first)
+    return ((csr.n, csr.n_alloc, csr.kind, csr.ell_cfg, csr.plan_cfg,
+             len(csr.ell_slices)),
+            tuple(None if a is None else tuple(a.shape) for a in arrays),
+            (tuple(init.shape), str(init.dtype)))
 
 
 def reachable_batch_csr(csr: CSRMatrix, srcs, spmv=None,

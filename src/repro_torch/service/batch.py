@@ -13,6 +13,10 @@ Batch sizes quantize to the service's pad levels (1, 8, 32, 128, ...) with
 ⊕-zero frontier rows, exactly as in the JAX package, so ``iterations`` and
 ``generated`` agree with it.  The padding has no compile cache to feed here;
 it keeps the two packages' results identical.
+
+Tuple queries group by (predicate, adornment) shape instead
+(:func:`coalesce_by_shape`): a same-shape group shares one qid-tagged
+tuple fixpoint (``session._QueryTemplate.run_batch``).
 """
 from __future__ import annotations
 
@@ -23,6 +27,16 @@ from ..core import sparse as _sparse
 from ..core.semiring import Semiring
 from ..core.seminaive import (DenseResult, additive_max_iters,
                               check_additive_converged, fixpoint_dense_cached)
+
+
+def coalesce_by_shape(items: list, shape_of) -> dict:
+    """Group (index, query) pairs by ``shape_of(query)``, preserving order:
+    queries sharing a (pred, adornment) shape may share one qid-tagged
+    fixpoint (their demands share a seed schema); mixed shapes must not."""
+    groups: dict = {}
+    for i, q in items:
+        groups.setdefault(shape_of(q), []).append((i, q))
+    return groups
 
 
 def pad_batch_size(b: int, pads: tuple[int, ...]) -> int:

@@ -1,5 +1,5 @@
 """Monotone EDB appends and fixpoint resumption: port of
-``repro.service.incremental`` (the dense and CSR carrier path).
+``repro.service.incremental`` (the carrier path and the tuple path).
 
 Datalog under appends is monotone: new base facts only add derived facts,
 so a cached closure row is a lower bound of the post-append one, and the
@@ -13,14 +13,21 @@ which converges in as many iterations as the delta needs to propagate.  The
 additive carrier cannot re-enter (already-counted paths would count twice)
 and replays the increment instead (:func:`replay_init`).
 
-The tuple-engine snapshots and the admission epoch fence of the JAX module
-come with the tuple engine and the admission front-end.
+A batched tuple template resumes the same way: its last fixpoint state
+(:class:`TupleSnapshot`) is a lower bound of the post-append model for the
+same seeds, so the engine re-enters from it (``Engine.run(warm=)``).
+
+The admission epoch fence of the JAX module comes with the admission
+front-end.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
+from ..core.ir import Const, Literal, Program, Var
 from ..core.semiring import Semiring
 
 
@@ -113,3 +120,73 @@ def partition_resumable(entries: list, min_hits: int,
             (kept if budget <= max_bytes else cold).append((k, e))
         hot = kept
     return hot, cold
+
+
+# ---------------------------------------------------------------------------
+# Tuple-path resumption: snapshot a batched template's fixpoint state
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class TupleSnapshot:
+    """A batched tuple template's last fixpoint state, for append-resume.
+
+    The PSN tables are monotone, so every materialized relation of the last
+    run (adorned and magic predicates alike: demands only grow under
+    appends) is a lower bound of the post-append model *for the same seed
+    rows*.  On a monotone append the service re-runs the template with the
+    same seeds, warm-started from ``state`` (``Engine.run(warm=)``), and the
+    per-qid cache entries refresh instead of invalidating."""
+
+    seeds: np.ndarray  # (B, 1 + n_bound) qid-tagged seed rows
+    qlits: list[Literal]  # the batch's query goals, qid order
+    state: dict[str, tuple[np.ndarray, np.ndarray | None]]  # pred -> model
+
+
+def literal_to_json(q: Literal) -> dict:
+    """JSON-safe encoding of a (positive) query goal, for persisting
+    :attr:`TupleSnapshot.qlits`."""
+    return {"pred": q.pred,
+            "args": [{"c": int(a.value)} if isinstance(a, Const)
+                     else {"v": a.name} for a in q.args]}
+
+
+def literal_from_json(d: dict) -> Literal:
+    return Literal(d["pred"], tuple(
+        Const(int(a["c"])) if "c" in a else Var(a["v"]) for a in d["args"]))
+
+
+def snapshot_to_state(snap: TupleSnapshot, put) -> dict:
+    """Serialize a :class:`TupleSnapshot`: arrays go out through
+    ``put(name, array)`` under positional names, and the returned dict is
+    the JSON-safe meta (the JAX module's layout, so either package reads
+    the other's)."""
+    put("seeds", np.asarray(snap.seeds))
+    state_meta = []
+    for j, (pred, (rows, vals)) in enumerate(sorted(snap.state.items())):
+        state_meta.append({"pred": pred, "vals": vals is not None})
+        put(f"state/{j}/rows", np.asarray(rows))
+        if vals is not None:
+            put(f"state/{j}/vals", np.asarray(vals))
+    return {"qlits": [literal_to_json(q) for q in snap.qlits],
+            "state": state_meta}
+
+
+def snapshot_from_state(meta: dict, get) -> TupleSnapshot:
+    """Inverse of :func:`snapshot_to_state`; ``get(name)`` resolves the
+    positional array names back to arrays."""
+    state: dict[str, tuple] = {}
+    for j, ps in enumerate(meta["state"]):
+        rows = np.asarray(get(f"state/{j}/rows"))
+        vals = np.asarray(get(f"state/{j}/vals")) if ps["vals"] else None
+        state[ps["pred"]] = (rows, vals)
+    return TupleSnapshot(seeds=np.asarray(get("seeds")),
+                         qlits=[literal_from_json(d) for d in meta["qlits"]],
+                         state=state)
+
+
+def resumable_program(program: Program) -> bool:
+    """Is warm-starting sound for this (rewritten) program under monotone
+    EDB appends?  The predicate ``Engine.run(warm=)`` enforces, checked
+    before a snapshot is built."""
+    return program.monotone_under_appends()

@@ -18,31 +18,44 @@ with a tile-skip plan then step through K7.
     svc.ask_batch([("tc", (s, None)) for s in sources])  # one fixpoint
     svc.append("arc", [[7, 8]])                          # resume, don't recompute
 
-The service runs on ``cuda`` unless the caller passes ``device="cpu"``; on
-the card every fixpoint iteration is a hand-written CUDA kernel
-(``repro_torch.kernels``) except the dense plus-times product, a full-f32
-``torch.matmul`` as in the JAX package; on the CPU the kernels' plain
-versions run.
+Every other query goes through the tuple engine (``core.engine``), as in
+the JAX service: a memoized template per (predicate, adornment) shape holds
+the magic rewrite with its seed constants moved into a seed EDB relation
+(or, where the magic program cannot plan, the demanded strata, evaluated
+once per epoch and filtered per query); B same-shape queries run as ONE
+qid-tagged fixpoint, whose state is snapshotted so that a monotone append
+resumes the batch warm instead of recomputing it.
 
-What the JAX service does beyond this path raises ``NotImplementedError``
-naming its ROADMAP item: the tuple engine with the modules built on it —
-non-frontier queries, ``mesh``, ``probe``, ``tracer`` and ``durable_dir``
-(A.6).
+The service runs on ``cuda`` unless the caller passes ``device="cpu"``; on
+the card every frontier iteration is a hand-written CUDA kernel
+(``repro_torch.kernels``) except the dense plus-times product, a full-f32
+``torch.matmul`` as in the JAX package, and the tuple engine's sorts,
+searches and gathers are torch operations on the card; on the CPU the
+kernels' plain versions run.
+
+``mesh``, ``probe``, ``tracer``, ``durable_dir`` and a ``metrics``
+registry raise ``NotImplementedError`` naming their ROADMAP item (A.6).
 """
 from __future__ import annotations
 
 import dataclasses
+from collections import OrderedDict
 
 import numpy as np
 import torch
 
 from ..core import sparse as _sparse
-from ..core.ir import Const, Literal
-from ..core.magic import (FrontierLowering, detect_frontier_lowering,
-                          frontier_query_source)
+from ..core.engine import (CapacityError, Engine, as_query_literal,
+                           query_row_mask, split_qid_answers)
+from ..core.ir import Const, Literal, Program, Rule, fresh_var
+from ..core.magic import (BOUND, FrontierLowering, MagicError, agg_positions,
+                          attribute_qids, detect_frontier_lowering,
+                          frontier_query_source, qid_batchable,
+                          query_adornment)
+from ..core.magic import rewrite as magic_rewrite
 from ..core.parser import parse_program
-from ..core.query import (PlanError, RowSet, as_query_literal, normalize_db,
-                          query_row_mask, unique_rows)
+from ..core.planner import PlanError, demanded_strata
+from ..core.query import RowSet, unique_rows
 from ..core.semiring import BOOL, MIN_PLUS, carrier_for, edge_arity
 from ..device import resolve_device
 from ..kernels import autotune as _at
@@ -59,14 +72,21 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 @dataclasses.dataclass
 class ServiceStats:
     """Evaluation-side counters (result-cache counters live on the
-    :class:`~repro_torch.service.cache.LRUCache`)."""
+    :class:`~repro_torch.service.cache.LRUCache`): the JAX service's, in its
+    order, plus ``fixpoint_iterations``."""
 
+    plans_built: int = 0  # templates constructed (magic rewrite + plan)
+    plan_hits: int = 0  # queries served by a memoized template
+    tuple_runs: int = 0  # PSN evaluations (template engine runs)
     dense_fixpoints: int = 0  # batched closure fixpoints launched (any repr)
     csr_fixpoints: int = 0  # ... of which ran the CSR-packed sparse engine
     batched_queries: int = 0  # queries answered by those fixpoints
     fixpoint_iterations: int = 0  # loop trips summed over those fixpoints
+    tuple_fixpoints: int = 0  # qid-batched tuple fixpoints launched
+    tuple_batched_queries: int = 0  # queries answered by those fixpoints
     appends: int = 0
     resumed_rows: int = 0  # cached closures refreshed by append-resume
+    resumed_tuple_rows: int = 0  # tuple answers refreshed by snapshot resume
     dropped_cold: int = 0  # cold entries evicted instead of resumed
 
 
@@ -227,6 +247,197 @@ class _DenseRelation:
         return rep
 
 
+class _QueryTemplate:
+    """Memoized evaluation template for one (predicate, adornment) shape.
+
+    ``mode='magic'``: the magic-rewritten program with the seed fact swapped
+    for a seed-EDB rule; per query only the seed rows change, so the plan is
+    reused (and, in JAX's terms, the compiled fixpoints: the trace count
+    does not move).
+
+    ``mode='demand'``: fallback when the magic program cannot plan
+    (cartesian magic prefixes, PreM violations through magic cycles, as in
+    ``Engine._query_engine``).  The demanded-strata model is constant-free,
+    so it evaluates once per epoch and every query of the shape
+    post-filters it.
+    """
+
+    def __init__(self, svc: "DatalogService", q: Literal, adn: str):
+        self.pred = q.pred
+        self.adn = adn
+        self.bound_positions = [i for i, c in enumerate(adn) if c == BOUND]
+        self.seed_rel = f"__qseed_{q.pred}__{adn}"
+        self._model_fresh = False
+        self._mr = None
+        self._qid_engine: Engine | None = None
+        #: the last K batches' fixpoint snapshots (K = ``snapshot_lru``),
+        #: keyed by the batch's query cache keys, oldest first
+        self._snaps: "OrderedDict[tuple, _inc.TupleSnapshot]" = OrderedDict()
+        self._eng_kw = eng_kw = dict(bits=svc.bits, default_cap=svc.default_cap,
+                                     join_cap=svc.join_cap,
+                                     max_iters=svc.max_iters,
+                                     bucket_floors=svc.bucket_floors,
+                                     device=svc.device)
+        try:
+            mr = magic_rewrite(svc.program, q)
+            caps = dict(svc.caps)
+            for name, orig in mr.aliases.items():
+                if orig in svc.caps:
+                    caps.setdefault(name, svc.caps[orig])
+            self._caps = caps
+            db = dict(svc.db)
+            if mr.seed_rule is not None:
+                db[self.seed_rel] = np.zeros((1, len(self.bound_positions)),
+                                             np.int64)
+            self.mode = "magic"
+            self._mr = mr
+            self.result_pred = mr.query_pred
+            self.engine = Engine(self._parameterize(mr), db=db, caps=caps,
+                                 **eng_kw)
+        except (MagicError, PlanError):
+            self.mode = "demand"
+            self.result_pred = q.pred
+            self.engine = Engine(demanded_strata(svc.program, q.pred),
+                                 db=dict(svc.db), caps=dict(svc.caps), **eng_kw)
+        #: EDB relations this template's (rewritten) program reads: appends
+        #: to anything else leave its answers untouched
+        self.reads = set(self.engine.source_program.edb_predicates())
+        #: can B queries of this shape run as one qid-tagged fixpoint?
+        self.batchable = self.mode == "magic" and qid_batchable(self._mr)
+        #: is resuming the batched fixpoint warm sound under monotone
+        #: appends (no negation, no additive aggregates)?
+        self.resumable = (self.batchable
+                          and _inc.resumable_program(self._mr.program))
+
+    def _parameterize(self, mr) -> Program:
+        rules, dropped = [], False
+        for r in mr.program.rules:
+            if not dropped and r is mr.seed_rule:
+                dropped = True
+                continue
+            rules.append(r)
+        if mr.seed_rule is not None:
+            vs = tuple(fresh_var("_s") for _ in mr.seed_rule.head.args)
+            rules.append(Rule(Literal(mr.seed_rule.head.pred, vs),
+                              (Literal(self.seed_rel, vs),)))
+        return Program(rules)
+
+    def run(self, svc: "DatalogService", q: Literal):
+        eng = self.engine
+        if self.mode == "demand" or not self.bound_positions:
+            # constant-free evaluation: the model answers every query of the
+            # shape -- evaluate once per epoch, post-filter per query
+            if not self._model_fresh:
+                eng.invalidate().run()
+                self._model_fresh = True
+            return self._filter(q)
+        consts = [[int(q.args[i].value) for i in self.bound_positions]]
+        eng.db[self.seed_rel] = np.asarray(consts, np.int64)
+        eng.invalidate(self.seed_rel).run()
+        return self._filter(q)
+
+    def _filter(self, q: Literal):
+        """Restrict the evaluated model to the query goal: bound-position
+        constants included (the demanded set may exceed the queried set),
+        and repeated-variable equalities (``tc(X, X)``)."""
+        eng = self.engine
+        rows, vals = eng.materialized[self.result_pred]
+        info = eng._pred_info[self.result_pred]
+        mask = query_row_mask(q, rows, vals, info)
+        if info.is_agg:
+            return rows[mask], vals[mask]
+        return rows[mask]
+
+    # -- qid-batched evaluation ---------------------------------------------
+
+    def _ensure_qid_engine(self, svc: "DatalogService") -> Engine:
+        """Build (once) the batched twin: the same magic rewrite with a
+        query-id column threaded through (``magic.attribute_qids``) and the
+        seed EDB widened to (qid, consts..) rows."""
+        if self._qid_engine is None:
+            prog = attribute_qids(self._mr, seed_rel=self.seed_rel)
+            db = dict(svc.db)
+            db[self.seed_rel] = np.zeros(
+                (1, 1 + len(self.bound_positions)), np.int64)
+            self._qid_engine = Engine(prog.program, db=db, caps=self._caps,
+                                      **self._eng_kw)
+        return self._qid_engine
+
+    def run_batch(self, svc: "DatalogService", qlits: list[Literal]) -> list:
+        """Evaluate B same-shape queries as ONE tuple-path fixpoint and
+        return per-query answers in order (storing the fixpoint's snapshot
+        when the shape is resumable).  Raises (PlanError/CapacityError/
+        ValueError) when the batch cannot run batched: callers fall back to
+        sequential :meth:`run`."""
+        eng = self._ensure_qid_engine(svc)
+        seeds = np.asarray(
+            [[qid] + [int(q.args[i].value) for i in self.bound_positions]
+             for qid, q in enumerate(qlits)], np.int64)
+        eng.db[self.seed_rel] = seeds
+        eng.invalidate(self.seed_rel)
+        eng.run()
+        out = self._split(eng, qlits)
+        if self.resumable and svc.snapshot_lru > 0:
+            self._store_snap(svc, tuple(svc._cache_key(q) for q in qlits),
+                             _inc.TupleSnapshot(seeds=seeds, qlits=list(qlits),
+                                                state=dict(eng.materialized)))
+        return out
+
+    def _store_snap(self, svc: "DatalogService", key: tuple,
+                    snap: _inc.TupleSnapshot) -> None:
+        self._snaps[key] = snap
+        self._snaps.move_to_end(key)
+        while len(self._snaps) > svc.snapshot_lru:
+            self._snaps.popitem(last=False)
+
+    def _split(self, eng: Engine, qlits: list[Literal], qids=None) -> list:
+        """Per-seed attribution (``engine.split_qid_answers``)."""
+        rows, vals = eng.materialized[self.result_pred]
+        info = eng._pred_info[self.result_pred]
+        return split_qid_answers(self.result_pred, rows, vals, info, qlits,
+                                 qids=qids)
+
+    def resume_batch(self, svc: "DatalogService", snap_key: tuple,
+                     keep: list[int] | None = None) -> list | None:
+        """Re-run one snapshotted batch warm-started from its fixpoint state
+        (same seeds, post-append EDB); returns [(qlit, answer)] for the cache
+        refresh, or None when there is nothing to resume.  ``keep``
+        restricts the resume to those snapshot positions (the hot entries):
+        cold seeds and their warm rows are filtered out of the re-entered
+        fixpoint and of the new snapshot."""
+        snap = self._snaps.get(snap_key)
+        if snap is None or not self.resumable:
+            return None
+        idx = list(range(len(snap.qlits))) if keep is None else sorted(keep)
+        seeds = snap.seeds[idx]
+        qids = [int(q) for q in seeds[:, 0]]  # original tags, non-contiguous
+        qlits = [snap.qlits[i] for i in idx]
+        state = snap.state
+        if len(idx) < len(snap.qlits):
+            state = {}
+            for p, (rows, vals) in snap.state.items():
+                m = np.isin(rows[:, 0], qids)
+                state[p] = (rows[m], vals[m] if vals is not None else None)
+        eng = self._qid_engine
+        eng.db[self.seed_rel] = seeds
+        eng.invalidate(self.seed_rel)
+        eng.run(warm=state)
+        out = self._split(eng, qlits, qids=qids)
+        self._snaps[snap_key] = _inc.TupleSnapshot(
+            seeds=seeds, qlits=qlits, state=dict(eng.materialized))
+        return list(zip(qlits, out))
+
+    def on_append(self, svc: "DatalogService", rel: str):
+        for eng in (self.engine, self._qid_engine):
+            if eng is None or rel not in eng.db:
+                continue
+            eng.db[rel] = svc.db[rel]
+            eng.invalidate(rel)
+        self._model_fresh = False
+        if not self.resumable:
+            self._snaps.clear()
+
+
 class DatalogService:
     """A resident Datalog query server over one program + EDB.
 
@@ -266,11 +477,13 @@ class DatalogService:
                       min-plus relations a tile-skip plan, served by K7.
 
     ``caps``, ``default_cap``, ``join_cap``, ``max_iters``,
-    ``bucket_floors`` and ``snapshot_lru`` are the JAX service's tuple-engine
-    and tuple-template settings, and ``snapshot_every``, ``keep_snapshots``
-    and ``durable_fsync`` its durability settings: none of them acts on the
-    frontier path (the JAX frontier batches take their own iteration
-    bound), so they are stored as the JAX service stores them.  ``mesh``,
+    ``bucket_floors``  the tuple engine's settings (``core.engine.Engine``)
+                      for every query that does not lower to a frontier.
+    ``snapshot_lru``  batched tuple templates keep their last K batches'
+                      fixpoint snapshots append-resumable (0 disables).
+
+    ``snapshot_every``, ``keep_snapshots`` and ``durable_fsync`` are the
+    JAX service's durability settings, stored as it stores them; ``mesh``,
     ``probe``, ``tracer``, ``durable_dir`` and a ``metrics`` registry exist
     for signature parity with the JAX service and raise until ported.
     """
@@ -325,10 +538,18 @@ class DatalogService:
                                  else _sparse.DEFAULT_SPARSE_THRESHOLD)
         self.csr_rebuild_frac = csr_rebuild_frac
         self.tune = tune
-        self.db = normalize_db(db, bits)
+        # the base engine owns db normalization + domain validation; sharing
+        # its dict means appends reach it without copying
+        self._base = Engine(program, db=db, bits=bits, caps=self.caps,
+                            default_cap=default_cap, join_cap=join_cap,
+                            max_iters=max_iters,
+                            bucket_floors=self.bucket_floors,
+                            device=self.device)
+        self.db = self._base.db
         self.epoch = 0
         self.stats = ServiceStats()
         self.cache = LRUCache(result_cache)
+        self._templates: dict[tuple[str, str], _QueryTemplate] = {}
         self._dense: dict[str, _DenseRelation] = {}
         self._lowerings: dict[str, FrontierLowering | None] = {}
 
@@ -342,12 +563,17 @@ class DatalogService:
         """Answer a micro-batch of queries; returns answers in order.
 
         Single-source queries on the same decomposable predicate coalesce
-        into one batched frontier fixpoint; EDB queries are selections;
-        cache hits return the cached answer.  Every computed answer lands in
-        the result cache individually, so later singleton queries hit."""
+        into one batched frontier fixpoint; same-(pred, adornment)-shape
+        tuple queries coalesce into one qid-tagged tuple fixpoint (per-seed
+        attribution splits it back per query); everything else runs through
+        the memoized tuple templates one by one.  EDB queries are
+        selections and cache hits return the cached answer.  Every computed
+        answer lands in the result cache individually, so later singleton
+        queries hit."""
         qlits = [self._as_literal(s) for s in queries]
         out: list = [None] * len(qlits)
         groups: dict[str, list[tuple[int, int]]] = {}
+        singles: list[tuple[int, Literal]] = []
         for i, q in enumerate(qlits):
             ent = self.cache.get(self._cache_key(q))
             if ent is not None:
@@ -356,21 +582,37 @@ class DatalogService:
                                        "append")
                 out[i] = self._entry_result(ent)
             elif q.pred in self.db:  # EDB query: a pure selection
-                rows = self.db[q.pred]
-                out[i] = rows[query_row_mask(q, rows)]
+                out[i] = self._ask_edb(q)
             else:
-                groups.setdefault(q.pred, []).append((i, self._frontier(q)))
+                src = self._dense_source(q)
+                if src is not None:
+                    groups.setdefault(q.pred, []).append((i, src))
+                else:
+                    singles.append((i, q))
         for pred, items in groups.items():
             answers = self._run_group(pred, [src for _, src in items])
             for i, src in items:
                 out[i] = answers[src]
+        # same-shape tuple queries share one qid-tagged fixpoint; mixed
+        # shapes never coalesce (no shared seed schema)
+        shapes = _batch.coalesce_by_shape(
+            singles, lambda q: (q.pred, self._adorn(q)))
+        for (pred, adn), items in shapes.items():
+            results = self._run_tuple_group(pred, adn, items)
+            for key, res in results.items():
+                self.cache.put(key, CacheEntry("tuple", pred, res,
+                                               self.epoch))
+            for i, q in items:
+                out[i] = results[self._cache_key(q)]
         return out
 
     def append(self, rel: str, rows) -> "DatalogService":
         """Monotone EDB append: add facts, keep serving.  Cached closures of
-        the predicates over ``rel`` resume from their pre-append rows
-        (``incremental.py``) and stay warm; under ``resume_min_hits`` /
-        ``resume_max_bytes`` the cold tail is dropped instead."""
+        the predicates over ``rel`` resume from their pre-append rows, and
+        batched tuple templates from their fixpoint snapshots
+        (``incremental.py``), so hot entries stay warm; everything else (and
+        under ``resume_min_hits`` / ``resume_max_bytes`` the cold tail) is
+        invalidated."""
         if rel not in self.db:
             raise ValueError(
                 f"{rel!r} is not an EDB relation of this service "
@@ -381,6 +623,12 @@ class DatalogService:
                                    self.bits)
         self.epoch += 1
         self.stats.appends += 1
+        self._base.invalidate(rel)
+        for tpl in self._templates.values():
+            tpl.on_append(self, rel)
+        refreshed = self._resume_tuple_snapshots(rel)
+        self.cache.drop_where(
+            lambda k, e: e.kind == "tuple" and k not in refreshed)
         for _, e in self.cache.items():
             if e.kind == "dense" and self._lowering(e.pred).edb != rel:
                 e.epoch = self.epoch  # untouched base relation: still valid
@@ -389,12 +637,58 @@ class DatalogService:
                 self._refresh_dense(pred, ds, rows)
         return self
 
+    def _resume_tuple_snapshots(self, rel: str) -> dict:
+        """Resume batched tuple templates from their fixpoint snapshots and
+        refresh the per-qid cache entries; returns {cache_key: entry} of the
+        refreshed answers (everything else invalidates).  Under the resume
+        policy, snapshots none of whose entries are hot are dropped, and
+        only still-cached hot answers refresh."""
+        refreshed: dict = {}
+        for tpl in self._templates.values():
+            for skey in list(tpl._snaps):  # the last K batches
+                snap = tpl._snaps[skey]
+                keys = [self._cache_key(q) for q in snap.qlits]
+                cached = [(k, self.cache.peek(k)) for k in keys]
+                if rel not in tpl.reads:
+                    # the template never reads the appended relation: its
+                    # answers are untouched -- revalidate
+                    for k, e in cached:
+                        if e is not None:
+                            e.epoch = self.epoch
+                            refreshed[k] = e
+                    continue
+                hot, cold = _inc.partition_resumable(
+                    [((i, k), e) for i, (k, e) in enumerate(cached)
+                     if e is not None], self.resume_min_hits,
+                    self.resume_max_bytes)
+                self.stats.dropped_cold += len(cold)
+                if not hot:
+                    del tpl._snaps[skey]
+                    continue
+                try:
+                    # cold positions leave the resumed fixpoint (and the next
+                    # snapshot) entirely
+                    pairs = tpl.resume_batch(
+                        self, skey, keep=[i for (i, _), _ in hot])
+                except (PlanError, CapacityError, ValueError):
+                    tpl._snaps.pop(skey, None)
+                    continue
+                for q, res in pairs:
+                    key = self._cache_key(q)
+                    ent = CacheEntry("tuple", tpl.pred, _freeze(res),
+                                     self.epoch)
+                    self.cache.replace(key, ent)
+                    refreshed[key] = ent
+                    self.stats.resumed_tuple_rows += 1
+        return refreshed
+
     # -- introspection -------------------------------------------------------
 
     def explain(self) -> dict:
         """Introspection report, in the JAX service's schema: ``epoch``,
-        ``service`` counters, ``cache`` counters, ``templates`` (always
-        empty: no tuple engine yet), per-predicate carrier reports under
+        ``service`` counters, ``cache`` counters, ``templates`` (the
+        memoized ``pred/adornment`` shapes, ``+qid`` where batchable and
+        ``+snapN`` with N resumable snapshots), per-predicate carrier reports under
         ``relations`` (``{n, n_alloc, semiring, repr}`` plus ``flips``/
         ``last_flip`` after a representation flip and ``nnz``/``density``/
         ``e_alloc``/``padding`` for CSR) and ``kernels``, which holds a
@@ -406,7 +700,10 @@ class DatalogService:
             "cache": {"entries": len(self.cache), "hits": self.cache.hits,
                       "misses": self.cache.misses,
                       "evictions": self.cache.evictions},
-            "templates": [],
+            "templates": sorted(
+                f"{p}/{a}" + ("+qid" if t.batchable else "")
+                + (f"+snap{len(t._snaps)}" if t._snaps else "")
+                for (p, a), t in self._templates.items()),
             "relations": {p: ds.report() for p, ds in self._dense.items()},
             "kernels": {},
         }
@@ -451,14 +748,75 @@ class DatalogService:
             self._lowerings[pred] = detect_frontier_lowering(self.program, pred)
         return self._lowerings[pred]
 
-    def _frontier(self, q: Literal) -> int:
-        """The bound source of a frontier-lowered query; anything else needs
-        the tuple engine that is not ported yet."""
-        low = self._lowering(q.pred)
-        src = frontier_query_source(q) if low is not None else None
-        if src is None:
-            raise _not_ported(f"query {q!r} (the tuple engine)", "A.6")
-        return src
+    def _ask_edb(self, q: Literal) -> np.ndarray:
+        # Engine.ask owns the EDB-selection semantics (constant and repeated-
+        # variable filters); the base engine shares this service's db dict
+        return self._base.ask(q)
+
+    def _dense_source(self, q: Literal) -> int | None:
+        """The bound source of a frontier-lowered query, else None (the
+        tuple path; repeated-variable tails go there too)."""
+        if self._lowering(q.pred) is None:
+            return None
+        return frontier_query_source(q)
+
+    def _adorn(self, q: Literal) -> str:
+        return query_adornment(
+            q, agg_positions(self.program).get(q.pred, -1))
+
+    def _template(self, pred: str, adn: str,
+                  q: Literal) -> tuple[_QueryTemplate, bool]:
+        """Memoized template for a shape; returns (template, freshly_built)."""
+        key = (pred, adn)
+        tpl = self._templates.get(key)
+        if tpl is None:
+            tpl = _QueryTemplate(self, q, adn)
+            self._templates[key] = tpl
+            self.stats.plans_built += 1
+            return tpl, True
+        return tpl, False
+
+    def _run_tuple_group(self, pred: str, adn: str, items) -> dict:
+        """One (pred, adornment) shape group: the distinct queries as one
+        qid-tagged fixpoint where the shape allows it, else each through
+        its template.  Returns {cache_key: frozen answer}."""
+        uniq: list[tuple[object, Literal]] = []
+        seen: set = set()
+        for _, q in items:
+            key = self._cache_key(q)
+            if key not in seen:
+                seen.add(key)
+                uniq.append((key, q))
+        answers = None
+        if len(uniq) > 1 and BOUND in adn:
+            answers = self._run_tuple_batch(pred, adn, uniq)
+        if answers is None:  # singleton / unbatchable: sequential path
+            return {key: _freeze(self._ask_tuple(q)) for key, q in uniq}
+        return {key: _freeze(res) for (key, _), res in zip(uniq, answers)}
+
+    def _run_tuple_batch(self, pred: str, adn: str, uniq: list):
+        """B same-shape tuple queries as ONE qid-tagged fixpoint; None to
+        fall back to sequential runs (shape not batchable, or the union of
+        demands overflowed a table)."""
+        tpl, fresh = self._template(pred, adn, uniq[0][1])
+        if not tpl.batchable:
+            return None
+        try:
+            answers = tpl.run_batch(self, [q for _, q in uniq])
+        except (PlanError, CapacityError, ValueError):
+            return None
+        self.stats.plan_hits += len(uniq) - (1 if fresh else 0)
+        self.stats.tuple_runs += 1
+        self.stats.tuple_fixpoints += 1
+        self.stats.tuple_batched_queries += len(uniq)
+        return answers
+
+    def _ask_tuple(self, q: Literal):
+        tpl, fresh = self._template(q.pred, self._adorn(q), q)
+        if not fresh:
+            self.stats.plan_hits += 1
+        self.stats.tuple_runs += 1
+        return tpl.run(self, q)
 
     def _dense_state(self, pred: str) -> _DenseRelation:
         if pred not in self._dense:

@@ -244,10 +244,20 @@ def test_cyclic_lpath_runs_to_the_bound_like_jax(sparse):
 
 
 @pytest.mark.parametrize("query", ["tc(X, 5)", "tc(1, 2)", "tc(X, Y)"])
-def test_tuple_path_queries_raise_not_implemented(query):
-    tsvc = TService(TC, db=_db("arc", 0, 30, 0.1, 6), device="cpu")
-    with pytest.raises(NotImplementedError, match="A.6"):
-        tsvc.ask_batch([query])
+def test_tuple_path_queries_match_jax(query):
+    """The queries that lower to no frontier (second argument bound, both
+    bound, all free) go through the tuple engine: the same answer (rows and
+    dtype) and the same counters as the JAX service, cold and from the
+    cache."""
+    jsvc, tsvc = _pair(TC, _db("arc", 0, 30, 0.1, 6))
+    for _ in range(2):
+        want, got = jsvc.ask_batch([query])[0], tsvc.ask_batch([query])[0]
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+    jrep, trep = jsvc.explain(), tsvc.explain()
+    trep["service"].pop("fixpoint_iterations")
+    assert trep["service"] == jrep["service"]
+    assert trep["cache"] == jrep["cache"]
+    assert trep["templates"] == jrep["templates"]
 
 
 @pytest.mark.parametrize("kw,item", [({"mesh": object()}, "A.6"),
