@@ -181,6 +181,51 @@ a non-zero exit and prints no result):
    call; a warm batch is split into fixpoint, copy to the host and
    formatting.
 
+10. observability, admission and analytics (run inside the phases whose
+   services and graphs they reuse, so that no carrier is packed twice; the
+   counts reset just before each step and read just after):
+   (1) probes: phase 4's dense TC and SPATH, phase 5's CSR TC and SPATH,
+   phase 5b's tuned SPATH (K7, after its appends) and phase 6's dense and
+   CSR LPATH (K2-max, K6) answer their second warm batch (100 dense, 32
+   CSR sources) unprobed and then through ``svc.probe`` (the result cache
+   emptied before each): every answer and cached carrier row bit for bit
+   the unprobed one, the probe's ``iterations`` the unprobed batch's,
+   ``seed_facts + total_delta == final_facts`` for bool, and equal launch
+   counts; phase 7b's ``Engine.ask_dense("tc", (s, None), probe=True)``
+   for 4 G10K sources equals ``ask_dense``, its ``final_facts`` the BFS
+   reach; (2) spans, metrics, attribution: phases 4 and 5 build their TC
+   services with ``tracer=True``: ``fixpoint`` spans nest in
+   ``launch_batch`` and ``cache_fill`` in ``finalize_batch``, the Chrome
+   export parses with ``json.load``, ``to_prometheus()`` holds
+   :data:`PROM_NAMES`, ``explain()["kernels"]`` holds
+   ``frontier_matmul:bool`` / ``csr_spmv:bool`` with launches, device
+   wall seconds (CUDA events around the fixpoint, the host loop's gaps
+   included), the dominant term and non-negative shares
+   (printed, not bounded: JAX's analytic model bills work the kernels
+   skip), and warm qps with ``metrics=False`` beside the default registry
+   (two services that share the carrier); (3) admission on phase 5's CSR
+   TC service: 256 new sources answered by 8 sequential ``ask_batch``
+   calls of 32, the cache emptied, then ``AsyncDatalogService(max_wait_ms
+   =2, max_batch=32)`` with 8 submitter threads x 32 sources (every future
+   awaited with :data:`FUTURE_TIMEOUT`): each answer the sequential one, 4
+   scipy's BFS, at least 8 flushes of at most 32, a ``finalize_batch``
+   span overlapping a ``launch_batch`` span; then 1,000 arcs appended
+   through the front-end's fence with 64 queries in flight, each answer one
+   epoch's whole answer and 4 post-append answers scipy's BFS on the union;
+   async and sequential qps, the queue wait's p50/p99 and the flush sizes;
+   (4) analytics at the largest sizes the packed keys admit, each against
+   a numpy oracle of the smoke's own, with seconds and peak memory: naive
+   Bayes (``bits=16``) on a seeded table of UCI Adult's shape (48,842 rows,
+   10 categorical columns, :data:`ADULT_CARDS`; 1,000 rows held out): the
+   counts numpy's group-by counts, the predictions the oracle's argmax;
+   Example 8 (``bits=15``) on the first 32,767 rows: every prefix count a
+   numpy trie's; Example 9 (``bits=12``) on the most rows whose prefix
+   table keeps node ids below 4,096 (all 10 columns), against a walk of
+   the table; Example 7 (k-cores, out-degree >= 16) on phase 5's 16M arcs
+   against min-label propagation by ``scatter_reduce`` on the card; and
+   Example 6 (``hops``, the effective diameter) on G10K in phase 7b, its
+   histogram equal to the K1 hop layers.
+
 The line before the last is one JSON object of kernel measurements; the last
 line is ``{"ok": true, "device": {...}}``.  Needs no network; the graphs are
 made from fixed seeds.
@@ -1084,7 +1129,7 @@ def dense_phase(results):
     say(f"dense graph: gnp_graph({n}, {DENSE_P}): {len(edges)} arcs "
         f"({time.perf_counter() - t0:.1f} s)")
     srcs, srcs2, single = _sources(rng, n, DENSE_BATCH)
-    tc = DatalogService(TC, db={"arc": edges})
+    tc = DatalogService(TC, db={"arc": edges}, tracer=True)
     sp = DatalogService(SPATH, db={"darc": wedges})
     ops.reset_launch_counts()
     phase = {"tc": drive("dense TC", tc, "tc", Oracle(edges, n, False), srcs,
@@ -1130,6 +1175,12 @@ def dense_phase(results):
         minplus.plain, fw, w, fin, 4, F32_OPS_S)
     del adj, w, f, fw
     phase["appends"] = dense_appends(tc, sp, edges, wedges, srcs, single)
+    obs = results["obs_phase"]
+    obs.setdefault("probe", {}).update({
+        "dense TC": probe_twin("dense TC", tc, "tc", srcs2, False),
+        "dense SPATH": probe_twin("dense SPATH", sp, "dpath", srcs2, True)})
+    obs["dense TC"] = obs_checks("dense TC", tc, "tc", srcs2,
+                                 "frontier_matmul:bool", TC, tc.bits)
     del tc, sp
     torch.cuda.empty_cache()
 
@@ -1361,7 +1412,7 @@ def csr_phase(results):
     say(f"CSR graph: powerlaw_graph({n}, {m}, alpha={CSR_ALPHA}): "
         f"{len(edges)} arcs ({time.perf_counter() - t0:.1f} s)")
     srcs, srcs2, single = _sources(rng, n, CSR_BATCH)
-    tc = DatalogService(TC, db={"arc": edges}, bits=20)
+    tc = DatalogService(TC, db={"arc": edges}, bits=20, tracer=True)
     sp = DatalogService(SPATH, db={"darc": wedges}, bits=20)
     sp_oracle = Oracle(wedges, n, True)
     ops.reset_launch_counts()
@@ -1402,6 +1453,14 @@ def csr_phase(results):
     results["csr_minplus_step"]["captured"] = captured_frontiers(
         torch, "csr_minplus_step", sp, "dpath", srcs2, spmv.plain_minplus, 4,
         F32_OPS_S, library=False)
+    obs = results["obs_phase"]
+    obs.setdefault("probe", {}).update({
+        "CSR TC": probe_twin("CSR TC", tc, "tc", srcs2, False),
+        "CSR SPATH": probe_twin("CSR SPATH", sp, "dpath", srcs2, True)})
+    obs["CSR TC"] = obs_checks("CSR TC", tc, "tc", srcs2, "csr_spmv:bool", TC,
+                               tc.bits)
+    obs["admission"] = admission_check(tc, edges, n, rng,
+                                       set(srcs + srcs2 + [single]))
     del tc, sp
     torch.cuda.empty_cache()
     return edges, wedges, sp_oracle
@@ -1469,6 +1528,8 @@ def dag_phase(results, csr_edges):
         torch, "K2 maxplus_frontier_matmul", lp, "lpath", lsrcs2,
         minplus.maxplus_frontier_matmul, minplus.plain_max, fin, 4,
         F32_OPS_S, LPATH_EVERY)
+    results["obs_phase"].setdefault("probe", {})["dense LPATH"] = probe_twin(
+        "dense LPATH", lp, "lpath", lsrcs2, True)
     del lp, w, fw
     torch.cuda.empty_cache()
 
@@ -1515,6 +1576,9 @@ def dag_phase(results, csr_edges):
         results[key]["captured"] = captured_frontiers(
             torch, key, svc, pred, srcs2, plain, 4, F32_OPS_S,
             library=key == "csr_plustimes_step")
+        if svc._dense_state(pred).sr.idempotent:  # CPATH has no probed twin
+            results["obs_phase"].setdefault("probe", {})[label] = probe_twin(
+                label, svc, pred, srcs2, True)
         del svc
         torch.cuda.empty_cache()
 
@@ -1951,6 +2015,8 @@ def tuned_phase(results, wedges, oracle):
         _check_sources(f"after append ({label})", sp, "dpath",
                        Oracle(np.concatenate(appended), n, True),
                        srcs + [single])
+    results["obs_phase"].setdefault("probe", {})["tuned CSR SPATH"] = probe_twin(
+        "tuned CSR SPATH", sp, "dpath", srcs2, True)
     del sp, csr
     torch.cuda.empty_cache()
 
@@ -2216,6 +2282,26 @@ def tuple_phase(results):
     counted("G10K ask_dense", ("csr_bool_step",))
     for s, d in dense.items():
         check(np.array_equal(d, asked[s]), f"ask_dense tc({s}, X) != ask")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    probed = {s: eng.ask_dense("tc", (s, None), probe=True)
+              for s in picks[:TUPLE_ASK]}
+    probed_s = (time.perf_counter() - t0) / TUPLE_ASK
+    counted("G10K ask_dense (probed)", ("csr_bool_step",))
+    for s, (d, pr) in probed.items():
+        reach = int(want_row[s].sum())
+        check(np.array_equal(d, dense[s]) and d.dtype == dense[s].dtype,
+              f"probed ask_dense tc({s}, X) != ask_dense")
+        check(pr.final_facts == reach
+              and pr.seed_facts + pr.total_delta == reach,
+              f"probed ask_dense tc({s}, X): final {pr.final_facts}, seed "
+              f"{pr.seed_facts} + ΣΔ {pr.total_delta}, BFS reach {reach}")
+    say(f"G10K ask_dense(probe=True): {len(probed)} answers equal "
+        f"ask_dense's, final_facts the BFS reach "
+        f"{[p.final_facts for _, p in probed.values()]}, iterations "
+        f"{[p.iterations for _, p in probed.values()]}; "
+        f"{probed_s * 1e3:.1f} ms a query")
+    results["obs_phase"]["ask_dense_probed_ms"] = probed_s * 1e3
     say(f"G10K magic sets: ask {ask_s * 1e3:.1f} ms a query, ask_batch of "
         f"{len(picks)} as one fixpoint in {batch_s:.2f} s ({bst.iterations} "
         f"iterations, generated {bst.generated}), ask_dense {dense_s * 1e3:.1f}"
@@ -2354,6 +2440,36 @@ def tuple_phase(results):
                         "resumed_tuple_rows": resumed,
                         "stats": rep["service"]}
     del svc, full, cold
+    torch.cuda.empty_cache()
+
+    # (7) Example 6, the effective diameter, on G10K (phase 10.4)
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = Engine(HOPS, db={"arc": edges}, caps={"hops": TUPLE_CAP},
+                 join_cap=TUPLE_JOIN_CAP, device=DEVICE).run()
+    torch.cuda.synchronize()
+    hops_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counted("G10K hops", ())
+    _, hop_vals = eng.query_agg("hops")
+    hist = dict(zip(*(v.tolist() for v in np.unique(hop_vals,
+                                                    return_counts=True))))
+    want_hist = {k + 1: p for k, (p, _) in enumerate(per)}
+    check(hist == want_hist, f"G10K hops histogram {hist}, the K1 hop "
+          f"layers {want_hist}")
+    total, cov = sum(hist.values()), 0
+    for diameter in sorted(hist):
+        cov += hist[diameter]
+        if cov >= 0.9 * total:
+            break
+    say(f"G10K effective diameter (Example 6): {diameter} hops (90% of "
+        f"{total} pairs); hops histogram the K1 hop layers'; {hops_s:.2f} s, "
+        f"peak {peak / 2 ** 30:.2f} GiB")
+    results["obs_phase"]["diameter"] = {"hops": hist, "diameter": diameter,
+                                        "seconds": hops_s, "peak_bytes": peak}
+    del eng, hop_vals
     torch.cuda.empty_cache()
     phase["seconds"] = time.perf_counter() - t_phase
     say(f"tuple phase: {phase['seconds']:.1f} s")
@@ -2749,6 +2865,455 @@ def lm_phase(results):
     results["lm_phase"] = phase
 
 
+# -- phase 10: observability, admission and analytics --------------------------
+
+#: the admission check: submitter threads, sources each, the window, the
+#: queries in flight across the fenced append and the arcs it appends
+ADM_THREADS, ADM_PER, ADM_WAIT_MS, ADM_BATCH = 8, 32, 2.0, 32
+ADM_INFLIGHT, ADM_APPEND = 64, 1000
+#: seconds any admission future may take before the run fails
+FUTURE_TIMEOUT = 120.0
+#: the seven names ``tests/test_obs.py`` requires of ``to_prometheus()``
+PROM_NAMES = ("datalog_fixpoints_total", "datalog_cache_hits_total",
+              "datalog_batched_queries_total", "datalog_appends_total",
+              "datalog_epoch", "datalog_batch_size",
+              "datalog_fixpoint_traces_total")
+#: a table of UCI Adult's shape (Kohavi 1996): rows and the cardinalities of
+#: workclass, education, marital-status, occupation, relationship, race,
+#: sex, native-country, age (10 bins) and the income label (last)
+ADULT_ROWS = 48_842
+ADULT_CARDS = (9, 16, 7, 15, 6, 5, 2, 42, 10, 2)
+#: naive Bayes' held-out rows; Example 8's rows (``bits=15``: ids below
+#: 2^15); Example 9's node-id and count limit (``bits=12``)
+NB_HELD_OUT, EX8_ROWS, EX9_LIMIT = 1000, 32_767, 4096
+#: Example 7's degree threshold on phase 5's arcs (about the mean
+#: out-degree, 16M / 2^20)
+KCORE_DEGREE = 16
+KCORE = f"""
+degree(X, count<Y>) <- arc(X,Y).
+validArc(X,Y) <- arc(X,Y), degree(X,D1), D1 >= {KCORE_DEGREE}, degree(Y,D2),
+                 D2 >= {KCORE_DEGREE}.
+connComp(A,A) <- validArc(A,B).
+connComp(C,min<B>) <- connComp(A,B), validArc(A,C).
+kCores(A,B) <- connComp(A,B).
+"""
+HOPS = """
+hops(X,Y,min<H>) <- arc(X,Y), H = 1.
+hops(X,Z,min<H>) <- hops(X,Y,H1), arc(Y,Z), H = H1 + 1.
+"""
+
+
+def _same_answer(a, b) -> bool:
+    """Bit for bit: the same arrays (dtype, shape, values), pairs for
+    aggregate predicates."""
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and x.shape == y.shape and np.array_equal(x, y)
+        for x, y in zip(a, b))
+
+
+def probe_twin(label, svc, pred, srcs, weighted):
+    """Phase 10.1: one warm batch of ``srcs`` unprobed, then the same batch
+    through the probed twin (``svc.probe``; the cache emptied before each,
+    so both run the fixpoint).  The answers and the cached carrier rows
+    must be bit for bit the unprobed ones, the probe's ``iterations`` the
+    unprobed batch's, ``seed + ΣΔ == final`` for bool, and the kernel
+    launch counts (reset before each run, read after) equal."""
+    import torch
+    from repro_torch.kernels import ops
+
+    qs = [(pred, (s, None, None) if weighted else (s, None)) for s in srcs]
+    keys = [svc._cache_key(svc._as_literal(q)) for q in qs]
+    runs = {}
+    for probe in (False, True):
+        svc.cache.clear()
+        svc.probe = probe
+        svc.last_probes.clear()
+        it0 = svc.stats.fixpoint_iterations
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        answers = svc.ask_batch(qs)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        runs[probe] = (answers, [svc.cache.peek(k).raw for k in keys], ms,
+                       ops.launch_counts(),
+                       svc.stats.fixpoint_iterations - it0,
+                       list(svc.last_probes))
+    svc.probe = False
+    (plain, plain_raw, plain_ms, plain_counts, iters, _), \
+        (got, raw, ms, counts, piters, probes) = runs[False], runs[True]
+    check(all(_same_answer(a, b) for a, b in zip(got, plain)),
+          f"{label}: a probed answer differs from the unprobed one")
+    check(all(np.array_equal(a, b) for a, b in zip(raw, plain_raw)),
+          f"{label}: a probed carrier row differs from the unprobed one")
+    check(len(probes) == 1, f"{label}: {len(probes)} probes recorded")
+    pr = probes[0]
+    check(pr.iterations == iters == piters,
+          f"{label}: probe iterations {pr.iterations}, unprobed {iters}")
+    if not weighted:
+        check(pr.seed_facts + pr.total_delta == pr.final_facts,
+              f"{label}: seed {pr.seed_facts} + ΣΔ {pr.total_delta} != "
+              f"final {pr.final_facts}")
+    check(counts == plain_counts, f"{label}: probed launches {counts}, "
+          f"unprobed {plain_counts}")
+    launched = {k: v for k, v in counts.items() if v}
+    check(launched, f"{label}: no kernel launched")
+    say(f"{label} probed twin: {len(srcs)} answers and rows bit for bit, "
+        f"{pr.iterations} iterations, seed {pr.seed_facts} + ΣΔ "
+        f"{pr.total_delta} -> final {pr.final_facts}; launches {launched} "
+        f"either way; warm batch {ms:.1f} ms probed, {plain_ms:.1f} ms not")
+    return {"iterations": pr.iterations, "probed_ms": ms,
+            "plain_ms": plain_ms, "launches": launched,
+            "seed_facts": pr.seed_facts, "total_delta": pr.total_delta,
+            "final_facts": pr.final_facts}
+
+
+def _nested(spans, inner, outer) -> bool:
+    """Every ``inner`` span lies inside an ``outer`` span on its lane."""
+    outs = [o for o in spans if o["name"] == outer]
+    return all(any(o["tid"] == i["tid"] and o["ts"] <= i["ts"] and
+                   i["ts"] + i["dur"] <= o["ts"] + o["dur"] for o in outs)
+               for i in spans if i["name"] == inner)
+
+
+def _warm_qps(torch, svcs, qs, rounds=3):
+    """Median warm qps of each service over ``rounds`` interleaved batches
+    of ``qs``, the result cache emptied before each."""
+    secs = {label: [] for label in svcs}
+    for _ in range(rounds):
+        for label, svc in svcs.items():
+            svc.cache.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            svc.ask_batch(qs)
+            torch.cuda.synchronize()
+            secs[label].append(time.perf_counter() - t0)
+    return {label: len(qs) / float(np.median(v)) for label, v in secs.items()}
+
+
+def obs_checks(label, svc, pred, srcs, kernel, program, bits):
+    """Phase 10.2 on a ``tracer=True`` TC service: the spans nest as in the
+    JAX service, the Chrome export parses, ``to_prometheus()`` holds the
+    seven names, ``explain()["kernels"]`` attributes the launches in JAX's
+    schema (shares printed, not bounded), and warm qps with ``metrics=False``
+    beside the default registry (twins that share this carrier)."""
+    import tempfile
+
+    import torch
+    from repro_torch.service import DatalogService
+    spans = svc.tracer.spans()
+    names = {e["name"] for e in spans}
+    check({"launch_batch", "fixpoint", "finalize_batch", "device_sync",
+           "cache_fill"} <= names, f"{label}: spans {sorted(names)}")
+    check(_nested(spans, "fixpoint", "launch_batch")
+          and _nested(spans, "cache_fill", "finalize_batch"),
+          f"{label}: the spans do not nest as in the JAX service")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        svc.tracer.export_chrome(path)
+        with open(path) as f:
+            doc = json.load(f)
+    check(len(doc["traceEvents"]) == len(svc.tracer.events()),
+          f"{label}: the Chrome export lost events")
+    text = svc.metrics.to_prometheus()
+    missing = [n for n in PROM_NAMES if n not in text]
+    check(not missing, f"{label}: to_prometheus() lacks {missing}")
+    rep = svc.explain()["kernels"]
+    k = rep.get(kernel)
+    check(k is not None and k["launches"] >= 1 and k["seconds"] > 0
+          and k["dominant"] in ("compute", "memory")
+          and k["frac_peak_flops"] >= 0 and k["frac_peak_bw"] >= 0,
+          f"{label}: explain()['kernels'][{kernel!r}] = {k}")
+    qs = [(pred, (s, None)) for s in srcs]
+    twins = {}
+    for name, metrics in (("metrics=False", False), ("default registry",
+                                                     None)):
+        twin = DatalogService(program, db={"arc": np.zeros((1, 2), np.int64)},
+                              bits=bits, metrics=metrics)
+        twin._dense[pred] = svc._dense_state(pred)  # packed once
+        twins[name] = twin
+    qps = _warm_qps(torch, twins, qs)
+    say(f"{label} observability: {len(spans)} spans nest as in JAX, the "
+        f"Chrome export parses, Prometheus holds the {len(PROM_NAMES)} "
+        f"names; {kernel}: {k['launches']} launches, {k['iterations']} "
+        f"iterations, {k['seconds'] * 1e3:.2f} device ms, frac_peak_flops "
+        f"{k['frac_peak_flops']:.4g}, frac_peak_bw {k['frac_peak_bw']:.4g} "
+        f"({k['dominant']}); warm qps {qps}")
+    return {"spans": len(spans), "kernel": {kernel: k}, "warm_qps": qps}
+
+
+def admission_check(svc, edges, n, rng, used):
+    """Phase 10.3: ``AsyncDatalogService`` over phase 5's CSR TC service."""
+    import threading
+
+    from repro_torch.obs import Tracer
+    from repro_torch.service import AsyncDatalogService
+    picks = [int(s) for s in rng.permutation(n) if int(s) not in used]
+    fresh = picks[:ADM_THREADS * ADM_PER]
+    groups = [fresh[i * ADM_PER:(i + 1) * ADM_PER] for i in range(ADM_THREADS)]
+    t0 = time.perf_counter()
+    seq = {}
+    for g in groups:
+        seq.update(zip(g, svc.ask_batch([("tc", (s, None)) for s in g])))
+    seq_s = time.perf_counter() - t0
+    svc.cache.clear()  # every async query misses and goes through a flush
+    svc.tracer.clear()
+    front = AsyncDatalogService(svc, max_wait_ms=ADM_WAIT_MS,
+                                max_batch=ADM_BATCH)
+    try:
+        got, errors = {}, []
+
+        def submitter(g):
+            try:
+                futs = [(s, front.submit(("tc", (s, None)))) for s in g]
+                for s, f in futs:
+                    got[s] = f.result(timeout=FUTURE_TIMEOUT)
+            except Exception as e:  # noqa: BLE001 - fails the run below
+                errors.append(e)
+
+        threads = [threading.Thread(target=submitter, args=(g,))
+                   for g in groups]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(FUTURE_TIMEOUT)
+        async_s = time.perf_counter() - t0
+        check(not errors and not any(t.is_alive() for t in threads),
+              f"admission: {errors[:1] or 'a submitter hung'}")
+        check(all(_same_answer(got[s], seq[s]) for s in fresh),
+              "admission: an async answer differs from the sequential one")
+        oracle = Oracle(edges, n, False)
+        for s in fresh[:4]:
+            oracle.check(s, got[s])
+        st = front.stats
+        check(st.flushes >= len(fresh) // ADM_BATCH
+              and st.max_flush <= ADM_BATCH,
+              f"admission: {st.flushes} flushes, largest {st.max_flush}")
+        sizes = [e["args"]["batch"] for e in svc.tracer.spans("coalesce")]
+        lbs = svc.tracer.spans("launch_batch")
+        fbs = svc.tracer.spans("finalize_batch")
+        overlaps = sum(any(Tracer.overlaps(f, lb) for lb in lbs) for f in fbs)
+        check(overlaps >= 1, "admission: no finalize_batch span overlaps a "
+              "launch_batch span")
+        wait = svc.metrics.histogram("datalog_queue_wait_seconds")
+        pct = wait.percentiles((50, 99))
+        say(f"admission: {len(fresh)} queries from {ADM_THREADS} threads in "
+            f"{async_s:.2f} s ({len(fresh) / async_s:.1f} qps) against "
+            f"{len(groups)} sequential ask_batch calls of {ADM_PER} in "
+            f"{seq_s:.2f} s ({len(fresh) / seq_s:.1f} qps); every answer "
+            f"the sequential one, 4 scipy's BFS; {st.flushes} flushes, "
+            f"sizes {sizes}; {overlaps} finalize spans overlap a launch; "
+            f"queue wait p50 {pct['p50'] * 1e3:.2f} ms, p99 "
+            f"{pct['p99'] * 1e3:.2f} ms")
+        out = {"async_qps": len(fresh) / async_s,
+               "sequential_qps": len(fresh) / seq_s, "flushes": st.flushes,
+               "flush_sizes": sizes, "overlapping_finalizes": overlaps,
+               "queue_wait_p50_s": pct["p50"], "queue_wait_p99_s": pct["p99"]}
+
+        # a fenced append while ADM_INFLIGHT queries are in flight
+        inflight = fresh[:ADM_INFLIGHT]
+        svc.cache.clear()
+        arcs = np.stack([rng.integers(0, n, ADM_APPEND),
+                         rng.integers(0, n, ADM_APPEND)], 1)
+        futs = [front.submit(("tc", (s, None))) for s in inflight]
+        t0 = time.perf_counter()
+        front.append("arc", arcs)
+        append_s = time.perf_counter() - t0
+        during = [f.result(timeout=FUTURE_TIMEOUT) for f in futs]
+        after = front.ask_batch([("tc", (s, None)) for s in inflight],
+                                timeout=FUTURE_TIMEOUT)
+        pre = sum(_same_answer(a, seq[s]) for a, s in zip(during, inflight))
+        check(all(_same_answer(a, seq[s]) or _same_answer(a, b)
+                  for a, b, s in zip(during, after, inflight)),
+              "admission: an answer in flight across the append is neither "
+              "epoch's")
+        union = Oracle(np.concatenate([edges, arcs]), n, False)
+        for s, a in zip(inflight[:4], after):
+            union.check(s, a)
+        say(f"admission: append of {ADM_APPEND} arcs with {len(inflight)} "
+            f"queries in flight in {append_s:.2f} s (epoch {front.epoch}); "
+            f"{pre} answered before it, {len(inflight) - pre} after, each "
+            "fenced to one epoch; 4 post-append answers scipy's BFS on the "
+            "union")
+        out.update(append_s=append_s, inflight_pre=pre)
+    finally:
+        front.close()
+    return out
+
+
+def _adult_table(rng):
+    """A seeded table of UCI Adult's shape, as strings per column."""
+    cols = [rng.integers(0, k, ADULT_ROWS) for k in ADULT_CARDS]
+    codes = np.stack(cols, 1)
+    table = [[f"{j}:{v}" for j, v in enumerate(row)] for row in codes.tolist()]
+    return table, codes
+
+
+def _prefix_counts(codes):
+    """The numpy trie: {prefix tuple: rows} over every column depth."""
+    out = {}
+    for d in range(1, codes.shape[1] + 1):
+        keys, counts = np.unique(codes[:, :d], axis=0, return_counts=True)
+        out.update(zip(map(tuple, keys.tolist()), counts.tolist()))
+    return out
+
+
+def _myrupt_prefixes(myrupt, vt):
+    """Each prefix-table node's path of cell values from the root, and its
+    count (the renumbered Example 8 rows: id, column, value, count,
+    parent)."""
+    path, out = {1: ()}, {}
+    for r in myrupt[np.argsort(myrupt[:, 1], kind="stable")].tolist():
+        tid, _, val, cnt, parent = r
+        name = vt.symbols.name(val - 1)
+        path[tid] = path[parent] + (int(name.split(":")[1]),)
+        out[path[tid]] = cnt
+    return out
+
+
+def _longest_oracle(myrupt, k):
+    """Example 9 by hand: the most frequent items on one root-to-node path,
+    an item (column, value) frequent when its nodes' counts sum to k."""
+    items = {}
+    for _, c, v, cnt, _ in myrupt.tolist():
+        items[(c, v)] = items.get((c, v), 0) + cnt
+    best = {1: 0}
+    for tid, c, v, _, parent in myrupt[np.argsort(myrupt[:, 1],
+                                                  kind="stable")].tolist():
+        best[tid] = best[parent] + (items[(c, v)] >= k)
+    return max(best.values())
+
+
+def analytics_phase(results, csr_edges):
+    """Phase 10.4: the §4 analytics and Example 7 at the largest sizes the
+    design admits, each against a numpy oracle of its own."""
+    import torch
+    from repro_torch.analytics import (build_rollup_prefix_table,
+                                       longest_maximal_pattern,
+                                       naive_bayes_predict, naive_bayes_train,
+                                       verticalize)
+    from repro_torch.core.engine import Engine
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(SEED + 10)
+    phase = {}
+
+    def step(label, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        rep = {"seconds": time.perf_counter() - t0,
+               "peak_bytes": torch.cuda.max_memory_allocated()}
+        launched = {k: v for k, v in ops.launch_counts().items() if v}
+        check(not launched, f"{label}: a kernel launched on the tuple path: "
+              f"{launched}")
+        phase[label] = rep
+        return out, rep
+
+    table, codes = _adult_table(rng)
+    train, test = codes[:-NB_HELD_OUT], codes[-NB_HELD_OUT:]
+    vt = verticalize(table[:-NB_HELD_OUT])
+    model, rep = step("naive Bayes", lambda: naive_bayes_train(
+        vt, caps=1 << 23, bits=16, device=DEVICE))
+    sym = {vt.symbols.name(i): i + 1 for i in range(len(vt.symbols))}
+    label_col = len(ADULT_CARDS)
+    lab = train[:, -1]
+    want_cls = {sym[f"{label_col - 1}:{c}"]: int(k)
+                for c, k in zip(*np.unique(lab, return_counts=True))}
+    want_feat = {}
+    for j in range(label_col - 1):
+        keys, counts = np.unique(np.stack([train[:, j], lab], 1), axis=0,
+                                 return_counts=True)
+        for (v, c), k in zip(keys.tolist(), counts.tolist()):
+            want_feat[(j + 1, sym[f"{j}:{v}"],
+                       sym[f"{label_col - 1}:{c}"])] = k
+    check(model["classes"] == want_cls and model["features"] == want_feat,
+          "naive Bayes: the counts differ from numpy's group-by")
+    # the oracle's argmax: the same Laplace-smoothed log-likelihoods
+    nv, classes = model["n_values"], sorted(want_cls)
+    agree = 0
+    for row in test.tolist():
+        ex = {j + 1: sym[f"{j}:{v}"] for j, v in enumerate(row[:-1])}
+        lp = [np.log(want_cls[c] / len(train)) + sum(
+            np.log((want_feat.get((col, val, c), 0) + 1) / (want_cls[c] + nv))
+            for col, val in ex.items()) for c in classes]
+        agree += naive_bayes_predict(model, ex) == classes[int(np.argmax(lp))]
+    check(agree == len(test), f"naive Bayes: {len(test) - agree} held-out "
+          "predictions differ from the oracle's argmax")
+    say(f"naive Bayes (Adult shape: {len(train)} rows x {label_col} "
+        f"columns, {len(vt.rows)} vtrain facts, bits=16): counts equal "
+        f"numpy's, {len(test)} held-out predictions the oracle's; "
+        f"{rep['seconds']:.2f} s, peak {rep['peak_bytes'] / 2 ** 30:.2f} GiB")
+
+    rows8 = codes[:EX8_ROWS]
+    vt8 = verticalize(table[:EX8_ROWS])
+    (myrupt, _), rep = step("Example 8", lambda: build_rollup_prefix_table(
+        vt8, caps=1 << 22, bits=15, device=DEVICE))
+    got = _myrupt_prefixes(myrupt, vt8)
+    check(got == _prefix_counts(rows8), "Example 8: the prefix counts differ "
+          "from the numpy trie")
+    say(f"Example 8 (rollup prefix table, {EX8_ROWS} rows x {label_col} "
+        f"columns, bits=15): {len(myrupt)} nodes, every count the numpy "
+        f"trie's; {rep['seconds']:.2f} s, peak "
+        f"{rep['peak_bytes'] / 2 ** 30:.2f} GiB")
+
+    # Example 9: the most rows whose prefix table keeps ids below 2^12
+    lo, hi = 1, EX9_LIMIT - 1
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if len(_prefix_counts(codes[:mid])) + 1 < EX9_LIMIT:
+            lo = mid
+        else:
+            hi = mid - 1
+    vt9 = verticalize(table[:lo])
+    my9, _ = build_rollup_prefix_table(vt9, bits=12, device=DEVICE)
+    k9 = max(2, lo // 20)
+    got9, rep = step("Example 9", lambda: longest_maximal_pattern(
+        my9, k9, bits=12, device=DEVICE))
+    want9 = _longest_oracle(my9, k9)
+    check(got9 == want9, f"Example 9: {got9}, the oracle {want9}")
+    say(f"Example 9 (longest maximal pattern, k={k9}) on the first {lo} rows "
+        f"x {label_col} columns ({len(my9)} nodes, ids below {EX9_LIMIT}, "
+        f"bits=12): {got9}, the oracle's; {rep['seconds']:.2f} s")
+
+    # Example 7: k-cores on phase 5's power-law arcs
+    deg = np.bincount(csr_edges[:, 0], minlength=CSR_N)
+    eng, rep = step("Example 7", lambda: Engine(
+        KCORE, db={"arc": csr_edges}, bits=20, default_cap=1 << 25,
+        join_cap=1 << 30, device=DEVICE).run())
+    rows = eng.query("kCores")
+    got7 = rows[np.lexsort((rows[:, 1], rows[:, 0]))]
+    # the oracle: min-label propagation over the valid arcs on the card
+    keep = (deg[csr_edges[:, 0]] >= KCORE_DEGREE) & \
+        (deg[csr_edges[:, 1]] >= KCORE_DEGREE)
+    src = torch.from_numpy(csr_edges[keep, 0]).to(DEVICE)
+    dst = torch.from_numpy(csr_edges[keep, 1]).to(DEVICE)
+    big = torch.iinfo(torch.int64).max
+    label = torch.full((CSR_N,), big, dtype=torch.int64, device=DEVICE)
+    label[src] = src
+    while True:
+        nxt = label.scatter_reduce(0, dst, label[src], "amin")
+        if torch.equal(nxt, label):
+            break
+        label = nxt
+    v = torch.nonzero(label < big).flatten()
+    want7 = torch.stack([v, label[v]], 1).cpu().numpy()
+    check(np.array_equal(got7.astype(np.int64), want7),
+          f"Example 7: {len(got7)} kCores rows, the oracle {len(want7)}")
+    say(f"Example 7 (k-cores, degree >= {KCORE_DEGREE}) on {len(csr_edges)} "
+        f"arcs ({int(keep.sum())} valid): {len(got7)} members in "
+        f"{len(np.unique(want7[:, 1]))} components, the oracle's; "
+        f"{rep['seconds']:.2f} s, peak {rep['peak_bytes'] / 2 ** 30:.2f} GiB")
+    del eng, rows, src, dst, label
+    torch.cuda.empty_cache()
+    results["obs_phase"]["analytics"] = phase
+
+
 def main():
     t_start = time.perf_counter()
     card = check_device()
@@ -2760,12 +3325,13 @@ def main():
     k8_ragged_parity()
     raw_entry_parity()
     k10_ragged_parity()
-    results: dict = {}
+    results: dict = {"obs_phase": {}}
     dense_phase(results)
     edges, wedges, sp_oracle = csr_phase(results)
     tuned_phase(results, wedges, sp_oracle)
     del wedges, sp_oracle
     dag_phase(results, edges)
+    analytics_phase(results, edges)
     del edges
     allpairs_phase(results)
     tuple_phase(results)
@@ -2782,7 +3348,8 @@ def main():
                                  for k in ("dense_phase", "csr_phase",
                                            "tuned_phase", "dag_phase",
                                            "allpairs_phase", "tuple_phase",
-                                           "lm_phase")}))
+                                           "lm_phase", "obs_phase")},
+                                default=str))
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(card)
     say(json.dumps(line))

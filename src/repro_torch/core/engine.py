@@ -56,6 +56,7 @@ from .query import (QuerySpec, as_query_literal, normalize_db,
 from .relation import (_MERGE_INIT, AggTable, FactTable, Schema, _agg_reduce,
                        match_ranges, merge_sorted,
                        sorted_member, sorted_unique)
+from .semiring import BOOL, MIN_PLUS
 from . import seminaive as _sn
 from . import sparse as _sparse
 from .seminaive import (Bindings, EdbIndex, build_edb_index, edb_antijoin,
@@ -609,12 +610,10 @@ class Engine:
         a carrier (default: ``PlanOptions.sparse``, then the density
         heuristic); ``matmul``/``spmv`` override the ⊗ / the segment step.
         Requires the canonical TC / shortest-path shape with the pivot
-        bound; raises ``PlanError`` otherwise.  ``probe=True`` (the probed
-        twin) comes with observability and raises here."""
-        if probe:
-            raise NotImplementedError(
-                "Engine.ask_dense(probe=True) is not ported to repro_torch "
-                "yet (ROADMAP A.6c)")
+        bound; raises ``PlanError`` otherwise.  ``probe=True`` runs the
+        probed fixpoint twin (``repro_torch.obs.fixpoint_probe``) instead,
+        with a bit-identical answer, and returns ``(answer,
+        FixpointProbe)``."""
         low = detect_frontier_lowering(self.source_program, pred)
         q = as_query_literal((pred, args))
         src = frontier_query_source(q)
@@ -625,8 +624,9 @@ class Engine:
         edges = self.db[low.edb]
         if len(edges) == 0:  # no arcs -> nothing reachable
             rows = np.zeros((0, 2), np.int64)
-            return rows if low.kind == "bool" else (rows,
-                                                    np.zeros((0,), np.int64))
+            out = rows if low.kind == "bool" else (rows,
+                                                   np.zeros((0,), np.int64))
+            return (out, None) if probe else out
         n = max(int(edges[:, :2].max()) + 1, src + 1)
         opts = self.plan.options
         use_csr = opts.sparse if sparse is None else sparse
@@ -636,6 +636,9 @@ class Engine:
                 opts.sparse_threshold if opts.sparse_threshold is not None
                 else _sparse.DEFAULT_SPARSE_THRESHOLD)
         dev = self.device
+        pr = None
+        if probe:  # local import keeps core import-independent of obs
+            from ..obs import fixpoint_probe as _probe
         if use_csr:
             if opts.tune:
                 from ..kernels import autotune as _at
@@ -649,20 +652,31 @@ class Engine:
             else:
                 csr = _sparse.build_csr(edges, n, low.kind, device=dev)
             init = _sparse.rows_from_sources(csr, [src])
-            res = _sparse.fixpoint_csr_cached(csr, init, spmv=spmv)
+            if probe:
+                res, pr = _probe.fixpoint_csr_probed(csr, init, spmv=spmv)
+            else:
+                res = _sparse.fixpoint_csr_cached(csr, init, spmv=spmv)
             row = res.table[0].cpu().numpy()
         elif low.kind == "bool":
             adj = np.zeros((n, n), bool)
             adj[edges[:, 0], edges[:, 1]] = True
-            res = reachable_from_dense(torch.from_numpy(adj).to(dev), src,
-                                       matmul=matmul)
+            adj = torch.from_numpy(adj).to(dev)
+            if probe:
+                res, pr = _probe.fixpoint_dense_probed(BOOL, adj, adj[src],
+                                                       matmul=matmul)
+            else:
+                res = reachable_from_dense(adj, src, matmul=matmul)
             row = res.table.cpu().numpy()
         else:  # every weighted lowering runs min-plus here, as in JAX
             w = np.full((n, n), np.inf, np.float32)
             np.minimum.at(w, (edges[:, 0], edges[:, 1]),
                           edges[:, 2].astype(np.float32))
-            res = single_source_distances_dense(torch.from_numpy(w).to(dev),
-                                                src, matmul=matmul)
+            w = torch.from_numpy(w).to(dev)
+            if probe:
+                res, pr = _probe.fixpoint_dense_probed(MIN_PLUS, w, w[src],
+                                                       matmul=matmul)
+            else:
+                res = single_source_distances_dense(w, src, matmul=matmul)
             row = res.table.cpu().numpy()
         if low.kind == "bool":
             dst = np.nonzero(row[:n])[0]
@@ -675,7 +689,7 @@ class Engine:
             out = (rows, row[dst].astype(np.int64))
         self.stats[f"{pred}__{'csr' if use_csr else 'dense'}"] = GroupStats(
             iterations=int(res.iterations), generated=int(res.generated))
-        return out
+        return (out, pr) if probe else out
 
     def ask_batch(self, queries: list | None = None, verify: bool = False,
                   caps: dict[str, int] | None = None,

@@ -3,10 +3,11 @@
 **Dense half.**  Each iteration is one
 ⊕.⊗ product (two for the nonlinear and sandwich forms), with semi-naive
 evaluation realized as delta-row masking (idempotent ⊕) or delta
-accumulation (additive ⊕).  ``lax.while_loop`` becomes a host loop: the
-convergence test (``any(mask)``, or ``any(delta != 0)`` for the accumulate
-form) syncs the host once per iteration, and the loop reproduces the JAX
-loop's ``iterations`` and ``generated`` exactly.
+accumulation (additive ⊕).  ``lax.while_loop`` becomes a host loop that
+syncs once per iteration: the masked forms read the next step's active
+rows with the step's Δ and generated counts in one transfer
+(:func:`semi_naive_loop`), the accumulate form ``any(delta != 0)``.  The
+loop reproduces the JAX loop's ``iterations`` and ``generated`` exactly.
 
 The default ⊗ is ``kernels.ops.semiring_matmul``: the CUDA kernel (K1 for
 bool, K2 for min-plus and max-plus) on a CUDA tensor, the plain version on a
@@ -127,6 +128,74 @@ def _zero_like(sr: Semiring, D: torch.Tensor) -> torch.Tensor:
     return torch.tensor(sr.zero, dtype=D.dtype, device=D.device)
 
 
+@dataclasses.dataclass
+class StepCounts:
+    """What each step of :func:`semi_naive_loop` read back: the rows (or,
+    for a 1-D frontier, the entries) active entering it, the entries it
+    changed (semi-naive's Δ) and the facts it produced before dedup."""
+
+    frontier_rows: list[int]
+    delta_facts: list[int]
+    generated: list[int]
+
+
+def semi_naive_loop(sr: Semiring, propagate: Callable, init: torch.Tensor,
+                    max_iters: int) -> tuple[DenseResult, StepCounts]:
+    """The masked semi-naive loop of the fixpoints here and in ``sparse``
+    and of their probed twins (``obs.fixpoint_probe``), which are therefore
+    bit-identical by construction.  Each step, the rows (or, for a 1-D
+    frontier, the entries) outside the mask enter as ⊕-zero,
+    ``propagate(Δ-masked D, D)`` gives the update and ``D ⊕ update`` the
+    next table; then the next step's active rows, the changed entries and
+    the generated facts come back to the host in one transfer, which is
+    also the loop's convergence test."""
+    zero = _zero_like(sr, init)
+    D = init
+    mask = torch.ones(init.shape[:-1] if init.ndim > 1 else init.shape,
+                      dtype=torch.bool, device=init.device)
+    counts = StepCounts([], [], [])
+    active = mask.numel()  # every row enters the first step
+    while len(counts.generated) < max_iters and active:
+        rmask = mask if D.ndim == 1 else mask[:, None]
+        upd = propagate(torch.where(rmask, D, zero), D)
+        Dn = sr.add(D, upd)
+        changed = _ne(sr, Dn, D)
+        mask = changed.any(dim=-1) if D.ndim > 1 else changed
+        nxt, delta, gen = torch.stack([
+            mask.sum(dtype=GEN_DTYPE), changed.sum(dtype=GEN_DTYPE),
+            (upd != zero).sum(dtype=GEN_DTYPE)]).tolist()
+        counts.frontier_rows.append(active)
+        counts.delta_facts.append(delta)
+        counts.generated.append(gen)
+        D, active = Dn, nxt
+    return (DenseResult(D, len(counts.generated), sum(counts.generated)),
+            counts)
+
+
+def dense_propagate(sr: Semiring, arc: torch.Tensor, form: str = "vector",
+                    matmul: Callable | None = None) -> Callable:
+    """The update of one dense step of ``form`` (see :func:`fixpoint_dense`)
+    as ``propagate(Δ-masked D, D)``; ``matmul`` defaults to the
+    kernel-backed ⊗ (``kernels.ops.semiring_matmul``)."""
+    if matmul is None:
+        from ..kernels import ops
+        matmul = ops.semiring_matmul(sr.name)
+    # the sandwich form's arcᵀ, made contiguous once (the kernels take
+    # contiguous operands; XLA hoists the JAX package's per-step transpose)
+    arc_t = arc.T.contiguous() if form == "sandwich" else None
+
+    def propagate(Dm, D):
+        if D.ndim == 1:  # vector form over a single frontier
+            return matmul(Dm[None, :], arc)[0]
+        if form in ("linear", "vector"):
+            return matmul(Dm, arc)
+        if form == "nonlinear":
+            return sr.add(matmul(Dm, D), matmul(D, Dm))
+        return matmul(arc_t, matmul(Dm, arc))  # sandwich
+
+    return propagate
+
+
 def fixpoint_dense(
     sr: Semiring,
     arc: torch.Tensor,
@@ -161,11 +230,11 @@ def fixpoint_dense(
     n = init.shape[-1]
     if max_iters is None:
         max_iters = 4 * n + 8
-    zero = _zero_like(sr, init)
 
     if form == "accumulate":
         if sr.idempotent:
             raise ValueError("accumulate form is for additive semirings")
+        zero = _zero_like(sr, init)
         total = delta = init
         it = 0
         gen = torch.zeros((), dtype=GEN_DTYPE, device=init.device)
@@ -177,36 +246,8 @@ def fixpoint_dense(
             it += 1
         return DenseResult(total, it, int(gen))
 
-    # the sandwich form's arcᵀ, made contiguous once (the kernels take
-    # contiguous operands; XLA hoists the JAX package's per-step transpose)
-    arc_t = arc.T.contiguous() if form == "sandwich" else None
-
-    def step(D, mask):
-        rmask = mask if D.ndim == 1 else mask[:, None]
-        Dm = torch.where(rmask, D, zero)
-        if D.ndim == 1:  # vector form over a single frontier
-            upd = matmul(Dm[None, :], arc)[0]
-        elif form in ("linear", "vector"):
-            upd = matmul(Dm, arc)
-        elif form == "nonlinear":
-            upd = sr.add(matmul(Dm, D), matmul(D, Dm))
-        else:  # sandwich
-            upd = matmul(arc_t, matmul(Dm, arc))
-        return sr.add(D, upd), upd
-
-    D = init
-    mask = torch.ones(init.shape[:-1] if init.ndim > 1 else init.shape,
-                      dtype=torch.bool, device=init.device)
-    it = 0
-    gen = torch.zeros((), dtype=GEN_DTYPE, device=init.device)
-    while it < max_iters and bool(mask.any()):
-        Dn, upd = step(D, mask)
-        changed = _ne(sr, Dn, D)
-        gen = gen + (upd != zero).sum(dtype=GEN_DTYPE)
-        mask = changed.any(dim=-1) if D.ndim > 1 else changed
-        D = Dn
-        it += 1
-    return DenseResult(D, it, int(gen))
+    return semi_naive_loop(sr, dense_propagate(sr, arc, form, matmul), init,
+                           max_iters)[0]
 
 
 def fixpoint_dense_cached(

@@ -53,9 +53,9 @@ import torch
 from ..device import resolve_device
 from .query import new_rows, sorted_unique, unique_rows
 from .semiring import Semiring, carrier_for
-from .seminaive import (GEN_DTYPE, DenseResult, _ne, additive_max_iters,
+from .seminaive import (GEN_DTYPE, DenseResult, additive_max_iters,
                         check_additive_converged, note_trace, quantize_ladder,
-                        quantize_rows)
+                        quantize_rows, semi_naive_loop)
 
 #: density |E|/n² below which the serving layer prefers CSR over the dense
 #: matrix (the auto heuristic).
@@ -701,31 +701,19 @@ def fixpoint_csr(csr: CSRMatrix, init: torch.Tensor,
         spmv = ops.csr_frontier_step(csr.kind)
     if max_iters is None:
         max_iters = _default_max_iters(csr, init)
+    if sr.idempotent:
+        return semi_naive_loop(sr, lambda dm, _: spmv(dm, csr), init,
+                               max_iters)[0]
     zero = torch.tensor(sr.zero, dtype=init.dtype, device=init.device)
     it = 0
     gen = torch.zeros((), dtype=GEN_DTYPE, device=init.device)
-    if not sr.idempotent:
-        total = delta = init
-        while it < max_iters and bool((delta != zero).any()):
-            new = spmv(delta, csr)
-            gen = gen + (new != zero).sum(dtype=GEN_DTYPE)
-            total, delta = total + new, new
-            it += 1
-        return DenseResult(total, it, int(gen))
-    D = init
-    mask = torch.ones(init.shape[:-1] if init.ndim > 1 else init.shape,
-                      dtype=torch.bool, device=init.device)
-    while it < max_iters and bool(mask.any()):
-        rmask = mask if D.ndim == 1 else mask[:, None]
-        dm = torch.where(rmask, D, zero)
-        upd = spmv(dm, csr)
-        Dn = sr.add(D, upd)
-        changed = _ne(sr, Dn, D)
-        gen = gen + (upd != zero).sum(dtype=GEN_DTYPE)
-        mask = changed.any(dim=-1) if D.ndim > 1 else changed
-        D = Dn
+    total = delta = init
+    while it < max_iters and bool((delta != zero).any()):
+        new = spmv(delta, csr)
+        gen = gen + (new != zero).sum(dtype=GEN_DTYPE)
+        total, delta = total + new, new
         it += 1
-    return DenseResult(D, it, int(gen))
+    return DenseResult(total, it, int(gen))
 
 
 def _default_max_iters(csr: CSRMatrix, init: torch.Tensor) -> int:

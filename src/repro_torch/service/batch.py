@@ -1,5 +1,6 @@
 """Micro-batching: coalesce B single-source queries into one frontier
-fixpoint (port of ``repro.service.batch`` without mesh and probe).
+fixpoint (port of ``repro.service.batch``; a device mesh is not ported yet,
+ROADMAP A.6f).
 
 B concurrent queries ``?- tc(s_i, Y)`` on the same decomposable predicate
 share one evaluation: their frontier rows stack into a (B, n) matrix and the
@@ -14,9 +15,13 @@ Batch sizes quantize to the service's pad levels (1, 8, 32, 128, ...) with
 ``generated`` agree with it.  The padding has no compile cache to feed here;
 it keeps the two packages' results identical.
 
+``probe=True`` runs the probed twins (``obs.fixpoint_probe``) and returns
+``(DenseResult, FixpointProbe)`` with a bit-identical result; the additive
+carrier has no probed twin and reports ``None``.
+
 Tuple queries group by (predicate, adornment) shape instead
 (:func:`coalesce_by_shape`): a same-shape group shares one qid-tagged
-tuple fixpoint (``session._QueryTemplate.run_batch``).
+tuple fixpoint (``session._QueryTemplate.launch_batch``).
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ from ..core import sparse as _sparse
 from ..core.semiring import Semiring
 from ..core.seminaive import (DenseResult, additive_max_iters,
                               check_additive_converged, fixpoint_dense_cached)
+from ..obs.fixpoint_probe import fixpoint_csr_probed, fixpoint_dense_probed
 
 
 def coalesce_by_shape(items: list, shape_of) -> dict:
@@ -65,11 +71,13 @@ def _pad_init(init: torch.Tensor, bp: int, zero) -> torch.Tensor:
 
 def run_frontier_batch(sr: Semiring, matrix: torch.Tensor, srcs: list[int],
                        pads: tuple[int, ...],
-                       init: torch.Tensor | None = None) -> DenseResult:
+                       init: torch.Tensor | None = None,
+                       probe: bool = False) -> DenseResult:
     """One batched dense fixpoint answering ``len(srcs)`` single-source
     queries; the table's first ``len(srcs)`` rows are their closure rows
     (pad rows follow).  ``init`` overrides the (B, n) seed: an
-    append-resume passes the cached rows ⊕ the post-append seed rows."""
+    append-resume passes the cached rows ⊕ the post-append seed rows.
+    ``probe=True`` returns ``(DenseResult, FixpointProbe | None)``."""
     b = len(srcs)
     bp = pad_batch_size(b, pads)
     if init is None:
@@ -84,17 +92,22 @@ def run_frontier_batch(sr: Semiring, matrix: torch.Tensor, srcs: list[int],
         max_iters = additive_max_iters(matrix.shape[-1])
         res = fixpoint_dense_cached(sr, matrix, init, form="accumulate",
                                     max_iters=max_iters)
-        return check_additive_converged(res, max_iters, "additive dense batch")
+        res = check_additive_converged(res, max_iters, "additive dense batch")
+        return (res, None) if probe else res
+    if probe:
+        return fixpoint_dense_probed(sr, matrix, init, form="vector")
     return fixpoint_dense_cached(sr, matrix, init, form="vector")
 
 
 def run_frontier_batch_csr(csr: "_sparse.CSRMatrix", srcs: list[int],
                            pads: tuple[int, ...],
-                           init: torch.Tensor | None = None) -> DenseResult:
+                           init: torch.Tensor | None = None,
+                           probe: bool = False) -> DenseResult:
     """CSR twin of :func:`run_frontier_batch`: the same (B, n) batched
     frontier fixpoint, each iteration an O(B·|E|) segment step.  Seeds come
     from one segment step over one-hot rows (``rows_from_sources``), so they
-    go through the CSR kernel too; ``init`` overrides them (append-resume)."""
+    go through the CSR kernel too; ``init`` overrides them (append-resume).
+    ``probe=True`` returns ``(DenseResult, FixpointProbe | None)``."""
     b = len(srcs)
     bp = pad_batch_size(b, pads)
     if init is None:
@@ -107,7 +120,10 @@ def run_frontier_batch_csr(csr: "_sparse.CSRMatrix", srcs: list[int],
         # the budget is checked here, as on the dense twin
         max_iters = additive_max_iters(csr.n_alloc)
         res = _sparse.fixpoint_csr_cached(csr, init, max_iters=max_iters)
-        return check_additive_converged(res, max_iters, "additive CSR batch")
+        res = check_additive_converged(res, max_iters, "additive CSR batch")
+        return (res, None) if probe else res
+    if probe:
+        return fixpoint_csr_probed(csr, init)
     return _sparse.fixpoint_csr_cached(csr, init)
 
 

@@ -17,12 +17,14 @@ A batched tuple template resumes the same way: its last fixpoint state
 (:class:`TupleSnapshot`) is a lower bound of the post-append model for the
 same seeds, so the engine re-enters from it (``Engine.run(warm=)``).
 
-The admission epoch fence of the JAX module comes with the admission
-front-end.
+:class:`EpochFence` keeps appends out of the admission front-end's
+launch→finalize windows (``admission.AsyncDatalogService``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 
 import numpy as np
 import torch
@@ -93,6 +95,72 @@ def pad_rows(rows: torch.Tensor, n_alloc: int, zero) -> torch.Tensor:
     fill = torch.full((rows.shape[0], grow), zero, dtype=rows.dtype,
                       device=rows.device)
     return torch.cat([rows, fill], dim=1)
+
+
+class EpochFence:
+    """Serializes epoch writers (appends) against in-flight batches.
+
+    The admission front-end launches batch *k+1* while batch *k*'s
+    host-side finalize is still formatting — but an ``append`` mid-flight
+    would bump the service epoch between a batch's launch and its cache
+    fill, tagging pre-append answers with the post-append epoch (exactly
+    the staleness the epoch-tagged LRU exists to prevent).  The fence is a
+    writer-priority readers/writer latch:
+
+    * every in-flight batch holds the **read** side from launch until its
+      finalize completes (``acquire_read``/``release_read`` — taken and
+      released on *different* threads, so this is a counting latch, not a
+      thread-owned lock);
+    * an append takes the **write** side (:meth:`writing`): it drains the
+      in-flight batches, holds off new launches while it waits (writer
+      priority — a busy dispatcher must not starve appends), applies the
+      append + resume/invalidation, then reopens admission.
+
+    Appends therefore degrade to a short latency bubble; they can never
+    interleave with a flush's launch→finalize window.
+    """
+
+    def __init__(self):
+        self._cv = threading.Condition()
+        self._readers = 0
+        self._writers_waiting = 0
+        self._writing = False
+
+    def acquire_read(self) -> None:
+        with self._cv:
+            while self._writers_waiting or self._writing:
+                self._cv.wait()
+            self._readers += 1
+
+    def release_read(self) -> None:
+        with self._cv:
+            self._readers -= 1
+            self._cv.notify_all()
+
+    @contextlib.contextmanager
+    def reading(self):
+        self.acquire_read()
+        try:
+            yield
+        finally:
+            self.release_read()
+
+    @contextlib.contextmanager
+    def writing(self):
+        with self._cv:
+            self._writers_waiting += 1
+            try:
+                while self._readers or self._writing:
+                    self._cv.wait()
+                self._writing = True
+            finally:
+                self._writers_waiting -= 1
+        try:
+            yield
+        finally:
+            with self._cv:
+                self._writing = False
+                self._cv.notify_all()
 
 
 def entry_bytes(entry) -> int:

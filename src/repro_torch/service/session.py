@@ -33,12 +33,26 @@ the card every frontier iteration is a hand-written CUDA kernel
 searches and gathers are torch operations on the card; on the CPU the
 kernels' plain versions run.
 
-``mesh``, ``probe``, ``tracer``, ``durable_dir`` and a ``metrics``
-registry raise ``NotImplementedError`` naming their ROADMAP item (A.6).
+Observability threads through the whole path as in the JAX service
+(``repro_torch.obs``): ``tracer=True`` records Chrome-exportable spans,
+``svc.metrics`` is the unified counter/histogram registry, ``probe=True``
+routes the frontier fixpoints through their probed twins, and
+``explain()["kernels"]`` attributes every batched fixpoint to its kernel
+against the H100 roofline.  :meth:`DatalogService.ask_batch` is
+:meth:`~DatalogService.launch_batch` then
+:meth:`~DatalogService.finalize_batch`: a launch runs the fixpoints and
+copies their tables to the host, the finalize formats them, so the
+admission front-end (``admission.py``) can format batch *k* on one thread
+while batch *k+1*'s fixpoint runs on another.
+
+``mesh`` and ``durable_dir`` raise ``NotImplementedError`` naming their
+ROADMAP items (A.6f and A.6e).
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
+import time
 from collections import OrderedDict
 
 import numpy as np
@@ -46,7 +60,8 @@ import torch
 
 from ..core import sparse as _sparse
 from ..core.engine import (CapacityError, Engine, as_query_literal,
-                           query_row_mask, split_qid_answers)
+                           fixpoint_trace_count, query_row_mask,
+                           split_qid_answers)
 from ..core.ir import Const, Literal, Program, Rule, fresh_var
 from ..core.magic import (BOUND, FrontierLowering, MagicError, agg_positions,
                           attribute_qids, detect_frontier_lowering,
@@ -59,9 +74,17 @@ from ..core.query import RowSet, unique_rows
 from ..core.semiring import BOOL, MIN_PLUS, carrier_for, edge_arity
 from ..device import resolve_device
 from ..kernels import autotune as _at
+from ..obs.metrics import NULL_METRICS, MetricsRegistry
+from ..obs.roofline_attr import (KernelAttribution, csr_launch_cost,
+                                 dense_launch_cost)
+from ..obs.trace import NULL_TRACER, Tracer
 from . import batch as _batch
 from . import incremental as _inc
 from .cache import CacheEntry, LRUCache
+
+
+#: batch-size histogram buckets (queries per launched batch)
+_BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -88,6 +111,59 @@ class ServiceStats:
     resumed_rows: int = 0  # cached closures refreshed by append-resume
     resumed_tuple_rows: int = 0  # tuple answers refreshed by snapshot resume
     dropped_cold: int = 0  # cold entries evicted instead of resumed
+
+
+class _DenseLaunch:
+    """One launched batched fixpoint and its rows on the host.
+
+    The fixpoint's host loop reads its counters back every iteration, so
+    its kernels have all run when the launch returns; the rows are then
+    copied to the host on the same stream.  On the card two events around
+    the fixpoint time it: its device wall time, the gaps in which the card
+    waits for the host loop included."""
+
+    def __init__(self, ds: "_DenseRelation", svc: "DatalogService",
+                 srcs: list[int]):
+        self.b = len(srcs)
+        self.events = None
+        if svc.device.type != "cuda":
+            t0 = time.perf_counter()
+            res = ds.run_batch(svc, srcs)
+            self._seconds = time.perf_counter() - t0
+        else:
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            res = ds.run_batch(svc, srcs)
+            stop.record()
+            self.events = (start, stop)
+        self.table = res.table[:self.b].cpu().numpy()
+        self.iterations = res.iterations
+
+    def seconds(self) -> float:
+        """The fixpoint's device wall time (CUDA events), or its wall time
+        on the CPU."""
+        if self.events is None:
+            return self._seconds
+        start, stop = self.events
+        return start.elapsed_time(stop) / 1e3
+
+
+@dataclasses.dataclass
+class _PendingBatch:
+    """In-flight state between :meth:`DatalogService.launch_batch` and
+    :meth:`DatalogService.finalize_batch` — the double-buffering unit of the
+    admission front-end: the launched fixpoints plus everything the host
+    finalize needs without touching shared engine state again."""
+
+    epoch: int  # service epoch at launch; finalize asserts it is unchanged
+    qlits: list
+    out: list  # answer slots; EDB selections fill at launch
+    hits: list = dataclasses.field(default_factory=list)  # (slot, CacheEntry)
+    #: [(pred, _DenseRelation, items, uniq_srcs, in_range, _DenseLaunch|None)]
+    dense: list = dataclasses.field(default_factory=list)
+    #: [(pred, items, uniq, (template, launched)|None, results|None)]
+    tuples: list = dataclasses.field(default_factory=list)
 
 
 def _freeze(res):
@@ -184,12 +260,22 @@ class _DenseRelation:
 
     def run_batch(self, svc: "DatalogService", srcs: list[int], init=None):
         """One batched frontier fixpoint over this relation's carrier
-        (``init`` overrides the seed: append-resume)."""
+        (``init`` overrides the seed: append-resume).  In probe mode the
+        probed twin runs instead (bit-identical result) and its
+        observations land on ``svc.last_probes``."""
         if self.is_csr:
-            return _batch.run_frontier_batch_csr(self.csr, srcs,
-                                                 svc.batch_pads, init=init)
-        return _batch.run_frontier_batch(self.sr, self.matrix, srcs,
-                                         svc.batch_pads, init=init)
+            res = _batch.run_frontier_batch_csr(self.csr, srcs,
+                                                svc.batch_pads, init=init,
+                                                probe=svc.probe)
+        else:
+            res = _batch.run_frontier_batch(self.sr, self.matrix, srcs,
+                                            svc.batch_pads, init=init,
+                                            probe=svc.probe)
+        if svc.probe:
+            res, pr = res
+            if pr is not None:
+                svc._record_probe(pr)
+        return res
 
     def append(self, svc: "DatalogService", rows: np.ndarray) -> bool:
         """Fold appended arcs in; True when the domain outgrew the
@@ -363,12 +449,12 @@ class _QueryTemplate:
                                       **self._eng_kw)
         return self._qid_engine
 
-    def run_batch(self, svc: "DatalogService", qlits: list[Literal]) -> list:
-        """Evaluate B same-shape queries as ONE tuple-path fixpoint and
-        return per-query answers in order (storing the fixpoint's snapshot
-        when the shape is resumable).  Raises (PlanError/CapacityError/
-        ValueError) when the batch cannot run batched: callers fall back to
-        sequential :meth:`run`."""
+    def launch_batch(self, svc: "DatalogService", qlits: list[Literal]) -> dict:
+        """Evaluate B same-shape queries as ONE qid-tagged tuple fixpoint and
+        *capture* the materialized model, since the admission front-end may
+        launch the next flush on this template while this one's split still
+        runs.  Raises (PlanError/CapacityError/ValueError) when the batch
+        cannot run batched: callers fall back to sequential :meth:`run`."""
         eng = self._ensure_qid_engine(svc)
         seeds = np.asarray(
             [[qid] + [int(q.args[i].value) for i in self.bound_positions]
@@ -376,19 +462,34 @@ class _QueryTemplate:
         eng.db[self.seed_rel] = seeds
         eng.invalidate(self.seed_rel)
         eng.run()
-        out = self._split(eng, qlits)
+        return dict(seeds=seeds, qlits=list(qlits),
+                    model=eng.materialized[self.result_pred],
+                    info=eng._pred_info[self.result_pred],
+                    state=dict(eng.materialized))
+
+    def finalize_launched(self, svc: "DatalogService", launched: dict) -> list:
+        """Per-query answers of a :meth:`launch_batch`, in order: per-qid
+        attribution over the captured model, and the snapshot stored when
+        the shape is resumable; host work over the launch's own arrays
+        (safe to overlap with the next flush's fixpoint)."""
+        rows, vals = launched["model"]
+        qlits = launched["qlits"]
+        out = split_qid_answers(self.result_pred, rows, vals,
+                                launched["info"], qlits)
         if self.resumable and svc.snapshot_lru > 0:
             self._store_snap(svc, tuple(svc._cache_key(q) for q in qlits),
-                             _inc.TupleSnapshot(seeds=seeds, qlits=list(qlits),
-                                                state=dict(eng.materialized)))
+                             _inc.TupleSnapshot(seeds=launched["seeds"],
+                                                qlits=qlits,
+                                                state=launched["state"]))
         return out
 
     def _store_snap(self, svc: "DatalogService", key: tuple,
                     snap: _inc.TupleSnapshot) -> None:
-        self._snaps[key] = snap
-        self._snaps.move_to_end(key)
-        while len(self._snaps) > svc.snapshot_lru:
-            self._snaps.popitem(last=False)
+        with svc.lock:  # finalize may run off the service lock (admission)
+            self._snaps[key] = snap
+            self._snaps.move_to_end(key)
+            while len(self._snaps) > svc.snapshot_lru:
+                self._snaps.popitem(last=False)
 
     def _split(self, eng: Engine, qlits: list[Literal], qids=None) -> list:
         """Per-seed attribution (``engine.split_qid_answers``)."""
@@ -482,10 +583,22 @@ class DatalogService:
     ``snapshot_lru``  batched tuple templates keep their last K batches'
                       fixpoint snapshots append-resumable (0 disables).
 
+    ``metrics``       unified metrics registry (``obs.metrics``): ``None``/
+                      ``True`` creates one (per-batch observes only),
+                      ``False`` disables it (``NULL_METRICS``), or pass a
+                      shared ``MetricsRegistry``.
+    ``tracer``        span tracer (``obs.trace``): ``None``/``False`` is the
+                      no-op ``NULL_TRACER``, ``True`` creates a recording
+                      ``Tracer``, or pass one.
+    ``probe``         route dense/CSR frontier fixpoints through the probed
+                      twins (``obs.fixpoint_probe``): results stay
+                      bit-identical, per-iteration frontier/Δ observations
+                      accumulate on ``last_probes`` and ``explain()``.
+
     ``snapshot_every``, ``keep_snapshots`` and ``durable_fsync`` are the
-    JAX service's durability settings, stored as it stores them; ``mesh``,
-    ``probe``, ``tracer``, ``durable_dir`` and a ``metrics`` registry exist
-    for signature parity with the JAX service and raise until ported.
+    JAX service's durability settings, stored as it stores them; ``mesh``
+    (A.6f) and ``durable_dir`` (A.6e) exist for signature parity with the
+    JAX service and raise until ported.
     """
 
     def __init__(self, program, db: dict[str, np.ndarray], *, bits: int = 18,
@@ -505,13 +618,9 @@ class DatalogService:
                  device=None):
         if matmul not in (None, "pallas"):
             raise ValueError(f"matmul must be None or 'pallas', got {matmul!r}")
-        for name, value, item in (("mesh", mesh is not None, "A.6"),
-                                  ("probe", probe, "A.6"),
-                                  ("tracer", bool(tracer), "A.6"),
-                                  ("metrics", metrics not in (None, False),
-                                   "A.6"),
+        for name, value, item in (("mesh", mesh is not None, "A.6f"),
                                   ("durable_dir", durable_dir is not None,
-                                   "A.6")):
+                                   "A.6e")):
             if value:
                 raise _not_ported(f"DatalogService({name}=...)", item)
         self.device = resolve_device(device)
@@ -552,6 +661,36 @@ class DatalogService:
         self._templates: dict[tuple[str, str], _QueryTemplate] = {}
         self._dense: dict[str, _DenseRelation] = {}
         self._lowerings: dict[str, FrontierLowering | None] = {}
+        #: guards all shared serving state (cache, stats, templates, carrier
+        #: relations, epoch); the admission front-end launches flushes,
+        #: finalizes them and probes the cache from different threads
+        self.lock = threading.RLock()
+        # -- observability (obs/): tracer, metrics, probes, roofline ---------
+        self.probe = bool(probe)
+        self.last_probes: list = []  # recent FixpointProbe records (capped)
+        if tracer is None or tracer is False:
+            self.tracer = NULL_TRACER
+        elif tracer is True:
+            self.tracer = Tracer()
+        else:
+            self.tracer = tracer
+        if metrics is False:
+            self.metrics = NULL_METRICS
+        elif metrics is None or metrics is True:
+            self.metrics = MetricsRegistry()
+        else:
+            self.metrics = metrics
+        self.kernels = KernelAttribution()
+        self._h_device = self.metrics.histogram(
+            "datalog_device_seconds",
+            "launch to device-sync wall time per batched fixpoint")
+        self._h_finalize = self.metrics.histogram(
+            "datalog_finalize_seconds",
+            "host-side split/format/cache-fill time per finalized batch")
+        self._h_batch = self.metrics.histogram(
+            "datalog_batch_size", "queries per launched batch",
+            buckets=_BATCH_BUCKETS)
+        self.metrics.register_collector(self._absorb_stats)
 
     # -- queries -------------------------------------------------------------
 
@@ -569,42 +708,106 @@ class DatalogService:
         the memoized tuple templates one by one.  EDB queries are
         selections and cache hits return the cached answer.  Every computed
         answer lands in the result cache individually, so later singleton
-        queries hit."""
-        qlits = [self._as_literal(s) for s in queries]
-        out: list = [None] * len(qlits)
-        groups: dict[str, list[tuple[int, int]]] = {}
-        singles: list[tuple[int, Literal]] = []
-        for i, q in enumerate(qlits):
-            ent = self.cache.get(self._cache_key(q))
-            if ent is not None:
-                if ent.epoch != self.epoch:
-                    raise RuntimeError("a stale cache entry survived an "
-                                       "append")
-                out[i] = self._entry_result(ent)
-            elif q.pred in self.db:  # EDB query: a pure selection
-                out[i] = self._ask_edb(q)
-            else:
-                src = self._dense_source(q)
-                if src is not None:
-                    groups.setdefault(q.pred, []).append((i, src))
+        queries hit.
+
+        Two phases: :meth:`launch_batch` runs the fixpoints,
+        :meth:`finalize_batch` splits, formats and fills the cache; the
+        admission front-end runs them on different threads."""
+        with self.lock:
+            return self.finalize_batch(self.launch_batch(queries))
+
+    def launch_batch(self, queries: list) -> _PendingBatch:
+        """Phase 1 of :meth:`ask_batch`: classify the queries (cache hit,
+        EDB selection, frontier group, tuple shape) and run every fixpoint;
+        on the card each frontier group's table is then on its way to the
+        host.  Returns the in-flight state for :meth:`finalize_batch`."""
+        with self.lock, self.tracer.span("launch_batch", cat="service",
+                                         batch=len(queries)):
+            self._h_batch.observe(len(queries))
+            qlits = [self._as_literal(s) for s in queries]
+            pending = _PendingBatch(epoch=self.epoch, qlits=qlits,
+                                    out=[None] * len(qlits))
+            dense: dict[str, list[tuple[int, int, Literal]]] = {}
+            singles: list[tuple[int, Literal]] = []
+            for i, q in enumerate(qlits):
+                ent = self.cache.get(self._cache_key(q))
+                if ent is not None:
+                    if ent.epoch != self.epoch:
+                        raise RuntimeError("a stale cache entry survived an "
+                                           "append")
+                    pending.hits.append((i, ent))
+                elif q.pred in self.db:  # EDB query: a pure selection
+                    pending.out[i] = self._ask_edb(q)
                 else:
-                    singles.append((i, q))
-        for pred, items in groups.items():
-            answers = self._run_group(pred, [src for _, src in items])
-            for i, src in items:
-                out[i] = answers[src]
-        # same-shape tuple queries share one qid-tagged fixpoint; mixed
-        # shapes never coalesce (no shared seed schema)
-        shapes = _batch.coalesce_by_shape(
-            singles, lambda q: (q.pred, self._adorn(q)))
-        for (pred, adn), items in shapes.items():
-            results = self._run_tuple_group(pred, adn, items)
-            for key, res in results.items():
-                self.cache.put(key, CacheEntry("tuple", pred, res,
-                                               self.epoch))
-            for i, q in items:
-                out[i] = results[self._cache_key(q)]
-        return out
+                    src = self._dense_source(q)
+                    if src is not None:
+                        dense.setdefault(q.pred, []).append((i, src, q))
+                    else:
+                        singles.append((i, q))
+            for pred, items in dense.items():
+                pending.dense.append(self._launch_dense_batch(pred, items))
+            # same-shape tuple queries share one qid-tagged fixpoint; mixed
+            # shapes never coalesce (no shared seed schema)
+            shapes = _batch.coalesce_by_shape(
+                singles, lambda q: (q.pred, self._adorn(q)))
+            for (pred, adn), items in shapes.items():
+                pending.tuples.append(
+                    self._launch_tuple_group(pred, adn, items))
+            return pending
+
+    def finalize_batch(self, pending: _PendingBatch) -> list:
+        """Phase 2 of :meth:`ask_batch`: wait for each launched table's copy
+        to the host, split and format per query (host work, outside the
+        service lock), then fill the result cache and the answer slots
+        under the lock.  The epoch assert is the fencing invariant: an
+        append must never land between a batch's launch and its cache fill
+        (``incremental.EpochFence`` enforces it for the async front-end)."""
+        with self.tracer.span("finalize_batch", cat="service",
+                              batch=len(pending.qlits)):
+            t_fin = time.monotonic()
+            dense_done = []
+            for pred, ds, items, uniq, in_range, launch in pending.dense:
+                with self.tracer.span("device_sync", cat="device", pred=pred):
+                    table = launch.table if launch is not None else None
+                if launch is not None:
+                    self._attribute_launch(ds, launch)
+                formatted = {s: (self._format(ds, s, table[j]), table[j])
+                             for j, s in enumerate(in_range)}
+                dense_done.append((pred, ds, items, uniq, formatted))
+            tuple_done = []
+            for pred, items, uniq, launched, results in pending.tuples:
+                if results is None:  # batched: split the captured model now
+                    tpl, run = launched
+                    with self.tracer.span("tuple_split", cat="service",
+                                          pred=pred):
+                        answers = tpl.finalize_launched(self, run)
+                    results = {key: _freeze(res)
+                               for (key, _), res in zip(uniq, answers)}
+                tuple_done.append((pred, items, results))
+            with self.lock, self.tracer.span("cache_fill", cat="service"):
+                assert pending.epoch == self.epoch, \
+                    "append overtook an in-flight batch (epoch fence violated)"
+                out = pending.out
+                for i, ent in pending.hits:
+                    out[i] = self._entry_result(ent)
+                for pred, ds, items, uniq, formatted in dense_done:
+                    final: dict[int, object] = {}
+                    for s, (fmt, raw) in formatted.items():
+                        self._cache_dense(pred, s, fmt, raw)
+                        final[s] = fmt
+                    for s in uniq:
+                        if s not in final:  # beyond the domain: unreachable
+                            final[s] = self._empty_dense(ds, s)
+                    for i, src, _ in items:
+                        out[i] = final[src]
+                for pred, items, results in tuple_done:
+                    for key, res in results.items():
+                        self.cache.put(key, CacheEntry("tuple", pred, res,
+                                                       self.epoch))
+                    for i, q in items:
+                        out[i] = results[self._cache_key(q)]
+                self._h_finalize.observe(time.monotonic() - t_fin)
+                return out
 
     def append(self, rel: str, rows) -> "DatalogService":
         """Monotone EDB append: add facts, keep serving.  Cached closures of
@@ -613,29 +816,31 @@ class DatalogService:
         (``incremental.py``), so hot entries stay warm; everything else (and
         under ``resume_min_hits`` / ``resume_max_bytes`` the cold tail) is
         invalidated."""
-        if rel not in self.db:
-            raise ValueError(
-                f"{rel!r} is not an EDB relation of this service "
-                f"(known: {sorted(self.db)}); appends are EDB-only")
-        rows = _inc.validate_append(rows, self.db[rel].shape[1], self.bits)
-        # EDB relations stay sets under appends
-        self.db[rel] = unique_rows(np.concatenate([self.db[rel], rows]),
-                                   self.bits)
-        self.epoch += 1
-        self.stats.appends += 1
-        self._base.invalidate(rel)
-        for tpl in self._templates.values():
-            tpl.on_append(self, rel)
-        refreshed = self._resume_tuple_snapshots(rel)
-        self.cache.drop_where(
-            lambda k, e: e.kind == "tuple" and k not in refreshed)
-        for _, e in self.cache.items():
-            if e.kind == "dense" and self._lowering(e.pred).edb != rel:
-                e.epoch = self.epoch  # untouched base relation: still valid
-        for pred, ds in self._dense.items():
-            if ds.low.edb == rel:
-                self._refresh_dense(pred, ds, rows)
-        return self
+        with self.lock, self.tracer.span("append", cat="service", rel=rel):
+            if rel not in self.db:
+                raise ValueError(
+                    f"{rel!r} is not an EDB relation of this service "
+                    f"(known: {sorted(self.db)}); appends are EDB-only")
+            rows = _inc.validate_append(rows, self.db[rel].shape[1],
+                                        self.bits)
+            # EDB relations stay sets under appends
+            self.db[rel] = unique_rows(np.concatenate([self.db[rel], rows]),
+                                       self.bits)
+            self.epoch += 1
+            self.stats.appends += 1
+            self._base.invalidate(rel)
+            for tpl in self._templates.values():
+                tpl.on_append(self, rel)
+            refreshed = self._resume_tuple_snapshots(rel)
+            self.cache.drop_where(
+                lambda k, e: e.kind == "tuple" and k not in refreshed)
+            for _, e in self.cache.items():
+                if e.kind == "dense" and self._lowering(e.pred).edb != rel:
+                    e.epoch = self.epoch  # untouched base relation: valid
+            for pred, ds in self._dense.items():
+                if ds.low.edb == rel:
+                    self._refresh_dense(pred, ds, rows)
+            return self
 
     def _resume_tuple_snapshots(self, rel: str) -> dict:
         """Resume batched tuple templates from their fixpoint snapshots and
@@ -691,9 +896,11 @@ class DatalogService:
         ``+snapN`` with N resumable snapshots), per-predicate carrier reports under
         ``relations`` (``{n, n_alloc, semiring, repr}`` plus ``flips``/
         ``last_flip`` after a representation flip and ``nnz``/``density``/
-        ``e_alloc``/``padding`` for CSR) and ``kernels``, which holds a
-        ``tuning`` entry per tuned predicate when ``tune=`` is on (the
-        roofline attribution of the JAX service comes with A.6)."""
+        ``e_alloc``/``padding`` for CSR), ``kernels`` (the roofline
+        attribution per kernel, ``KernelAttribution.report``, plus a
+        ``tuning`` entry per tuned predicate when ``tune=`` is on) and, in
+        probe mode, ``probes`` (recent ``FixpointProbe`` dicts).  The async
+        front-end adds ``admission``."""
         rep = {
             "epoch": self.epoch,
             "service": dataclasses.asdict(self.stats),
@@ -705,12 +912,84 @@ class DatalogService:
                 + (f"+snap{len(t._snaps)}" if t._snaps else "")
                 for (p, a), t in self._templates.items()),
             "relations": {p: ds.report() for p, ds in self._dense.items()},
-            "kernels": {},
+            "kernels": self.kernels.report(),
         }
         tuning = {p: ds.tuning for p, ds in self._dense.items() if ds.tuning}
         if tuning:
             rep["kernels"]["tuning"] = tuning
+        if self.probe:
+            rep["probes"] = [p.as_dict() for p in self.last_probes]
         return rep
+
+    def _record_probe(self, pr) -> None:
+        self.last_probes.append(pr)
+        del self.last_probes[:-64]  # bounded: recent batches only
+
+    def _attribute_launch(self, ds: _DenseRelation,
+                          launch: _DenseLaunch) -> None:
+        """Roofline attribution at the device sync: the fixpoint's device
+        wall time (host-loop gaps included) and the analytic flop/byte
+        model of the padded batch that ran (``obs.roofline_attr``)."""
+        secs = launch.seconds()
+        self._h_device.observe(secs)
+        iters = launch.iterations
+        bp = _batch.pad_batch_size(max(launch.b, 1), self.batch_pads)
+        if ds.is_csr:
+            cost = csr_launch_cost(bp, ds.n_alloc, ds.csr.e_alloc,
+                                   ds.csr.edge_val.element_size(), iters)
+            kernel = f"csr_spmv:{ds.low.kind}"
+        else:
+            cost = dense_launch_cost(bp, ds.n_alloc,
+                                     ds.matrix.element_size(), iters)
+            kernel = f"frontier_matmul:{ds.low.kind}"
+        self.kernels.record(kernel, seconds=secs, iterations=iters, **cost)
+
+    def _absorb_stats(self, m) -> None:
+        """Export-time absorption (``MetricsRegistry.register_collector``):
+        the hot paths keep their cheap dataclass ``+=``s; every exporter
+        sees them through the JAX service's ``datalog_*`` schema."""
+        with self.lock:
+            st = dataclasses.asdict(self.stats)
+            cache_hits, cache_misses = self.cache.hits, self.cache.misses
+            cache_evicts, cache_len = self.cache.evictions, len(self.cache)
+            epoch = self.epoch
+        fx = m.counter("datalog_fixpoints_total",
+                       "batched frontier/tuple fixpoints launched, by repr")
+        fx.set(st["dense_fixpoints"] - st["csr_fixpoints"], {"repr": "dense"})
+        fx.set(st["csr_fixpoints"], {"repr": "csr"})
+        fx.set(st["tuple_fixpoints"], {"repr": "tuple"})
+        bq = m.counter("datalog_batched_queries_total",
+                       "queries answered by batched fixpoints, by engine")
+        bq.set(st["batched_queries"], {"engine": "frontier"})
+        bq.set(st["tuple_batched_queries"], {"engine": "tuple"})
+        for name, field, help_ in (
+            ("datalog_plans_built_total", "plans_built",
+             "query templates constructed (magic rewrite + plan)"),
+            ("datalog_plan_hits_total", "plan_hits",
+             "queries served by a memoized template"),
+            ("datalog_tuple_runs_total", "tuple_runs",
+             "PSN template evaluations"),
+            ("datalog_appends_total", "appends", "monotone EDB appends"),
+            ("datalog_resumed_rows_total", "resumed_rows",
+             "cached dense closures refreshed by append-resume"),
+            ("datalog_resumed_tuple_rows_total", "resumed_tuple_rows",
+             "tuple answers refreshed by snapshot resume"),
+            ("datalog_dropped_cold_total", "dropped_cold",
+             "cold cache entries dropped instead of resumed"),
+        ):
+            m.counter(name, help_).set(st[field])
+        m.counter("datalog_cache_hits_total",
+                  "result-cache hits").set(cache_hits)
+        m.counter("datalog_cache_misses_total",
+                  "result-cache misses").set(cache_misses)
+        m.counter("datalog_cache_evictions_total",
+                  "result-cache evictions").set(cache_evicts)
+        m.gauge("datalog_cache_entries",
+                "resident result-cache entries").set(cache_len)
+        m.gauge("datalog_epoch", "service append epoch").set(epoch)
+        m.counter("datalog_fixpoint_traces_total",
+                  "fixpoint jit compilations, process-wide").set(
+            fixpoint_trace_count())
 
     # -- internals -----------------------------------------------------------
 
@@ -776,40 +1055,42 @@ class DatalogService:
             return tpl, True
         return tpl, False
 
-    def _run_tuple_group(self, pred: str, adn: str, items) -> dict:
-        """One (pred, adornment) shape group: the distinct queries as one
-        qid-tagged fixpoint where the shape allows it, else each through
-        its template.  Returns {cache_key: frozen answer}."""
+    def _launch_tuple_group(self, pred: str, adn: str, items):
+        """One (pred, adornment) shape group: launch the qid-tagged batched
+        fixpoint where the shape allows it, else run each distinct query
+        through its template (their answers are host arrays already)."""
         uniq: list[tuple[object, Literal]] = []
-        seen: set = set()
+        seen: set = set()  # a cache key pins its shape: per-group dedup
         for _, q in items:
             key = self._cache_key(q)
             if key not in seen:
                 seen.add(key)
                 uniq.append((key, q))
-        answers = None
+        launched = None
+        results = None
         if len(uniq) > 1 and BOUND in adn:
-            answers = self._run_tuple_batch(pred, adn, uniq)
-        if answers is None:  # singleton / unbatchable: sequential path
-            return {key: _freeze(self._ask_tuple(q)) for key, q in uniq}
-        return {key: _freeze(res) for (key, _), res in zip(uniq, answers)}
+            launched = self._launch_tuple_batch(pred, adn, uniq)
+        if launched is None:  # singleton / unbatchable: sequential path
+            results = {key: _freeze(self._ask_tuple(q)) for key, q in uniq}
+        return (pred, items, uniq, launched, results)
 
-    def _run_tuple_batch(self, pred: str, adn: str, uniq: list):
-        """B same-shape tuple queries as ONE qid-tagged fixpoint; None to
-        fall back to sequential runs (shape not batchable, or the union of
+    def _launch_tuple_batch(self, pred: str, adn: str, uniq: list):
+        """B same-shape tuple queries as ONE qid-tagged fixpoint; returns
+        (template, launched state) for the finalize split, or None to fall
+        back to sequential runs (shape not batchable, or the union of
         demands overflowed a table)."""
         tpl, fresh = self._template(pred, adn, uniq[0][1])
         if not tpl.batchable:
             return None
         try:
-            answers = tpl.run_batch(self, [q for _, q in uniq])
+            run = tpl.launch_batch(self, [q for _, q in uniq])
         except (PlanError, CapacityError, ValueError):
             return None
         self.stats.plan_hits += len(uniq) - (1 if fresh else 0)
         self.stats.tuple_runs += 1
         self.stats.tuple_fixpoints += 1
         self.stats.tuple_batched_queries += len(uniq)
-        return answers
+        return (tpl, run)
 
     def _ask_tuple(self, q: Literal):
         tpl, fresh = self._template(q.pred, self._adorn(q), q)
@@ -900,31 +1181,31 @@ class DatalogService:
             return _batch.format_maxplus_row(src, row, ds.n)
         return _batch.format_minplus_row(src, row, ds.n)
 
-    def _run_group(self, pred: str, srcs: list[int]) -> dict:
-        """ONE batched fixpoint for the distinct in-domain sources of a
-        group, then one host transfer of their rows; sources beyond the
-        allocated domain reach nothing.  Returns ``{src: answer}``."""
+    def _launch_dense_batch(self, pred: str, items):
+        """Launch ONE batched fixpoint for the distinct in-domain sources of
+        a frontier group (sources beyond the allocated domain reach
+        nothing); formatting waits for :meth:`finalize_batch`."""
         ds = self._dense_state(pred)
-        uniq = list(dict.fromkeys(srcs))
+        uniq = list(dict.fromkeys(src for _, src, _ in items))
         in_range = [s for s in uniq if s < ds.n_alloc]
-        answers = {}
+        launch = None
         if in_range:
-            res = ds.run_batch(self, in_range)
-            table = res.table[:len(in_range)].cpu().numpy()
+            with self.tracer.span("fixpoint", cat="device", pred=pred,
+                                  repr="csr" if ds.is_csr else "dense",
+                                  b=len(in_range)):
+                launch = _DenseLaunch(ds, self, in_range)
             self.stats.dense_fixpoints += 1
             self.stats.csr_fixpoints += 1 if ds.is_csr else 0
             self.stats.batched_queries += len(in_range)
-            self.stats.fixpoint_iterations += res.iterations
-            for j, s in enumerate(in_range):
-                ans = _freeze(self._format(ds, s, table[j]))
-                key = (pred, s) + tuple(
-                    f"~{i}" for i in range(1, edge_arity(ds.low.kind)))
-                self.cache.put(key, CacheEntry("dense", pred, ans, self.epoch,
-                                               src=s, raw=table[j]))
-                answers[s] = ans
-        for s in uniq:
-            if s not in answers:
-                answers[s] = self._format(ds, s,
-                                          np.full((0,), ds.sr.zero,
-                                                  np.float32))
-        return answers
+            self.stats.fixpoint_iterations += launch.iterations
+        return (pred, ds, items, uniq, in_range, launch)
+
+    def _cache_dense(self, pred: str, src: int, formatted, raw):
+        # the canonical single-source pattern key: distinct free tail vars
+        key = (pred, src) + tuple(
+            f"~{i}" for i in range(1, edge_arity(self._lowering(pred).kind)))
+        self.cache.put(key, CacheEntry("dense", pred, _freeze(formatted),
+                                       self.epoch, src=src, raw=raw))
+
+    def _empty_dense(self, ds: _DenseRelation, src: int):
+        return self._format(ds, src, np.full((0,), ds.sr.zero, np.float32))

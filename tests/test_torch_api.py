@@ -34,6 +34,7 @@ from repro_torch.core import sparse as tsp
 from repro_torch.core.semiring import CarrierError as TCarrierError
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref, spmv
+from repro_torch.obs.metrics import MetricsRegistry as TMetricsRegistry
 from repro_torch.service import DatalogService as TService
 
 PROGRAM = """
@@ -91,17 +92,32 @@ def test_one_kwargs_dict_builds_both_services(sparse):
 
 
 @pytest.mark.parametrize("metrics", [True, "registry"])
-def test_metrics_registry_raises_naming_a6(metrics):
-    """C.4: ``metrics=None``/``False`` are accepted; a registry (or True,
-    which makes one in JAX) is unported and raises, naming ROADMAP A.6."""
-    value = MetricsRegistry() if metrics == "registry" else metrics
-    with pytest.raises(NotImplementedError, match="A.6"):
-        TService(PROGRAM, db={"arc": np.array([[0, 1]])}, device="cpu",
-                 metrics=value)
+def test_metrics_registry_matches_jax(metrics):
+    """C.4: ``metrics=True`` (a registry of the service's own) and a shared
+    registry (each package's ``MetricsRegistry``) build both services, which
+    answer alike and export the same ``datalog_*`` counters and batch
+    sizes; ``None``/``False`` are accepted too."""
+    db = {"arc": np.array([[0, 1], [1, 2]]), "darc": np.array([[0, 1, 2]])}
+    regs = ((MetricsRegistry(), TMetricsRegistry()) if metrics == "registry"
+            else (True, True))
+    jsvc = JService(PROGRAM, db=db, metrics=regs[0])
+    tsvc = TService(PROGRAM, db=db, device="cpu", metrics=regs[1])
+    queries = [("tc", (0, None)), ("dpath", (0, None, None)),
+               ("tc", (0, None))]
+    for got, want in zip(tsvc.ask_batch(queries), jsvc.ask_batch(queries)):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            assert np.array_equal(g, np.asarray(w))
+    if metrics == "registry":
+        assert tsvc.metrics is regs[1] and jsvc.metrics is regs[0]
+    counters = {name: v for name, v in tsvc.metrics.to_json().items()
+                if name.endswith("_total") and "traces" not in name
+                or name in ("datalog_epoch", "datalog_batch_size")}
+    want = jsvc.metrics.to_json()
+    assert counters and all(want[k] == v for k, v in counters.items())
     for ok in (None, False):
-        TService(PROGRAM, db={"arc": np.array([[0, 1]]),
-                              "darc": np.array([[0, 1, 2]])},
-                 device="cpu", metrics=ok).ask("tc", (0, None))
+        TService(PROGRAM, db=db, device="cpu", metrics=ok).ask("tc", (0, None))
 
 
 def _dist(rng, shape, p, zero=np.inf):

@@ -72,7 +72,7 @@ def test_ask_batch_capacity_fallback_matches_jax():
 def test_ask_dense_matches_jax():
     """The frontier lowering on both carriers: the same rows, values and
     dtypes as JAX's ``ask_dense``, its stats, and the tuple path's answer;
-    an empty EDB; the refusals."""
+    an empty EDB; the refusals; the probed twin (``probe=True``)."""
     for sparse in (False, True):
         j, t = pair(TC, {"arc": TC_ARCS}, default_cap=4096)
         same(t.ask_dense("tc", (1, None), sparse=sparse),
@@ -92,9 +92,11 @@ def test_ask_dense_matches_jax():
         err = JPlanError if isinstance(eng, JEngine) else TPlanError
         with pytest.raises(err):
             eng.ask_dense("tc", (None, 2))
-    with pytest.raises(NotImplementedError, match="A.6c"):
-        TEngine(TC, db={"arc": TC_ARCS}, device="cpu").ask_dense(
-            "tc", (1, None), probe=True)
+    j, t = pair(TC, {"arc": TC_ARCS}, default_cap=4096)
+    got, probe = t.ask_dense("tc", (1, None), probe=True)
+    want, jprobe = j.ask_dense("tc", (1, None), probe=True)
+    same(got, want)
+    assert probe.as_dict() == jprobe.as_dict()
 
 
 def test_query_domain_errors_match_jax():

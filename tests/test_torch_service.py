@@ -260,13 +260,26 @@ def test_tuple_path_queries_match_jax(query):
     assert trep["templates"] == jrep["templates"]
 
 
-@pytest.mark.parametrize("kw,item", [({"mesh": object()}, "A.6"),
-                                     ({"probe": True}, "A.6"),
-                                     ({"tracer": True}, "A.6"),
-                                     ({"durable_dir": "x"}, "A.6")])
+@pytest.mark.parametrize("kw,item", [({"mesh": object()}, "A.6f"),
+                                     ({"durable_dir": "x"}, "A.6e")])
 def test_unported_options_raise_not_implemented(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         TService(TC, db={"arc": np.array([[0, 1]])}, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [{"probe": True}, {"tracer": True}],
+                         ids=["probe", "tracer"])
+def test_observability_options_match_jax(kw):
+    """``probe=True`` and ``tracer=True`` build both services, which answer
+    alike and record the same probes and span names."""
+    jsvc, tsvc = _pair(TC, _db("arc", 0, 30, 0.1, 6), **kw)
+    queries = [("tc", (s, None)) for s in (0, 3, 7)]
+    for got, want in zip(tsvc.ask_batch(queries), jsvc.ask_batch(queries)):
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+    assert ([p.as_dict() for p in tsvc.last_probes]
+            == [p.as_dict() for p in jsvc.last_probes])
+    assert ([e["name"] for e in tsvc.tracer.spans()]
+            == [e["name"] for e in jsvc.tracer.spans()])
 
 
 def test_append_and_bad_matmul_raise():
