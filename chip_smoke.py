@@ -225,6 +225,29 @@ a non-zero exit and prints no result):
    against min-label propagation by ``scatter_reduce`` on the card; and
    Example 6 (``hops``, the effective diameter) on G10K in phase 7b, its
    histogram equal to the K1 hop layers.
+11. durability (``DatalogService(durable_dir=...)``, in a temporary
+   directory deleted at the end): WAL appends of 1,000 and 10,000 rows
+   timed with ``fsync`` on and off; (a) a durable CSR TC service on phase
+   5's 16M power-law arcs, uncut: a batch of 32 sources (its construction
+   plus this batch is the cold start: it packs the CSR), a 10,000-arc tail
+   append, ``snapshot()`` (the copy to the host under the lock, timed) and
+   its publication (timed; bytes on disk), a 1,000-arc append left in the
+   WAL, then, with no ``close()``, a second service on the genesis arcs and
+   the same directory: recovery ``warm`` with 1 WAL record replayed (K3
+   launched by the replay's resume), the first service's epoch, the 32
+   answers bit for bit the first service's, 4 of them scipy's BFS, a
+   repeat batch of restored-cache hits with no launch, and a new batch
+   through K3 equal to the first service's; peak device memory with both
+   services resident; then a second generation from the recovered service,
+   one byte of it flipped by the smoke's own code: the third service
+   recovers ``degraded`` from the first generation, bit for bit again;
+   (b) a durable dense SPATH service on phase 4's Gn-p graph: 32 sources, a
+   snapshot, a 100-arc append, one warm restart (K2 launched by the
+   replay), the answers bit for bit, 4 Dijkstra's, the repeat batch with
+   no launch; (c) ``python -m repro_torch.service.serve --synthetic
+   gnp:10000:0.001 --durable DIR`` with queries and an append, run twice
+   in subprocesses: ``fresh`` then ``warm``, the same answer lines; and
+   ``examples/serve_quickstart_torch.py`` once on the card.
 
 The line before the last is one JSON object of kernel measurements; the last
 line is ``{"ok": true, "device": {...}}``.  Needs no network; the graphs are
@@ -3314,6 +3337,336 @@ def analytics_phase(results, csr_edges):
     results["obs_phase"]["analytics"] = phase
 
 
+# -- phase 11: durability -------------------------------------------------------
+
+#: phase 11's appends to the CSR TC service: a tail before the snapshot
+#: (well under a quarter of the spine: no fold) and the WAL suffix after it
+DUR_TAIL, DUR_SUFFIX = 10_000, 1_000
+#: phase 11's dense SPATH append after its snapshot (the WAL suffix)
+DUR_DENSE_SUFFIX = 100
+#: phase 11's CLI graph and actions (vertex 10,000 is new: nothing reaches
+#: it, so every answer line is the same before and after the append)
+DUR_CLI_GRAPH = "gnp:10000:0.001"
+DUR_CLI_ACTIONS = ("--query", "tc(0, X)", "--query", "tc(17, X)",
+                   "--append", "arc:10000,10001;10001,17", "--query",
+                   "tc(10000, X)")
+#: WAL appends timed per record size and fsync setting (median)
+DUR_WAL_ROUNDS = 5
+
+
+def _same_answers(label, got, want):
+    check(len(got) == len(want), f"{label}: {len(got)} answers, "
+          f"{len(want)} wanted")
+    for g, w in zip(got, want):
+        check(_same_answer(g, w), f"{label}: an answer differs")
+
+
+def _flip_newest_generation(snap_dir: Path) -> Path:
+    """Flip one byte in the middle of the newest published generation's
+    first shard: same size, so only the manifest's CRC32 can see it."""
+    newest = sorted(p for p in snap_dir.iterdir()
+                    if p.name.startswith("step_")
+                    and not p.name.endswith(".tmp"))[-1]
+    shard = newest / "shard_0.npz"
+    with open(shard, "r+b") as f:
+        f.seek(shard.stat().st_size // 2)
+        byte = f.read(1)
+        f.seek(-1, os.SEEK_CUR)
+        f.write(bytes([byte[0] ^ 0xFF]))
+    return newest
+
+
+def _dir_bytes(path: Path) -> int:
+    return sum(p.stat().st_size for p in path.rglob("*") if p.is_file())
+
+
+def _wal_append_ms(torch, tmp: Path, rows: np.ndarray, fsync: bool) -> float:
+    """Median ms of one WAL record of ``rows`` (frame, write, flush and,
+    with ``fsync``, the fsync)."""
+    from repro_torch.service import WriteAheadLog
+    wal = WriteAheadLog(tmp / f"probe-{len(rows)}-{fsync}.log", fsync=fsync)
+    times = []
+    for i in range(DUR_WAL_ROUNDS):
+        t0 = time.perf_counter()
+        wal.append("arc", rows, i + 1)
+        times.append((time.perf_counter() - t0) * 1e3)
+    wal.close()
+    return float(np.median(times))
+
+
+def _restart(torch, program, db, d, **kw):
+    """A service built on durable directory ``d`` (a restart: recovery
+    runs in the constructor), its construction seconds and the launches
+    the recovery made."""
+    from repro_torch.kernels import ops
+    from repro_torch.service import DatalogService
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    svc = DatalogService(program, db=db, durable_dir=d, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return svc, secs, {k: v for k, v in ops.launch_counts().items() if v}
+
+
+def _load_s(snap_dir: Path, step: int) -> float:
+    """Seconds to read one generation back (CRC checks included), the
+    first part of a recovery: the restore onto the card and the WAL
+    replay follow."""
+    from repro_torch.checkpoint import load_checkpoint_raw
+    t0 = time.perf_counter()
+    load_checkpoint_raw(snap_dir, step=step)
+    return time.perf_counter() - t0
+
+
+def _timed_snapshot(torch, svc, snap_dir: Path) -> dict:
+    """``snapshot()`` (the copy to the host under the lock, timed alone),
+    then the wait for the background writer to publish it."""
+    t0 = time.perf_counter()
+    step = svc.snapshot()
+    t1 = time.perf_counter()
+    svc._durable.wait()
+    t2 = time.perf_counter()
+    nbytes = _dir_bytes(snap_dir / f"step_{step:08d}")
+    return {"step": step, "lock_ms": (t1 - t0) * 1e3,
+            "publish_s": t2 - t1, "bytes": nbytes}
+
+
+def durable_csr(torch, edges, d: Path) -> dict:
+    """Phase 11a: durable CSR TC on phase 5's 16M arcs, uncut."""
+    from repro_torch.kernels import ops
+    n = CSR_N
+    rng = np.random.default_rng(SEED + 11)
+    picks = rng.permutation(n)[:2 * CSR_BATCH]
+    srcs = [int(s) for s in picks[:CSR_BATCH]]
+    srcs2 = [int(s) for s in picks[CSR_BATCH:]]
+    tail = rng.integers(0, n, (DUR_TAIL, 2)).astype(np.int64)
+    suffix = rng.integers(0, n, (DUR_SUFFIX, 2)).astype(np.int64)
+
+    def qs(ss):
+        return [("tc", (s, None)) for s in ss]
+
+    torch.cuda.reset_peak_memory_stats()
+    svc, build_s, _ = _restart(torch, TC, {"arc": edges}, d, bits=20)
+    check(svc.explain()["durability"]["recovery"]["mode"] == "fresh",
+          "durable CSR TC: a new directory did not start fresh")
+    t0 = time.perf_counter()
+    svc.ask_batch(qs(srcs))
+    torch.cuda.synchronize()
+    cold_s = build_s + time.perf_counter() - t0
+    check(svc.explain()["relations"]["tc"]["repr"] == "csr",
+          "durable CSR TC: the carrier is not CSR")
+    t0 = time.perf_counter()
+    svc.append("arc", tail)
+    torch.cuda.synchronize()
+    tail_s = time.perf_counter() - t0
+    snap1 = _timed_snapshot(torch, svc, d / "snapshots")
+    t0 = time.perf_counter()
+    svc.append("arc", suffix)
+    torch.cuda.synchronize()
+    suffix_s = time.perf_counter() - t0
+    want = svc.ask_batch(qs(srcs))  # the resumed cached closures
+    check(svc.stats.appends == 2, "durable CSR TC: appends not counted")
+    # a crash: no close(), no final snapshot; the suffix lives in the WAL
+    svc2, warm_s, rec_launch = _restart(torch, TC, {"arc": edges}, d, bits=20)
+    rep = svc2.explain()["durability"]["recovery"]
+    check(rep["mode"] == "warm" and rep["wal_replayed"] == 1,
+          f"durable CSR TC: recovery {rep}")
+    check(svc2.epoch == svc.epoch, f"durable CSR TC: epoch {svc2.epoch} "
+          f"after recovery, {svc.epoch} before")
+    check(rec_launch.get("csr_bool_step", 0) > 0, "durable CSR TC: the WAL "
+          "replay launched no K3 (the resume of the restored closures)")
+    load_s = _load_s(d / "snapshots", snap1["step"])
+    ops.reset_launch_counts()
+    hits0 = svc2.cache.hits
+    got = svc2.ask_batch(qs(srcs))
+    repeat_launch = {k: v for k, v in ops.launch_counts().items() if v}
+    check(not repeat_launch, "durable CSR TC: the repeat batch after the "
+          f"warm restart made launches {repeat_launch}")
+    check(svc2.cache.hits - hits0 == len(srcs), "durable CSR TC: the "
+          "repeat batch was not all restored-cache hits")
+    _same_answers("durable CSR TC warm restart", got, want)
+    ops.reset_launch_counts()
+    fresh2 = svc2.ask_batch(qs(srcs2))
+    serve_launch = ops.launch_counts()["csr_bool_step"]
+    check(serve_launch > 0, "durable CSR TC: the recovered service's new "
+          "batch launched no K3")
+    _same_answers("durable CSR TC new batch", fresh2, svc.ask_batch(qs(srcs2)))
+    peak = torch.cuda.max_memory_allocated()
+    oracle = Oracle(np.concatenate([edges, tail, suffix]), n, False)
+    for s, ans in zip(srcs[:4], got[:4]):
+        oracle.check(s, ans)
+    del oracle
+    say(f"durable CSR TC: 4 restored answers equal the Oracle (BFS over the "
+        f"{len(edges) + DUR_TAIL + DUR_SUFFIX} arcs)")
+    # a second generation from the recovered service, then the newest
+    # generation corrupted: the restart degrades to the first
+    snap2 = _timed_snapshot(torch, svc2, d / "snapshots")
+    del svc, svc2
+    torch.cuda.empty_cache()
+    flipped = _flip_newest_generation(d / "snapshots")
+    svc3, degraded_s, _ = _restart(torch, TC, {"arc": edges}, d, bits=20)
+    rep3 = svc3.explain()["durability"]["recovery"]
+    check(rep3["mode"] == "degraded" and rep3["fallbacks"] == 1
+          and rep3["snapshot_step"] == snap1["step"],
+          f"durable CSR TC: recovery past {flipped.name}: {rep3}")
+    ops.reset_launch_counts()
+    _same_answers("durable CSR TC degraded restart",
+                  svc3.ask_batch(qs(srcs)), want)
+    check(not any(ops.launch_counts().values()), "durable CSR TC: the "
+          "degraded restart's repeat batch made launches")
+    del svc3
+    torch.cuda.empty_cache()
+    out = {"cold_s": cold_s, "warm_s": warm_s, "degraded_s": degraded_s,
+           "warm_recover_s": rep["seconds"], "load_s": load_s,
+           "degraded_recover_s": rep3["seconds"],
+           "tail_append_s": tail_s, "suffix_append_s": suffix_s,
+           "snapshot": snap1, "snapshot_recovered": snap2,
+           "recovery_launches": rec_launch, "new_batch_k3": serve_launch,
+           "peak_bytes_two_services": peak}
+    say(f"durable CSR TC ({len(edges)} arcs): cold start {cold_s:.2f} s "
+        f"(construction + first batch of {len(srcs)}, packs the CSR); "
+        f"snapshot {snap1['lock_ms']:.1f} ms under the lock, published in "
+        f"{snap1['publish_s']:.2f} s, {snap1['bytes'] / 2 ** 20:.1f} MiB; "
+        f"warm restart {warm_s:.2f} s (recovery {rep['seconds']:.2f} s, of "
+        f"which reading the generation back {load_s:.2f} s; 1 WAL record of "
+        f"{DUR_SUFFIX} arcs replayed: {rec_launch}); repeat "
+        f"batch all hits, no launch; degraded restart {degraded_s:.2f} s; "
+        f"second snapshot {snap2['lock_ms']:.1f} ms / "
+        f"{snap2['publish_s']:.2f} s; peak device memory with both services "
+        f"{peak / 2 ** 30:.2f} GiB")
+    return out
+
+
+def durable_dense(torch, d: Path) -> dict:
+    """Phase 11b: one warm restart of a durable dense SPATH service on
+    phase 4's Gn-p graph: the ``rel/i/matrix`` route and min-plus rows."""
+    from repro_torch.data import gnp_graph
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(SEED + 12)
+    n = DENSE_N
+    wedges = _weighted(rng, gnp_graph(n, DENSE_P, seed=SEED))
+    srcs = [int(s) for s in rng.permutation(n)[:CSR_BATCH]]
+    suffix = np.concatenate([rng.integers(0, n, (DUR_DENSE_SUFFIX, 2)),
+                             rng.integers(1, 10, (DUR_DENSE_SUFFIX, 1))], 1)
+    qs = [("dpath", (s, None, None)) for s in srcs]
+    svc, build_s, _ = _restart(torch, SPATH, {"darc": wedges}, d)
+    t0 = time.perf_counter()
+    svc.ask_batch(qs)
+    torch.cuda.synchronize()
+    cold_s = build_s + time.perf_counter() - t0
+    check(svc.explain()["relations"]["dpath"]["repr"] == "dense",
+          "durable dense SPATH: the carrier is not dense")
+    snap = _timed_snapshot(torch, svc, d / "snapshots")
+    svc.append("darc", suffix)
+    want = svc.ask_batch(qs)
+    svc2, warm_s, rec_launch = _restart(torch, SPATH, {"darc": wedges}, d)
+    rep = svc2.explain()["durability"]["recovery"]
+    check(rep["mode"] == "warm" and rep["wal_replayed"] == 1
+          and svc2.epoch == svc.epoch, f"durable dense SPATH: recovery {rep}")
+    check(rec_launch.get("minplus_matmul", 0) > 0, "durable dense SPATH: "
+          "the WAL replay launched no K2")
+    load_s = _load_s(d / "snapshots", snap["step"])
+    ops.reset_launch_counts()
+    got = svc2.ask_batch(qs)
+    check(not any(ops.launch_counts().values()), "durable dense SPATH: the "
+          "repeat batch after the warm restart made launches")
+    _same_answers("durable dense SPATH warm restart", got, want)
+    oracle = Oracle(np.concatenate([wedges, suffix]), n, True)
+    for s, ans in zip(srcs[:4], got[:4]):
+        oracle.check(s, ans)
+    del svc, svc2, oracle
+    torch.cuda.empty_cache()
+    say(f"durable dense SPATH ({len(wedges)} arcs): cold start {cold_s:.2f} "
+        f"s, snapshot {snap['lock_ms']:.1f} ms under the lock / "
+        f"{snap['publish_s']:.2f} s / {snap['bytes'] / 2 ** 20:.1f} MiB, "
+        f"warm restart {warm_s:.2f} s (recovery {rep['seconds']:.2f} s, of "
+        f"which reading the generation back {load_s:.2f} s; {rec_launch}); "
+        f"4 restored answers equal the Oracle (Dijkstra)")
+    return {"cold_s": cold_s, "warm_s": warm_s, "load_s": load_s,
+            "warm_recover_s": rep["seconds"], "snapshot": snap,
+            "recovery_launches": rec_launch}
+
+
+def _cli_run(d: Path) -> tuple[list[str], dict]:
+    """One ``python -m repro_torch.service.serve --durable d`` run: its
+    answer and append lines and its ``--stats`` report."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.service.serve", "--synthetic",
+         DUR_CLI_GRAPH, "--durable", str(d), *DUR_CLI_ACTIONS, "--stats",
+         "--device", DEVICE], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=600)
+    check(proc.returncode == 0, f"serve CLI exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    out = proc.stdout
+    start = out.index("\n{")
+    stats = json.loads(out[start:])
+    stats["wall_s"] = time.perf_counter() - t0
+    return out[:start].splitlines(), stats
+
+
+def durable_cli(d: Path) -> dict:
+    """Phase 11c: the serving CLI run twice on one durable directory, and
+    the serving example once."""
+    lines1, st1 = _cli_run(d)
+    lines2, st2 = _cli_run(d)
+    r1, r2 = (st["durability"]["recovery"] for st in (st1, st2))
+    check(r1["mode"] == "fresh" and r2["mode"] == "warm",
+          f"serve CLI: recoveries {r1['mode']}, {r2['mode']}")
+    answers1, answers2 = ([x for x in lines if not x.startswith("appended")]
+                          for lines in (lines1, lines2))
+    check(answers1 == answers2 and any(x.endswith("rows]") for x in answers1),
+          "serve CLI: the second run's answer lines differ")
+    check(st2["epoch"] == 2 * st1["epoch"] == 2, "serve CLI: the second run "
+          f"ended at epoch {st2['epoch']}, not 2")
+    check(st2["relations"]["tc"]["repr"] == "csr", "serve CLI: not CSR")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    ex = subprocess.run([sys.executable, str(ROOT / "examples" /
+                                             "serve_quickstart_torch.py"),
+                         "--device", DEVICE], cwd=ROOT, env=env,
+                        capture_output=True, text=True, timeout=600)
+    check(ex.returncode == 0, f"serve_quickstart_torch.py exited "
+          f"{ex.returncode}: {ex.stderr[-2000:]}")
+    ex_s = time.perf_counter() - t0
+    say(f"serve CLI --durable twice ({DUR_CLI_GRAPH}): {len(answers1)} equal "
+        f"answer lines, recoveries {r1['mode']} then {r2['mode']} "
+        f"({r2['seconds']:.2f} s), runs {st1['wall_s']:.1f} s and "
+        f"{st2['wall_s']:.1f} s; serve_quickstart_torch.py exits 0 "
+        f"({ex_s:.1f} s)")
+    return {"recover_s": r2["seconds"], "run_s": [st1["wall_s"],
+                                                   st2["wall_s"]],
+            "example_s": ex_s}
+
+
+def durable_phase(results, csr_edges):
+    """Phase 11: durability on the card, in a temporary directory that is
+    deleted at the end."""
+    import tempfile
+    import torch
+    t0 = time.perf_counter()
+    phase = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_durable_") as tmp:
+        tmp = Path(tmp)
+        rows = {k: np.random.default_rng(SEED).integers(0, CSR_N, (k, 2))
+                for k in (DUR_SUFFIX, DUR_TAIL)}
+        phase["wal_append_ms"] = {
+            f"{k} rows, fsync {'on' if fs else 'off'}": _wal_append_ms(
+                torch, tmp, r, fs) for k, r in rows.items()
+            for fs in (True, False)}
+        say(f"WAL append (median of {DUR_WAL_ROUNDS}): "
+            + ", ".join(f"{k}: {v:.2f} ms"
+                        for k, v in phase["wal_append_ms"].items()))
+        phase["csr_tc"] = durable_csr(torch, csr_edges, tmp / "csr")
+        phase["dense_spath"] = durable_dense(torch, tmp / "dense")
+        phase["cli"] = durable_cli(tmp / "cli")
+    phase["seconds"] = time.perf_counter() - t0
+    say(f"durability phase: {phase['seconds']:.1f} s")
+    results["durable_phase"] = phase
+
+
 def main():
     t_start = time.perf_counter()
     card = check_device()
@@ -3332,6 +3685,7 @@ def main():
     del wedges, sp_oracle
     dag_phase(results, edges)
     analytics_phase(results, edges)
+    durable_phase(results, edges)
     del edges
     allpairs_phase(results)
     tuple_phase(results)
@@ -3348,7 +3702,8 @@ def main():
                                  for k in ("dense_phase", "csr_phase",
                                            "tuned_phase", "dag_phase",
                                            "allpairs_phase", "tuple_phase",
-                                           "lm_phase", "obs_phase")},
+                                           "lm_phase", "obs_phase",
+                                           "durable_phase")},
                                 default=str))
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(card)

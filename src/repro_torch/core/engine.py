@@ -44,16 +44,17 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .ir import Const, Literal, Program, Var
+from .ir import Const, Literal, Program, Term, Var, fresh_var  # noqa: F401
 from .magic import (MagicError, detect_frontier_lowering,
                     frontier_query_source)
-from .parser import parse_program
+from .parser import parse_program, parse_query  # noqa: F401
 from .planner import (CompiledRule, EdbJoinStep, GroupPlan, PlanError,
                       PlanOptions, ProgramPlan, SourceDelta, SourceEdb,
                       batch_adornment, plan_program)
 from .query import (QuerySpec, as_query_literal, normalize_db,
                     query_row_mask, repeated_var_groups)
-from .relation import (_MERGE_INIT, AggTable, FactTable, Schema, _agg_reduce,
+from .relation import (_MERGE_INIT, EMPTY, AggTable,  # noqa: F401
+                       FactTable, Schema, _agg_reduce,
                        match_ranges, merge_sorted,
                        sorted_member, sorted_unique)
 from .semiring import BOOL, MIN_PLUS
@@ -61,7 +62,8 @@ from . import seminaive as _sn
 from . import sparse as _sparse
 from .seminaive import (Bindings, EdbIndex, build_edb_index, edb_antijoin,
                         edb_intro, edb_probe, expand_bindings, idb_intro,
-                        idb_prefix_ranges, pack_warm_rows, quantize_rows,
+                        idb_prefix_ranges, join_edb,  # noqa: F401
+                        join_idb_prefix, pack_warm_rows, quantize_rows,
                         reachable_from_dense, single_source_distances_dense)
 
 __all__ = ["CapacityError", "Engine", "GroupExecutor", "GroupStats",

@@ -40,7 +40,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .relation import (EMPTY, Schema, expand_matches, match_ranges,
+from .relation import (EMPTY, AggTable, FactTable,  # noqa: F401
+                       Schema, expand_join, expand_matches, match_ranges,
                        sorted_member)
 from .semiring import BOOL, MIN_PLUS, PLUS_TIMES, Semiring
 

@@ -76,6 +76,9 @@ PLUS_TIMES = Semiring(
 
 BY_NAME = {s.name: s for s in (BOOL, MIN_PLUS, MAX_PLUS, PLUS_TIMES)}
 
+#: float32 +inf, min-plus's ⊕-zero ("no fact"), as a 0-d tensor
+INF = torch.tensor(float("inf"), dtype=torch.float32)
+
 
 class CarrierError(ValueError):
     """An unknown/unsupported lowering kind asked for a semiring carrier."""

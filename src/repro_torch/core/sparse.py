@@ -54,6 +54,7 @@ from ..device import resolve_device
 from .query import new_rows, sorted_unique, unique_rows
 from .semiring import Semiring, carrier_for
 from .seminaive import (GEN_DTYPE, DenseResult, additive_max_iters,
+                        bump_trace_count,  # noqa: F401
                         check_additive_converged, note_trace, quantize_ladder,
                         quantize_rows, semi_naive_loop)
 

@@ -17,8 +17,10 @@ from .minplus import (maxplus_frontier_matmul, minplus_frontier_matmul,
                       minplus_matmul)
 from .relax import relax_step
 from .rglru_scan import rglru_scan
-from .spmv import (csr_bool_step, csr_maxplus_step, csr_minplus_step,
-                   csr_minplus_tiled_step, csr_plustimes_step,
+from .spmv import (csr_bool_spmv, csr_bool_step, csr_maxplus_spmv,  # noqa: F401
+                   csr_maxplus_step, csr_minplus_spmv, csr_minplus_spmv_tiled,
+                   csr_minplus_step, csr_minplus_tiled_step,
+                   csr_plustimes_spmv, csr_plustimes_step,
                    csr_raw_minplus_tiled, csr_raw_step)
 
 

@@ -28,9 +28,10 @@ from typing import Callable, List, Optional, Tuple
 import torch
 
 from ..core.seminaive import (GEN_DTYPE, GEN_MAX, DenseResult, _ne,
-                              _shape_sig, dense_propagate, note_trace,
-                              semi_naive_loop)
-from ..core.sparse import CSRMatrix, _csr_signature
+                              _shape_sig, bump_trace_count,  # noqa: F401
+                              dense_propagate, note_trace, semi_naive_loop)
+from ..core.sparse import (CSRMatrix, _csr_signature,
+                           csr_frontier_step)  # noqa: F401
 
 __all__ = ["FixpointProbe", "fixpoint_dense_probed", "fixpoint_csr_probed"]
 

@@ -14,15 +14,24 @@ Observability (``repro_torch.obs``) threads through the stack:
 ``svc.metrics`` is the unified counter/histogram registry, ``probe=True``
 surfaces per-iteration fixpoint Δs, and ``explain()["kernels"]`` reports
 roofline attribution.  ``MetricsRegistry`` and ``Tracer`` are re-exported
-here, as in the JAX package; its durability (``DurabilityManager``,
-``WriteAheadLog``) is not ported yet (ROADMAP A.6e).
+here, as in the JAX package.  ``python -m repro_torch.service.serve`` is the
+CLI front-end.
+
+Durability (``durable.py``): ``DatalogService(durable_dir=...)`` logs every
+append before it mutates anything, snapshots the serving state through the
+background checkpoint writer, and recovers warm (the newest complete
+snapshot plus the log's suffix, replayed through the append-resume path),
+degrading to older generations and then a cold rebuild on corruption.  Its
+files are the JAX package's, so either package recovers the other's.
 """
 from ..obs.metrics import MetricsRegistry
 from ..obs.trace import Tracer
 from .admission import AdmissionStats, AsyncDatalogService, QueueFullError
 from .cache import CacheEntry, LRUCache
+from .durable import DurabilityManager, WriteAheadLog
 from .session import DatalogService, ServiceStats
 
 __all__ = ["AdmissionStats", "AsyncDatalogService", "CacheEntry",
-           "DatalogService", "LRUCache", "MetricsRegistry", "QueueFullError",
-           "ServiceStats", "Tracer"]
+           "DatalogService", "DurabilityManager", "LRUCache",
+           "MetricsRegistry", "QueueFullError", "ServiceStats", "Tracer",
+           "WriteAheadLog"]

@@ -229,11 +229,11 @@ class AsyncDatalogService:
         return self
 
     def snapshot(self, wait: bool = False) -> int | None:
-        """Durable snapshot, fenced like an append in the JAX front-end;
-        the port's service has no durability yet."""
-        raise NotImplementedError(
-            "AsyncDatalogService.snapshot() is not ported to repro_torch yet "
-            "(ROADMAP A.6e)")
+        """Durable snapshot fenced like an append: in-flight flushes drain
+        first, so the persisted cut never falls inside a batch's
+        launch-to-finalize window."""
+        with self._fence.writing():
+            return self.svc.snapshot(wait=wait)
 
     @property
     def epoch(self) -> int:

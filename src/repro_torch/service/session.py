@@ -45,8 +45,12 @@ copies their tables to the host, the finalize formats them, so the
 admission front-end (``admission.py``) can format batch *k* on one thread
 while batch *k+1*'s fixpoint runs on another.
 
-``mesh`` and ``durable_dir`` raise ``NotImplementedError`` naming their
-ROADMAP items (A.6f and A.6e).
+``durable_dir=`` makes the service crash-safe (``durable.py``): every
+append is written ahead to a log before anything changes, :meth:`snapshot`
+hands a copy of the serving state to a background writer, and a service
+built on the same directory recovers warm from the newest complete snapshot
+plus the log's suffix, in the JAX package's file formats.  ``mesh`` raises
+``NotImplementedError`` naming its ROADMAP item (A.6f).
 """
 from __future__ import annotations
 
@@ -62,7 +66,7 @@ from ..core import sparse as _sparse
 from ..core.engine import (CapacityError, Engine, as_query_literal,
                            fixpoint_trace_count, query_row_mask,
                            split_qid_answers)
-from ..core.ir import Const, Literal, Program, Rule, fresh_var
+from ..core.ir import Const, Literal, Program, Rule, Var, fresh_var  # noqa: F401
 from ..core.magic import (BOUND, FrontierLowering, MagicError, agg_positions,
                           attribute_qids, detect_frontier_lowering,
                           frontier_query_source, qid_batchable,
@@ -595,10 +599,21 @@ class DatalogService:
                       bit-identical, per-iteration frontier/Δ observations
                       accumulate on ``last_probes`` and ``explain()``.
 
-    ``snapshot_every``, ``keep_snapshots`` and ``durable_fsync`` are the
-    JAX service's durability settings, stored as it stores them; ``mesh``
-    (A.6f) and ``durable_dir`` (A.6e) exist for signature parity with the
-    JAX service and raise until ported.
+    ``durable_dir``   crash-safe persistence root (``service/durable.py``):
+                      every append is logged before it mutates anything,
+                      :meth:`snapshot` publishes the serving state in the
+                      background, and construction recovers from the newest
+                      complete snapshot plus the log's suffix (older
+                      generations, then a cold rebuild, on corruption).
+                      ``explain()["durability"]`` reports what happened.
+    ``snapshot_every``  auto-snapshot after every N logged appends
+                      (0 = explicit :meth:`snapshot` calls only).
+    ``keep_snapshots``  snapshot generations retained for the fallback.
+    ``durable_fsync``  fsync the log per append (True); False trades the
+                      tail's durability for append latency.
+
+    ``mesh`` (A.6f) exists for signature parity with the JAX service and
+    raises until ported.
     """
 
     def __init__(self, program, db: dict[str, np.ndarray], *, bits: int = 18,
@@ -618,11 +633,8 @@ class DatalogService:
                  device=None):
         if matmul not in (None, "pallas"):
             raise ValueError(f"matmul must be None or 'pallas', got {matmul!r}")
-        for name, value, item in (("mesh", mesh is not None, "A.6f"),
-                                  ("durable_dir", durable_dir is not None,
-                                   "A.6e")):
-            if value:
-                raise _not_ported(f"DatalogService({name}=...)", item)
+        if mesh is not None:
+            raise _not_ported("DatalogService(mesh=...)", "A.6f")
         self.device = resolve_device(device)
         if isinstance(program, str):
             program = parse_program(program, constants=constants)
@@ -691,6 +703,17 @@ class DatalogService:
             "datalog_batch_size", "queries per launched batch",
             buckets=_BATCH_BUCKETS)
         self.metrics.register_collector(self._absorb_stats)
+        # -- durability (durable.py): WAL + snapshots + recovery -------------
+        self._durable = None
+        if durable_dir is not None:
+            from .durable import DurabilityManager
+            self._durable = DurabilityManager(
+                durable_dir, snapshot_every=snapshot_every,
+                keep_snapshots=keep_snapshots, fsync=durable_fsync,
+                tracer=self.tracer)
+            self.metrics.register_collector(self._durable.absorb_metrics)
+            with self.lock:
+                self._durable.recover(self)
 
     # -- queries -------------------------------------------------------------
 
@@ -823,6 +846,10 @@ class DatalogService:
                     f"(known: {sorted(self.db)}); appends are EDB-only")
             rows = _inc.validate_append(rows, self.db[rel].shape[1],
                                         self.bits)
+            if self._durable is not None:
+                # write-ahead: the record is durable BEFORE any state
+                # changes, so a crash anywhere below replays it
+                self._durable.log_append(rel, rows, self.epoch + 1)
             # EDB relations stay sets under appends
             self.db[rel] = unique_rows(np.concatenate([self.db[rel], rows]),
                                        self.bits)
@@ -840,7 +867,30 @@ class DatalogService:
             for pred, ds in self._dense.items():
                 if ds.low.edb == rel:
                     self._refresh_dense(pred, ds, rows)
+            if self._durable is not None:
+                self._durable.maybe_snapshot(self)
             return self
+
+    def snapshot(self, wait: bool = False) -> int | None:
+        """Hand a consistent snapshot of the serving state to the background
+        writer (requires ``durable_dir=``); returns the generation's step.
+        The copy to the host happens under :attr:`lock`; ``wait=True`` also
+        blocks until the generation is published, as before a planned
+        shutdown, so the next start recovers warm with no log suffix."""
+        if self._durable is None:
+            raise RuntimeError("snapshot() requires DatalogService("
+                               "durable_dir=...)")
+        with self.lock:
+            step = self._durable.snapshot(self)
+        if wait:
+            self._durable.wait()
+        return step
+
+    def close(self) -> None:
+        """Flush and release durable resources (a no-op without
+        ``durable_dir=``); the service stays usable for in-memory serving."""
+        if self._durable is not None:
+            self._durable.close()
 
     def _resume_tuple_snapshots(self, rel: str) -> dict:
         """Resume batched tuple templates from their fixpoint snapshots and
@@ -898,9 +948,10 @@ class DatalogService:
         ``last_flip`` after a representation flip and ``nnz``/``density``/
         ``e_alloc``/``padding`` for CSR), ``kernels`` (the roofline
         attribution per kernel, ``KernelAttribution.report``, plus a
-        ``tuning`` entry per tuned predicate when ``tune=`` is on) and, in
-        probe mode, ``probes`` (recent ``FixpointProbe`` dicts).  The async
-        front-end adds ``admission``."""
+        ``tuning`` entry per tuned predicate when ``tune=`` is on), in
+        probe mode ``probes`` (recent ``FixpointProbe`` dicts) and, with
+        ``durable_dir=``, ``durability`` (the log, the snapshots and the
+        recovery report).  The async front-end adds ``admission``."""
         rep = {
             "epoch": self.epoch,
             "service": dataclasses.asdict(self.stats),
@@ -919,6 +970,8 @@ class DatalogService:
             rep["kernels"]["tuning"] = tuning
         if self.probe:
             rep["probes"] = [p.as_dict() for p in self.last_probes]
+        if self._durable is not None:
+            rep["durability"] = self._durable.report()
         return rep
 
     def _record_probe(self, pr) -> None:

@@ -351,11 +351,12 @@ def test_racing_submitters_leave_well_formed_traces():
 
 
 def test_snapshot_and_default_device(monkeypatch):
-    """The port's front-end has no durability yet (A.6e), and with no
-    ``device`` it builds its service on the card, raising without one."""
+    """A snapshot of a front-end whose service has no ``durable_dir`` raises
+    JAX's ``RuntimeError``, and with no ``device`` the front-end builds its
+    service on the card, raising without one."""
     fr = front(start=False)
     try:
-        with pytest.raises(NotImplementedError, match="A.6e"):
+        with pytest.raises(RuntimeError, match="durable_dir"):
             fr.snapshot()
     finally:
         fr.close()

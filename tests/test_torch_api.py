@@ -371,3 +371,66 @@ def test_c7_names_match_jax(name):
               else {"chunk": 16, "bn": 64})
         assert _same(getattr(spmv, name)(ft, *args, interpret=False, **kw),
                      want)
+
+
+#: ROADMAP C.8: each JAX module whose public names the port must hold
+C8_MODULES = ("core.semiring", "kernels.ops", "core.seminaive", "core.engine",
+              "core.sparse", "obs.fixpoint_probe", "service.session",
+              "service")
+#: C.8's "not counted" names these modules hold: a TPU-only helper
+C8_NOT_COUNTED = {"kernels.ops": {"auto_interpret"}}
+
+
+def _public_names(mod) -> set:
+    """A module's public names: no leading underscore, no submodules, and
+    no class, function or typing construct from outside the package (a
+    ``from typing import Any`` or ``jax.Array`` is not the module's API)."""
+    out = set()
+    for name in dir(mod):
+        if name.startswith("_"):
+            continue
+        v = getattr(mod, name)
+        if inspect.ismodule(v) or type(v).__module__ in ("typing",
+                                                         "__future__"):
+            continue
+        if inspect.isclass(v) or inspect.isroutine(v):
+            if not getattr(v, "__module__", "").startswith("repro"):
+                continue
+        out.add(name)
+    return out
+
+
+@pytest.mark.parametrize("module", C8_MODULES)
+def test_c8_public_names_exist_in_the_port(module):
+    import importlib
+    jmod = importlib.import_module(f"repro.{module}")
+    tmod = importlib.import_module(f"repro_torch.{module}")
+    want = _public_names(jmod) - C8_NOT_COUNTED.get(module, set())
+    assert want, module
+    missing = sorted(n for n in want if not hasattr(tmod, n))
+    assert not missing, f"repro_torch.{module} lacks {missing}"
+
+
+def test_c8_names_mean_what_jax_means():
+    """The names C.8 added are the port's own objects under JAX's names."""
+    from repro_torch.core import engine as teng
+    from repro_torch.core import ir, parser, relation
+    from repro_torch.obs import fixpoint_probe as tfp
+    from repro_torch.service import session as tsess
+    assert tsr.INF.dtype == torch.float32 and tsr.INF.ndim == 0
+    assert float(tsr.INF) == float(jsr.INF) == float("inf")
+    for name in ("csr_bool_spmv", "csr_plustimes_spmv", "csr_minplus_spmv",
+                 "csr_maxplus_spmv", "csr_minplus_spmv_tiled"):
+        assert getattr(tops, name) is getattr(spmv, name)
+    assert tsn.FactTable is relation.FactTable
+    assert tsn.AggTable is relation.AggTable
+    assert tsn.expand_join is relation.expand_join
+    assert teng.EMPTY == relation.EMPTY == int(jsn.EMPTY)
+    assert teng.Term is ir.Term and teng.fresh_var is ir.fresh_var
+    assert teng.parse_query is parser.parse_query
+    assert teng.join_edb is tsn.join_edb
+    assert teng.join_idb_prefix is tsn.join_idb_prefix
+    assert tsp.bump_trace_count is tsn.bump_trace_count
+    assert tfp.bump_trace_count is tsn.bump_trace_count
+    assert tfp.csr_frontier_step is tsp.csr_frontier_step
+    assert tsess.Var is ir.Var

@@ -260,8 +260,7 @@ def test_tuple_path_queries_match_jax(query):
     assert trep["templates"] == jrep["templates"]
 
 
-@pytest.mark.parametrize("kw,item", [({"mesh": object()}, "A.6f"),
-                                     ({"durable_dir": "x"}, "A.6e")])
+@pytest.mark.parametrize("kw,item", [({"mesh": object()}, "A.6f")])
 def test_unported_options_raise_not_implemented(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         TService(TC, db={"arc": np.array([[0, 1]])}, device="cpu", **kw)
