@@ -248,6 +248,38 @@ a non-zero exit and prints no result):
    gnp:10000:0.001 --durable DIR`` with queries and an append, run twice
    in subprocesses: ``fresh`` then ``warm``, the same answer lines; and
    ``examples/serve_quickstart_torch.py`` once on the card.
+12. distribution (``core.distributed``, ``DatalogService(mesh=...)``), on
+   a worker mesh of :data:`MESH_SHARDS` shards that all share the card
+   (``make_worker_mesh(4, devices=["cuda:0"] * 4)``), run inside the
+   phases whose graphs and services it reuses; each step between
+   launch-count and census reads, every check exact: (1) mesh TC and
+   SPATH services on phase 4's Gn-p graph (their own carriers): the cold
+   and warm batches of 100 sources equal the unsharded services' answers,
+   K1 / K2 launched 4 x iterations and nothing else, one broadcast a
+   fixpoint and one scalar psum an iteration; then phase 4's appends
+   reach the mesh services too, which resume through the mesh and answer
+   the resumed batch and the appended sources as the unsharded ones do;
+   (2) mesh services on phase 5's CSR TC and SPATH carriers, phase 5b's
+   tuned SPATH (K7) and phase 6's CSR LPATH (K6) (each takes the
+   unsharded service's packed carrier): batches of 32 equal to the
+   unsharded answers, launches 4 x iterations + one seed step a fixpoint;
+   (3) on G10K (phase 7) ``tc_decomposable`` (K1 at M = 2,500),
+   ``spath_decomposable`` (K2) and ``sg_allreduce`` (f32 ``matmul``, no
+   counted kernel) equal to ``transitive_closure_dense``,
+   ``shortest_paths_dense`` and ``same_generation_dense``, with their
+   census: Fig. 4's one broadcast and one scalar psum an iteration, SG's
+   one gather, then one (n, n) and one scalar all-reduce an iteration
+   after the exit rule's; (4) connected components by ``psn_shuffle_agg``
+   on phase 5's arcs made symmetric (32M arcs), every label the least
+   vertex of its scipy component, the iterations min-label propagation's
+   changing rounds + 1, no overflow, two all-to-alls and one psum an
+   iteration; (5) the scale-out table: G10K's ``tc_decomposable`` and the
+   CSR TC batch's ``csr_frontier_decomposable`` at :data:`SCALE_SHARDS`
+   shards, each equal to the unsharded table, with rows a shard,
+   iterations, launches, census and device ms (one card: structure, not
+   speedup); (6) with two or more cards, 12.1's TC batch on
+   ``make_worker_mesh(2)`` (distinct cards, peer copies); with one, a line
+   saying that route was not run.
 
 The line before the last is one JSON object of kernel measurements; the last
 line is ``{"ok": true, "device": {...}}``.  Needs no network; the graphs are
@@ -255,6 +287,7 @@ made from fixed seeds.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -350,6 +383,10 @@ K8_SWEEP = (0.001, 0.01, 0.03, 0.1, 0.2, 0.3)
 #: the all-pairs phase: the paper's Table-6 G10K (Gn-p, n = 10,000,
 #: p = 0.001), rows sampled against scipy, and the plain versions' row block
 AP_N, AP_P, AP_SAMPLE, ROW_BLOCK = 10_000, 0.001, 64, 1024
+#: phase 12: the worker mesh's shards (all on the card) and the scale-out
+#: table's shard counts
+MESH_SHARDS = 4
+SCALE_SHARDS = (1, 2, 4, 8)
 
 
 def say(msg: str) -> None:
@@ -1165,6 +1202,17 @@ def dense_phase(results):
     for k in ("bool_matmul", "minplus_matmul"):
         check(counts[k] > 0, f"{k} never launched on the dense path")
         results[k] = {"launches": counts[k]}
+    # phase 12.1: the same traffic on mesh services with their own carriers
+    with phase12(results) as mesh:
+        mtc = mesh_service(TC, {"arc": edges})
+        msp = mesh_service(SPATH, {"darc": wedges})
+        batches = (("cold", srcs), ("warm", srcs2))
+        mesh["dense TC"] = mesh_batches("dense TC", tc, mtc, "tc", False,
+                                        batches, "bool_matmul", False)
+        mesh["dense SPATH"] = mesh_batches("dense SPATH", sp, msp, "dpath",
+                                           True, batches, "minplus_matmul",
+                                           False)
+        mesh["cross_device"] = mesh_cross_device(tc, edges, srcs)
     phase["tc"]["breakdown"] = breakdown(torch, "dense TC", tc, "tc", srcs2)
     phase["spath"]["breakdown"] = breakdown(torch, "dense SPATH", sp, "dpath",
                                             srcs2)
@@ -1198,6 +1246,12 @@ def dense_phase(results):
         minplus.plain, fw, w, fin, 4, F32_OPS_S)
     del adj, w, f, fw
     phase["appends"] = dense_appends(tc, sp, edges, wedges, srcs, single)
+    with phase12(results) as mesh:
+        mesh["appends"] = mesh_appends(
+            (("dense TC", tc, mtc, "tc", "arc", "bool_matmul"),
+             ("dense SPATH", sp, msp, "dpath", "darc", "minplus_matmul")),
+            dense_append_rows(srcs), srcs, single)
+    del mtc, msp
     obs = results["obs_phase"]
     obs.setdefault("probe", {}).update({
         "dense TC": probe_twin("dense TC", tc, "tc", srcs2, False),
@@ -1228,6 +1282,18 @@ def _sparse_mm_call(torch, csr, f):
     return lambda: torch.sparse.mm(at, ft)
 
 
+def dense_append_rows(srcs) -> dict:
+    """The rows :func:`dense_appends` appends, by service: 1,000 seeded
+    arcs, then one arc from ``srcs[0]`` to vertex :data:`DENSE_GROW`
+    (SPATH's weighted by the same generator)."""
+    rng = np.random.default_rng(SEED + 6)
+    n = DENSE_N
+    extra = np.stack([rng.integers(0, n, 1000), rng.integers(0, n, 1000)], 1)
+    grow = np.array([[srcs[0], DENSE_GROW]], np.int64)
+    return {"dense TC": [extra, grow],
+            "dense SPATH": [_weighted(rng, extra), _weighted(rng, grow)]}
+
+
 def dense_appends(tc, sp, edges, wedges, srcs, single):
     """Appends on the warm dense Gn-p services: 1,000 arcs, then one arc to
     vertex :data:`DENSE_GROW`, past the allocation (a rebuild; the cached
@@ -1236,10 +1302,7 @@ def dense_appends(tc, sp, edges, wedges, srcs, single):
     on the union."""
     import torch
     from repro_torch.kernels import ops
-    rng = np.random.default_rng(SEED + 6)
-    n = DENSE_N
-    extra = np.stack([rng.integers(0, n, 1000), rng.integers(0, n, 1000)], 1)
-    grow = np.array([[srcs[0], DENSE_GROW]], np.int64)
+    appended = dense_append_rows(srcs)
     out = {}
     ops.reset_launch_counts()
     for label, svc, pred, edb, base in (("dense TC", tc, "tc", "arc", edges),
@@ -1249,8 +1312,7 @@ def dense_appends(tc, sp, edges, wedges, srcs, single):
         union = [base]
         st0 = dataclasses.replace(svc.stats)
         t0 = time.perf_counter()
-        for rows in (extra, grow):
-            rows = _weighted(rng, rows) if weighted else rows
+        for rows in appended[label]:
             union.append(rows)
             svc.append(edb, rows)
         torch.cuda.synchronize()
@@ -1448,6 +1510,20 @@ def csr_phase(results):
     for k in ("csr_bool_step", "csr_minplus_step"):
         check(counts[k] > 0, f"{k} never launched on the CSR path")
         results[k] = {"launches": counts[k]}
+    # phase 12.2 (mesh services on these services' carriers) and 12.5
+    with phase12(results) as mesh:
+        for label, svc, program, db, pred, weighted, kernel in (
+                ("CSR TC", tc, TC, {"arc": edges}, "tc", False,
+                 "csr_bool_step"),
+                ("CSR SPATH", sp, SPATH, {"darc": wedges}, "dpath", True,
+                 "csr_minplus_step")):
+            msvc = mesh_service(program, db, svc, pred, bits=20)
+            mesh[label] = mesh_batches(label, svc, msvc, pred, weighted,
+                                       (("first", srcs), ("second", srcs2)),
+                                       kernel, True)
+            del msvc
+        mesh.setdefault("scaleout", {})["csr_tc"] = csr_scaleout(torch, tc,
+                                                                 srcs)
     phase["tc"]["breakdown"] = breakdown(torch, "CSR TC", tc, "tc", srcs2)
     phase["spath"]["breakdown"] = breakdown(torch, "CSR SPATH", sp, "dpath",
                                             srcs2)
@@ -1585,6 +1661,13 @@ def dag_phase(results, csr_edges):
              "csr_plustimes_step", spmv.plain_plustimes, 0.0)):
         svc, srcs, srcs2 = run(label, program, pred, edges, CSR_N,
                                CSR_BATCH, "csr", semiring, key)
+        if label == "CSR LPATH":  # phase 12.2's K6 batch
+            with phase12(results) as mesh:
+                msvc = mesh_service(program, {"d": edges}, svc, pred,
+                                    bits=20)
+                mesh[label] = mesh_batches(label, svc, msvc, pred, True,
+                                           (("first", srcs),), key, True)
+                del msvc
         csr = svc._dense_state(pred).csr
         f = _seed_rows(torch, lambda i: rows_from_sources(csr, i), srcs,
                        svc.batch_pads, zero)
@@ -1730,6 +1813,7 @@ def allpairs_phase(results):
     import torch
     from scipy.sparse import csr_matrix
     from scipy.sparse.csgraph import connected_components
+    from repro_torch.core import distributed as dist
     from repro_torch.core import seminaive as sn
     from repro_torch.core.semiring import MIN_PLUS
     from repro_torch.data import gnp_graph
@@ -1804,6 +1888,13 @@ def allpairs_phase(results):
           "nonlinear APSP table != the linear form's")
     del nonlin
     _check_rows("APSP", lin.table, sample, Oracle(wedges, n, True))
+    # phase 12.3: the decomposable plans on MESH_SHARDS shards
+    with phase12(results) as mesh:
+        g10k = mesh.setdefault("g10k", {})
+        g10k["spath_decomposable"] = mesh_plan(
+            torch, "G10K spath_decomposable",
+            lambda m: dist.spath_decomposable(m, w), MESH_SHARDS,
+            "minplus_matmul", lin.table, _fig4)
     phase["APSP linear"]["finite_pairs"] = int(torch.isfinite(lin.table).sum())
     del lin
 
@@ -1811,6 +1902,14 @@ def allpairs_phase(results):
     tc = path("TC", lambda: sn.transitive_closure_dense(adj),
               lambda r: r.iterations, {"bool_matmul": lambda i: i})
     _check_rows("TC", tc.table, sample, Oracle(edges, n, False))
+    # phase 12.3 and 12.5: tc_decomposable at every shard count
+    with phase12(results) as mesh:
+        scale = [mesh_plan(torch, "G10K tc_decomposable",
+                           lambda m: dist.tc_decomposable(m, adj), k,
+                           "bool_matmul", tc.table, _fig4)
+                 for k in SCALE_SHARDS]
+        mesh.setdefault("scaleout", {})["g10k_tc"] = scale
+        g10k["tc_decomposable"] = scale[SCALE_SHARDS.index(MESH_SHARDS)]
     phase["TC"]["pairs"] = int(tc.table.sum())
     del tc
 
@@ -1828,6 +1927,11 @@ def allpairs_phase(results):
           "SG != its run with the plain boolean product")
     say(f"SG: {phase['SG']['pairs']} pairs; equal to its plain-product run "
         f"({phase['SG']['plain_seconds']:.2f} s)")
+    with phase12(results):
+        g10k["sg_allreduce"] = mesh_plan(
+            torch, "G10K sg_allreduce", lambda m: dist.sg_allreduce(m, adj),
+            MESH_SHARDS, None, sg.table,
+            lambda it: {"all_gather": 1, "psum": 1 + 2 * it})
     del sg, sg_plain
 
     # (d) CC: K2 with B = 1
@@ -1960,6 +2064,15 @@ def tuned_phase(results, wedges, oracle):
                   "csr_minplus_step")
     results["csr_minplus_tiled_step"] = {
         "launches": counts["csr_minplus_tiled_step"]}
+    with phase12(results) as mesh:
+        msp = mesh_service(SPATH, {"darc": wedges}, sp, "dpath", bits=20,
+                           sparse=True,
+                           tune=autotune.KernelConfig(use_kernel=True))
+        mesh["tuned CSR SPATH"] = mesh_batches(
+            "tuned CSR SPATH", sp, msp, "dpath", True,
+            (("first", srcs), ("second", srcs2)), "csr_minplus_tiled_step",
+            True)
+        del msp
     csr = sp._dense_state("dpath").csr
     tuning = sp.explain()["kernels"]["tuning"]["dpath"]
     check(tuning == {"config": autotune.KernelConfig(use_kernel=True).as_dict(),
@@ -3667,6 +3780,337 @@ def durable_phase(results, csr_edges):
     results["durable_phase"] = phase
 
 
+# -- phase 12: distribution ---------------------------------------------------
+
+
+@contextlib.contextmanager
+def phase12(results):
+    """A block of phase 12 inside another phase: yields its results dict
+    and adds the block's wall time to its ``seconds``."""
+    mesh = results.setdefault("mesh_phase", {})
+    t0 = time.perf_counter()
+    yield mesh
+    mesh["seconds"] = mesh.get("seconds", 0.0) + time.perf_counter() - t0
+
+
+def _worker_mesh(k: int = MESH_SHARDS):
+    """A k-shard worker mesh whose shards all share the card."""
+    from repro_torch.launch.mesh import make_worker_mesh
+    return make_worker_mesh(k, devices=[DEVICE] * k)
+
+
+def _census(mesh) -> dict:
+    return {k: v for k, v in mesh.census().items() if v["count"]}
+
+
+def _mesh_counts(label, msvc, kernel, seeded, st, counts, census):
+    """Phase 12's checks of one counted window on a mesh service: ``kernel``
+    launched ``shards x iterations`` times (plus one seed step a fixpoint
+    on the CSR carrier, ``seeded``) and nothing else, one broadcast a
+    fixpoint and one scalar psum an iteration.  ``st``: the service's stats
+    at the window's start.  Returns (iterations, launches)."""
+    it = msvc.stats.fixpoint_iterations - st.fixpoint_iterations
+    fx = msvc.stats.dense_fixpoints - st.dense_fixpoints
+    expect = msvc.mesh.size * it + (fx if seeded else 0)
+    check(counts == {kernel: expect}, f"{label}: launches {counts}, "
+          f"expected {kernel} {expect}")
+    check(set(census) == {"broadcast", "psum"}
+          and census["broadcast"]["count"] == fx
+          and census["psum"]["count"] == it, f"{label}: census {census}")
+    return it, expect
+
+
+def mesh_batches(label, svc, msvc, pred, weighted, batches, kernel, seeded):
+    """Phase 12.1/12.2: batches on a mesh service, each driven between
+    launch-count and census reads: its answers equal the unsharded
+    service's (whose cache holds them) and its launches and collectives are
+    :func:`_mesh_counts`'s.  ``batches``: (name, sources) pairs."""
+    import torch
+    from repro_torch.kernels import ops
+    mesh, k = msvc.mesh, msvc.mesh.size
+
+    def q(s):
+        return (pred, (s, None, None) if weighted else (s, None))
+
+    out = {}
+    for name, srcs in batches:
+        mesh.reset_census()
+        ops.reset_launch_counts()
+        st = dataclasses.replace(msvc.stats)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = msvc.ask_batch([q(s) for s in srcs])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = {c: v for c, v in ops.launch_counts().items() if v}
+        census = _census(mesh)
+        want = svc.ask_batch([q(s) for s in srcs])
+        check(all(_same_answer(a, b) for a, b in zip(got, want)),
+              f"{label} mesh {name} batch != the unsharded service's")
+        it, expect = _mesh_counts(f"{label} mesh {name} batch", msvc, kernel,
+                                  seeded, st, counts, census)
+        out[name] = {"sources": len(srcs), "ms": ms, "iterations": it,
+                     "launches": expect, "census": census}
+        say(f"{label} on {k} shards, {name} batch of {len(srcs)}: {ms:.1f} "
+            f"ms, {it} iterations, {kernel} x {expect}, census {census}; "
+            "answers equal the unsharded service's")
+    return out
+
+
+def mesh_appends(services, appended, srcs, single):
+    """Phase 12.1's appends, after :func:`dense_appends` has run them on the
+    unsharded services: each mesh twin takes the same rows (``appended``,
+    by label) between its own launch-count and census reads, one sync at
+    the end as there; each cached closure resumes through the mesh
+    (:func:`_mesh_counts`).  Then the resumed batch, the single source and
+    the new vertex must equal the unsharded service's answers.
+    ``services``: (label, service, twin, pred, edb, kernel) tuples."""
+    import torch
+    from repro_torch.kernels import ops
+    out = {}
+    for label, svc, twin, pred, edb, kernel in services:
+        weighted = appended[label][0].shape[1] == 3
+        twin.mesh.reset_census()
+        ops.reset_launch_counts()
+        st = dataclasses.replace(twin.stats)
+        t0 = time.perf_counter()
+        for rows in appended[label]:
+            twin.append(edb, rows)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = {c: v for c, v in ops.launch_counts().items() if v}
+        census = _census(twin.mesh)
+        it, expect = _mesh_counts(f"{label} mesh twin appends", twin, kernel,
+                                  False, st, counts, census)
+        q = [(pred, (s, None, None) if weighted else (s, None))
+             for s in srcs + [single, DENSE_GROW]]
+        check(all(_same_answer(a, b) for a, b in zip(twin.ask_batch(q),
+                                                     svc.ask_batch(q))),
+              f"{label} mesh twin after the appends != the service")
+        out[label] = {"seconds": secs, "resumed_iterations": it,
+                      "launches": expect, "census": census}
+        say(f"{label} mesh twin appends: {secs:.2f} s, {it} resumed "
+            f"iterations, {kernel} x {expect}, census {census}; the resumed "
+            f"batch of {len(srcs)} and 2 more sources equal the service's")
+    return out
+
+
+def mesh_service(program, db, svc=None, pred=None, **kw):
+    """A mesh service (phase 12.1/12.2).  With ``svc`` it takes ``svc``'s
+    packed carrier for ``pred`` instead of packing its own (a CSR's host
+    packing costs 9-14 s and is not what phase 12 measures).  The two
+    services then share one carrier object, so such a mesh service must
+    never append: its ``append`` raises."""
+    from repro_torch.service import DatalogService
+    msvc = DatalogService(program, db=db, mesh=_worker_mesh(), **kw)
+    if svc is not None:
+        msvc._dense[pred] = svc._dense_state(pred)
+
+        def no_append(*args, **kwargs):
+            raise AssertionError("a mesh service sharing its carrier with "
+                                 "an unsharded service must not append")
+
+        msvc.append = no_append
+    return msvc
+
+
+def mesh_cross_device(tc, edges, srcs):
+    """Phase 12.6: 12.1's TC batch on two distinct cards when the machine
+    has them (peer copies between the shards), against the unsharded
+    service ``tc``."""
+    import torch
+    from repro_torch.launch.mesh import make_worker_mesh
+    from repro_torch.service import DatalogService
+    if torch.cuda.device_count() < 2:
+        say(f"phase 12.6: {torch.cuda.device_count()} CUDA device(s); the "
+            "cross-device mesh route (shards on distinct cards) was not run")
+        return {"run": False, "devices": torch.cuda.device_count()}
+    mesh = make_worker_mesh(2)
+    mtc = DatalogService(TC, db={"arc": edges}, mesh=mesh)
+    qs = [("tc", (s, None)) for s in srcs]
+    t0 = time.perf_counter()
+    got = mtc.ask_batch(qs)
+    for d in mesh.devices:
+        torch.cuda.synchronize(d)
+    secs = time.perf_counter() - t0
+    check(all(_same_answer(a, b) for a, b in zip(got, tc.ask_batch(qs))),
+          "cross-device mesh TC batch != the unsharded service's")
+    say(f"phase 12.6: TC batch of {len(srcs)} on {mesh}: {secs:.2f} s, "
+        f"census {_census(mesh)}; answers equal the unsharded service's")
+    return {"run": True, "seconds": secs, "census": _census(mesh)}
+
+
+def _event_ms(torch, fn):
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    stop.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def _fig4(it: int) -> dict:
+    """Fig. 4's collectives: one broadcast, one scalar psum an iteration."""
+    return {"broadcast": 1, "psum": it}
+
+
+def mesh_plan(torch, label, fn, k, kernel, want, collectives):
+    """Phase 12.3/12.5: one distributed plan on a fresh k-shard mesh between
+    launch-count reads: its table must equal ``want``, ``kernel`` must
+    launch ``k x iterations`` times and nothing else (None: no counted
+    kernel at all), and the census must count ``collectives(iterations)``
+    of each kind and nothing else.  Device ms by CUDA events around the
+    plan."""
+    from repro_torch.kernels import ops
+    mesh = _worker_mesh(k)
+    ops.reset_launch_counts()
+    (table, it), ms = _event_ms(torch, lambda: fn(mesh))
+    counts = {c: v for c, v in ops.launch_counts().items() if v}
+    check(torch.equal(table, want),
+          f"{label} on {k} shards != the unsharded table")
+    expect = {kernel: k * it} if kernel else {}
+    check(counts == expect, f"{label} on {k} shards: launches {counts}, "
+          f"expected {expect}")
+    got = {c: v["count"] for c, v in _census(mesh).items()}
+    check(got == collectives(it), f"{label} on {k} shards: collectives "
+          f"{got}, expected {collectives(it)}")
+    out = {"shards": k, "rows_per_shard": table.shape[0] // k,
+           "iterations": it, "device_ms": ms, "launches": counts,
+           "census": _census(mesh)}
+    say(f"{label} on {k} shards ({out['rows_per_shard']} rows a shard): "
+        f"{it} iterations, {ms:.1f} device ms, launches {counts}, census "
+        f"{out['census']}; equal to the unsharded table")
+    return out
+
+
+def csr_scaleout(torch, svc, srcs):
+    """Phase 12.5's CSR half: the CSR TC batch's Fig.-4 plan
+    (``csr_frontier_decomposable``) at every shard count of
+    :data:`SCALE_SHARDS` from the batch layer's padded seed rows, each equal
+    to the unsharded masked fixpoint's table."""
+    from repro_torch.core import sparse
+    from repro_torch.core.distributed import csr_frontier_decomposable
+    from repro_torch.service.batch import _padded_index, pad_batch_size
+    csr = svc._dense_state("tc").csr
+    bp = pad_batch_size(len(srcs), svc.batch_pads)
+    init = sparse.rows_from_sources(csr, _padded_index(srcs, bp))
+    init[len(srcs):] = False
+    want = sparse.fixpoint_csr(csr, init).table
+    return [mesh_plan(torch, "CSR TC batch",
+                      lambda m: csr_frontier_decomposable(m, csr, init), k,
+                      "csr_bool_step", want, _fig4) for k in SCALE_SHARDS]
+
+
+def psn_cc(torch, label, edges, n):
+    """Phase 12.4: connected components by the shuffled PSN
+    (``psn_shuffle_agg``, min labels) over ``edges`` made symmetric, on
+    :data:`MESH_SHARDS` shards of the card: every label the least vertex
+    of its component (scipy's components), the iterations the changing
+    rounds of synchronous min-label propagation (``scatter_reduce`` on the
+    card) + 1, no overflow at a bucket capacity of the largest (source
+    owner, destination owner) arc count, two all-to-alls and one scalar
+    psum an iteration, and no counted kernel (sorts and merges only)."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import connected_components
+    from repro_torch.core.distributed import (EMPTY, partition_edges_by_src,
+                                              psn_shuffle_agg)
+    from repro_torch.kernels import ops
+    k = MESH_SHARDS
+    t0 = time.perf_counter()
+    sym = np.concatenate([edges, edges[:, ::-1]])
+    fib = np.uint64(11400714819323198485)
+
+    def owner(v):
+        return (((v.astype(np.uint64) * fib) >> np.uint64(40))
+                % np.uint64(k)).astype(np.int64)
+
+    src_owner, dst_owner = owner(sym[:, 0]), owner(sym[:, 1])
+    per_shard = np.bincount(src_owner, minlength=k)
+    bucket_cap = int(np.bincount(src_owner * k + dst_owner,
+                                 minlength=k * k).max())
+    parts = partition_edges_by_src(sym, k, int(per_shard.max()))
+    del src_owner, dst_owner
+    vowner = owner(np.arange(n))
+    cap = int(np.bincount(vowner, minlength=k).max())
+    keys = np.full((k, cap), EMPTY, np.int64)
+    vals = np.full((k, cap), np.iinfo(np.int32).max, np.int32)
+    for s in range(k):
+        mine = np.nonzero(vowner == s)[0]
+        keys[s, :len(mine)] = mine
+        vals[s, :len(mine)] = mine
+    host_s = time.perf_counter() - t0
+    args = [torch.from_numpy(a).to(DEVICE)
+            for a in (parts, keys.reshape(-1), vals.reshape(-1))]
+    del parts
+    mesh = _worker_mesh(k)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t1 = time.perf_counter()
+    got_k, got_v, it, overflow = psn_shuffle_agg(mesh, *args, n,
+                                                 bucket_cap=bucket_cap)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    del args
+    counts = {c: v for c, v in ops.launch_counts().items() if v}
+    check(not counts, f"{label} PSN CC: a counted kernel launched ({counts})")
+    check(not overflow, f"{label} PSN CC: overflow at the chosen capacities")
+    got_k, got_v = got_k.cpu().numpy(), got_v.cpu().numpy()
+    live = got_k != EMPTY
+    labels = np.full(n, -1, np.int64)
+    labels[got_k[live]] = got_v[live]
+    ncomp, comp = connected_components(
+        csr_matrix((np.ones(len(edges), np.int8), (edges[:, 0], edges[:, 1])),
+                   shape=(n, n)), directed=False)
+    least = np.full(ncomp, n)
+    np.minimum.at(least, comp, np.arange(n))
+    check(np.array_equal(labels, least[comp]),
+          f"{label} PSN CC labels != scipy's components' least vertices")
+    s_d = torch.from_numpy(sym[:, 0]).to(DEVICE)
+    d_d = torch.from_numpy(sym[:, 1]).to(DEVICE)
+    lab = torch.arange(n, device=DEVICE)
+    rounds = 0
+    while True:
+        new = lab.scatter_reduce(0, d_d, lab[s_d], "amin")
+        if torch.equal(new, lab):
+            break
+        lab, rounds = new, rounds + 1
+    del s_d, d_d, lab, new
+    check(it == rounds + 1, f"{label} PSN CC: {it} iterations, min-label "
+          f"propagation {rounds} changing rounds")
+    census = _census(mesh)
+    check(set(census) == {"all_to_all", "psum"}
+          and census["all_to_all"]["count"] == 2 * it
+          and census["psum"]["count"] == it,
+          f"{label} PSN CC: census {census}")
+    out = {"arcs": len(sym), "components": int(ncomp), "shards": k,
+           "cap": cap, "bucket_cap": bucket_cap,
+           "arcs_per_shard": per_shard.tolist(), "iterations": it,
+           "seconds": secs, "host_setup_s": host_s, "peak_gib": peak,
+           "census": census}
+    say(f"phase 12.4 {label} PSN CC on {len(sym)} symmetric arcs, {k} "
+        f"shards: {it} iterations ({rounds} changing rounds + 1), "
+        f"{secs:.2f} s (host partitioning {host_s:.1f} s), peak {peak:.2f} "
+        f"GiB over the inputs, {ncomp} components equal to scipy's, census "
+        f"{census}")
+    return out
+
+
+def psn_phase(results, edges):
+    """Phase 12.4 on the power-law arcs (after phase 11; one component,
+    reached in a few rounds from its hubs), then on an Erdős–Rényi G(n, m)
+    with n = m = :data:`CSR_N` (mean degree 2: a giant component, many small
+    ones and isolated vertices, and tens of rounds)."""
+    import torch
+    with phase12(results) as mesh:
+        mesh["psn_cc"] = psn_cc(torch, "power-law", edges, CSR_N)
+        er = np.random.default_rng(SEED + 12).integers(0, CSR_N, (CSR_N, 2))
+        mesh["psn_cc_gnm"] = psn_cc(torch, "G(n, m)", er, CSR_N)
+
+
 def main():
     t_start = time.perf_counter()
     card = check_device()
@@ -3686,6 +4130,7 @@ def main():
     dag_phase(results, edges)
     analytics_phase(results, edges)
     durable_phase(results, edges)
+    psn_phase(results, edges)
     del edges
     allpairs_phase(results)
     tuple_phase(results)
@@ -3703,8 +4148,10 @@ def main():
                                            "tuned_phase", "dag_phase",
                                            "allpairs_phase", "tuple_phase",
                                            "lm_phase", "obs_phase",
-                                           "durable_phase")},
+                                           "durable_phase", "mesh_phase")},
                                 default=str))
+    say(f"phase 12 (distribution): {results['mesh_phase']['seconds']:.1f} "
+        "s in all")
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(card)
     say(json.dumps(line))

@@ -15,3 +15,12 @@ def resolve_device(device=None) -> torch.device:
             "has no usable GPU; pass device='cpu' to run the plain PyTorch "
             "versions on the CPU")
     return dev
+
+
+def canonical_device(device) -> torch.device:
+    """``device`` with its index: a bare ``cuda`` names the current card, so
+    two spellings of one device compare equal."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev

@@ -1,6 +1,5 @@
 """Micro-batching: coalesce B single-source queries into one frontier
-fixpoint (port of ``repro.service.batch``; a device mesh is not ported yet,
-ROADMAP A.6f).
+fixpoint (port of ``repro.service.batch``).
 
 B concurrent queries ``?- tc(s_i, Y)`` on the same decomposable predicate
 share one evaluation: their frontier rows stack into a (B, n) matrix and the
@@ -15,9 +14,18 @@ Batch sizes quantize to the service's pad levels (1, 8, 32, 128, ...) with
 ``generated`` agree with it.  The padding has no compile cache to feed here;
 it keeps the two packages' results identical.
 
+With a worker mesh (``mesh=``, ``core.distributed.WorkerMesh``) an
+idempotent batch lowers to the distributed decomposable plan instead
+(``distributed.tc_frontier_decomposable`` / ``csr_frontier_decomposable``):
+the frontier rows shard across the mesh exactly like the recursive relation
+in the paper's Fig. 4, so the per-iteration join stays shuffle-free.  That
+loop recomputes every row until the global ``psum`` is 0 (no per-row
+masking), so its ``iterations`` are JAX's mesh path's, and ``generated`` is
+0 as there.  The additive carrier bypasses the mesh, as in JAX.
+
 ``probe=True`` runs the probed twins (``obs.fixpoint_probe``) and returns
 ``(DenseResult, FixpointProbe)`` with a bit-identical result; the additive
-carrier has no probed twin and reports ``None``.
+carrier and the mesh path have no probed twin and report ``None``.
 
 Tuple queries group by (predicate, adornment) shape instead
 (:func:`coalesce_by_shape`): a same-shape group shares one qid-tagged
@@ -70,14 +78,15 @@ def _pad_init(init: torch.Tensor, bp: int, zero) -> torch.Tensor:
 
 
 def run_frontier_batch(sr: Semiring, matrix: torch.Tensor, srcs: list[int],
-                       pads: tuple[int, ...],
+                       pads: tuple[int, ...], mesh=None,
                        init: torch.Tensor | None = None,
                        probe: bool = False) -> DenseResult:
     """One batched dense fixpoint answering ``len(srcs)`` single-source
     queries; the table's first ``len(srcs)`` rows are their closure rows
-    (pad rows follow).  ``init`` overrides the (B, n) seed: an
-    append-resume passes the cached rows ⊕ the post-append seed rows.
-    ``probe=True`` returns ``(DenseResult, FixpointProbe | None)``."""
+    (pad rows follow).  ``mesh`` shards the rows Fig.-4 style.  ``init``
+    overrides the (B, n) seed: an append-resume passes the cached rows ⊕
+    the post-append seed rows.  ``probe=True`` returns
+    ``(DenseResult, FixpointProbe | None)``."""
     b = len(srcs)
     bp = pad_batch_size(b, pads)
     if init is None:
@@ -94,13 +103,18 @@ def run_frontier_batch(sr: Semiring, matrix: torch.Tensor, srcs: list[int],
                                     max_iters=max_iters)
         res = check_additive_converged(res, max_iters, "additive dense batch")
         return (res, None) if probe else res
+    if mesh is not None:
+        from ..core.distributed import tc_frontier_decomposable
+        closed, iters = tc_frontier_decomposable(mesh, matrix, init, sr=sr)
+        res = DenseResult(closed, iters, 0)
+        return (res, None) if probe else res
     if probe:
         return fixpoint_dense_probed(sr, matrix, init, form="vector")
     return fixpoint_dense_cached(sr, matrix, init, form="vector")
 
 
 def run_frontier_batch_csr(csr: "_sparse.CSRMatrix", srcs: list[int],
-                           pads: tuple[int, ...],
+                           pads: tuple[int, ...], mesh=None,
                            init: torch.Tensor | None = None,
                            probe: bool = False) -> DenseResult:
     """CSR twin of :func:`run_frontier_batch`: the same (B, n) batched
@@ -121,6 +135,11 @@ def run_frontier_batch_csr(csr: "_sparse.CSRMatrix", srcs: list[int],
         max_iters = additive_max_iters(csr.n_alloc)
         res = _sparse.fixpoint_csr_cached(csr, init, max_iters=max_iters)
         res = check_additive_converged(res, max_iters, "additive CSR batch")
+        return (res, None) if probe else res
+    if mesh is not None:
+        from ..core.distributed import csr_frontier_decomposable
+        closed, iters = csr_frontier_decomposable(mesh, csr, init)
+        res = DenseResult(closed, iters, 0)
         return (res, None) if probe else res
     if probe:
         return fixpoint_csr_probed(csr, init)

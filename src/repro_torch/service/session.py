@@ -49,8 +49,12 @@ while batch *k+1*'s fixpoint runs on another.
 append is written ahead to a log before anything changes, :meth:`snapshot`
 hands a copy of the serving state to a background writer, and a service
 built on the same directory recovers warm from the newest complete snapshot
-plus the log's suffix, in the JAX package's file formats.  ``mesh`` raises
-``NotImplementedError`` naming its ROADMAP item (A.6f).
+plus the log's suffix, in the JAX package's file formats.
+
+``mesh=`` (a ``core.distributed.WorkerMesh``, ``launch.mesh.
+make_worker_mesh``) shards every idempotent frontier batch Fig.-4 style
+(``batch.py``): each shard closes its rows against the broadcast carrier,
+and the only collective in the loop is the scalar convergence ``psum``.
 """
 from __future__ import annotations
 
@@ -76,7 +80,7 @@ from ..core.parser import parse_program
 from ..core.planner import PlanError, demanded_strata
 from ..core.query import RowSet, unique_rows
 from ..core.semiring import BOOL, MIN_PLUS, carrier_for, edge_arity
-from ..device import resolve_device
+from ..device import canonical_device, resolve_device
 from ..kernels import autotune as _at
 from ..obs.metrics import NULL_METRICS, MetricsRegistry
 from ..obs.roofline_attr import (KernelAttribution, csr_launch_cost,
@@ -89,11 +93,6 @@ from .cache import CacheEntry, LRUCache
 
 #: batch-size histogram buckets (queries per launched batch)
 _BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP {item})")
 
 
 @dataclasses.dataclass
@@ -269,12 +268,13 @@ class _DenseRelation:
         observations land on ``svc.last_probes``."""
         if self.is_csr:
             res = _batch.run_frontier_batch_csr(self.csr, srcs,
-                                                svc.batch_pads, init=init,
+                                                svc.batch_pads,
+                                                mesh=svc.mesh, init=init,
                                                 probe=svc.probe)
         else:
             res = _batch.run_frontier_batch(self.sr, self.matrix, srcs,
-                                            svc.batch_pads, init=init,
-                                            probe=svc.probe)
+                                            svc.batch_pads, mesh=svc.mesh,
+                                            init=init, probe=svc.probe)
         if svc.probe:
             res, pr = res
             if pr is not None:
@@ -612,8 +612,11 @@ class DatalogService:
     ``durable_fsync``  fsync the log per append (True); False trades the
                       tail's durability for append latency.
 
-    ``mesh`` (A.6f) exists for signature parity with the JAX service and
-    raises until ported.
+    ``mesh``          a worker mesh (``launch.mesh.make_worker_mesh``):
+                      micro-batches shard their frontier rows Fig.-4 style
+                      (``core.distributed``); its first shard must lie on
+                      the service's device, where the closed rows are
+                      assembled.
     """
 
     def __init__(self, program, db: dict[str, np.ndarray], *, bits: int = 18,
@@ -633,9 +636,14 @@ class DatalogService:
                  device=None):
         if matmul not in (None, "pallas"):
             raise ValueError(f"matmul must be None or 'pallas', got {matmul!r}")
-        if mesh is not None:
-            raise _not_ported("DatalogService(mesh=...)", "A.6f")
         self.device = resolve_device(device)
+        if mesh is not None and \
+                mesh.devices[0] != canonical_device(self.device):
+            raise ValueError(f"the mesh's first shard lies on "
+                             f"{mesh.devices[0]}, the service on "
+                             f"{self.device}: the closed rows are assembled "
+                             "on the first shard's device")
+        self.mesh = mesh
         if isinstance(program, str):
             program = parse_program(program, constants=constants)
         self.program = program

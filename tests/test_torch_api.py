@@ -434,3 +434,16 @@ def test_c8_names_mean_what_jax_means():
     assert tfp.bump_trace_count is tsn.bump_trace_count
     assert tfp.csr_frontier_step is tsp.csr_frontier_step
     assert tsess.Var is ir.Var
+
+
+@pytest.mark.parametrize("module", ["core.distributed", "launch.mesh"])
+def test_distribution_public_names_exist_in_the_port(module):
+    """A.6f: the distributed plans and the worker mesh carry JAX's public
+    names (``make_production_mesh`` exists and raises, naming A.9)."""
+    import importlib
+    jmod = importlib.import_module(f"repro.{module}")
+    tmod = importlib.import_module(f"repro_torch.{module}")
+    want = _public_names(jmod)
+    assert want, module
+    missing = sorted(n for n in want if not hasattr(tmod, n))
+    assert not missing, f"repro_torch.{module} lacks {missing}"

@@ -260,10 +260,16 @@ def test_tuple_path_queries_match_jax(query):
     assert trep["templates"] == jrep["templates"]
 
 
-@pytest.mark.parametrize("kw,item", [({"mesh": object()}, "A.6f")])
+@pytest.mark.parametrize("kw,item", [({"multi_pod": False}, "A.9"),
+                                     ({"multi_pod": True}, "A.9")])
 def test_unported_options_raise_not_implemented(kw, item):
+    """What the serving side still lacks raises naming its ROADMAP item.
+    ``DatalogService(mesh=...)`` is served since A.6f
+    (``tests/test_torch_service_mesh.py``); the LM's production mesh, the
+    other half of ``launch.mesh``, waits for A.9."""
+    from repro_torch.launch.mesh import make_production_mesh
     with pytest.raises(NotImplementedError, match=item):
-        TService(TC, db={"arc": np.array([[0, 1]])}, device="cpu", **kw)
+        make_production_mesh(**kw)
 
 
 @pytest.mark.parametrize("kw", [{"probe": True}, {"tracer": True}],
