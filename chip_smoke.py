@@ -280,6 +280,47 @@ a non-zero exit and prints no result):
    speedup); (6) with two or more cards, 12.1's TC batch on
    ``make_worker_mesh(2)`` (distinct cards, peer copies); with one, a line
    saying that route was not run.
+13. the LM training path (after phase 8): (a) K9-bwd
+   (``flash_attention_bwd``) against its plain version within
+   :data:`K9_BWD_TOL` at every case of K9's ragged grid (``K9_*``: all-masked
+   rows too; bf16 and f32, each call checked to launch K9-bwd) and at the
+   path's tiling (:data:`K9_BWD_PATH_SEQ`, no floor), given the plain
+   forward's output and log-sum-exp, and K9's own log-sum-exp
+   (``return_lse``, each route) against the plain one within
+   :data:`K9_ATOL`; K10-bwd (``rglru_scan_bwd``) exactly at K10's ragged
+   cases, each awaited by the watchdog; at one small shape each,
+   ``ops.flash`` and ``ops.rglru`` differentiated on the card (K9 + K9-bwd,
+   K10 + K10-bwd) against ``torch.autograd`` of the plain forwards; (b)
+   RecurrentGemma-2B at its published widths and depth, from seed 0 on the
+   card, ``make_train_step`` with AdamW (``warmup_steps=1``), ``remat=True``,
+   sequence :data:`TRAIN_SEQ` (``train_4k``'s length), global batch
+   :data:`TRAIN_BATCH` in :data:`TRAIN_ACCUM` microbatches (cut from
+   ``train_4k``'s 256 to fit one card), :data:`TRAIN_STEPS` steps: every
+   loss and grad norm finite, step 1's loss equal to ``model.loss`` on the
+   same microbatches under ``no_grad`` (:data:`TRAIN_LOSS_RTOL`), each
+   step's launches exactly K9 2 x 16, K9-bwd 2 x 8, K10 2 x 34, K10-bwd
+   2 x 18 and nothing else (each microbatch runs its 8 ``local`` and 16
+   group ``rg`` blocks twice under remat, its 2 tail ``rg`` blocks once,
+   and every block's backward once); s a step (synced), tokens/s, peak
+   memory, a ``torch.profiler`` breakdown of one step (GEMM, K9, K9-bwd,
+   K10, K10-bwd, other; the optimizer's device ms from one ``adamw_update``
+   profiled alone) and the idle share; K9-bwd and K10-bwd timed at the
+   inputs of the first call each of a step's backward (the last ``local``
+   and ``rg`` blocks) beside their plain versions, their bounds and, for
+   K9-bwd, ``scaled_dot_product_attention``'s backward on the same tensors
+   (K9-bwd held there with no floor, and what one bf16 rounding of P and
+   dS would cost against the tolerance);
+   (c) ``examples/train_lm_torch.py``'s ``demo`` model through
+   ``runtime.TrainDriver`` for :data:`DRIVER_STEPS` steps, uninterrupted and
+   with a failure at :data:`DRIVER_FAIL` under ``run_with_restarts`` (the
+   driver's steps run in deterministic mode): the loss falls, and the
+   resumed run's parameters, moments and losses equal the uninterrupted
+   run's bit for bit; the kernels one demo step launches with
+   ``torch.use_deterministic_algorithms`` off and on, by name; then
+   ``python -m repro_torch.launch.train --arch recurrentgemma-2b --smoke
+   --steps 3`` once; (c) runs in a process of its own whose environment
+   sets ``CUBLAS_WORKSPACE_CONFIG`` (deterministic mode's cuBLAS
+   workspace) from the start.
 
 The line before the last is one JSON object of kernel measurements; the last
 line is ``{"ok": true, "device": {...}}``.  Needs no network; the graphs are
@@ -289,6 +330,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import os
 import subprocess
@@ -358,6 +400,16 @@ KERNELS = {
                         "src/repro/kernels/flash_attention.py:95"),
     "rglru_scan": ("src/repro_torch/kernels/csrc/rglru_scan.cu",
                    "src/repro/kernels/rglru_scan.py:49"),
+    # the backward kernels of the training path: kernels of the port with
+    # no TPU counterpart (the JAX package differentiates plain JAX)
+    "flash_attention_bwd": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "none: the backward of src/repro/kernels/flash_attention.py:95, "
+        "which has none"),
+    "rglru_scan_bwd": (
+        "src/repro_torch/kernels/csrc/rglru_scan_bwd.cu",
+        "none: the backward of src/repro/kernels/rglru_scan.py:49, which "
+        "has none"),
 }
 #: K3/K5's ragged cases: batch sizes crossing every 32-row word and the
 #: wrapper's 128-row split, and frontier densities
@@ -2768,7 +2820,8 @@ def k10_ragged_parity():
 
 
 #: kernel-name fragments of the device-time breakdown, in the order tried
-KERNEL_CLASSES = (("K9", ("flash_kernel",)), ("K10", ("rglru_scan",)),
+KERNEL_CLASSES = (("K9-bwd", ("flash_bwd",)), ("K10-bwd", ("rglru_bwd",)),
+                  ("K9", ("flash_kernel",)), ("K10", ("rglru_scan",)),
                   ("GEMM", ("gemm", "nvjet", "xmma", "cutlass")))
 
 
@@ -2999,6 +3052,586 @@ def lm_phase(results):
     del model, prefill, serve, out, cache
     torch.cuda.empty_cache()
     results["lm_phase"] = phase
+
+
+# -- phase 13: the LM training path --------------------------------------------
+
+#: the training steps (module docstring, phase 13): RecurrentGemma-2B at its
+#: published widths and depth, ``train_4k``'s sequence length, a global batch
+#: cut from ``train_4k``'s 256 to fit one card, one sequence a microbatch
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS = 4096, 2, 2, 3
+#: step 1's loss against ``model.loss`` on the same microbatches under
+#: ``no_grad``: the same kernels on the same inputs (remat recomputes in the
+#: backward only, and K9's log-sum-exp does not change its output), so equal
+#: up to the mean's f32 rounding
+TRAIN_LOSS_RTOL = 1e-6
+#: K9-bwd against its plain version: the same f32 arithmetic, with the
+#: dot products, the row sums D and the dK/dV/dQ sums (up to 40,960 terms:
+#: sq x rep at 4096 x 10) taken in other orders: |got - want| <= K9_BWD_TOL
+#: * max(floor, max|want|) per output, plus (bf16 outputs) one bf16 rounding
+#: step, 2^-7 * |want|.  The floor is 1 on K9's ragged grid, whose random
+#: inputs give gradients of order 1 (and at sq = 1 gradients of dq and dk
+#: that are rounding noise around 0), and 0 where the values are a training
+#: step's (dO of a mean over 4,096 tokens: gradients near 1e-5) and at the
+#: path's tiling (:data:`K9_BWD_PATH_SEQ`)
+K9_BWD_TOL = 1e-4
+#: K9-bwd also at the training path's tiling: b 1, 10 query heads on one kv
+#: head, head dim 256, 4,096 queries, with window 2048 (key tiles from past
+#: 0, query tiles skipped a key tile) or none, causal or not, softcap or
+#: not, bf16 and f32, held with no floor
+K9_BWD_PATH_SEQ, K9_BWD_PATH_WINDOWS = 4096, (2048, None)
+#: ``ops.flash`` and ``ops.rglru`` differentiated on the card against
+#: ``torch.autograd`` of the plain forwards (f32): within AUTOGRAD_TOL *
+#: max(1, max|want|)
+AUTOGRAD_TOL = 1e-4
+#: phase 13c: ``examples/train_lm_torch.py``'s demo model through the driver
+DRIVER_STEPS, DRIVER_FAIL, DRIVER_CKPT_EVERY = 40, 20, 8
+
+
+def flash_bwd_err(torch, got, want, floor: float = 1.0) -> float:
+    """K9-bwd's outputs against its plain version's within
+    :data:`K9_BWD_TOL` of ``max(floor, max|want|)`` (and a bf16 rounding
+    step): the max abs error."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        check(g.dtype == w.dtype and g.shape == w.shape,
+              f"{g.dtype}{tuple(g.shape)} vs {w.dtype}{tuple(w.shape)}")
+        gf, wf = g.float(), w.float()
+        diff = (gf - wf).abs()
+        tol = K9_BWD_TOL * max(floor, float(wf.abs().max()))
+        if g.dtype == torch.bfloat16:
+            tol = tol + wf.abs() * 2.0 ** -7
+        err = float(diff.max()) if diff.numel() else 0.0
+        check(bool(torch.isfinite(gf).all()) and bool((diff <= tol).all()),
+              f"K9-bwd != plain beyond tolerance (max abs err {err}, "
+              f"max |want| {float(wf.abs().max())})")
+        worst = max(worst, err)
+    return worst
+
+
+def flash_bwd_tol_ratio(torch, got, want) -> float:
+    """The largest |got - want| over :func:`flash_bwd_err`'s tolerance with
+    no floor (at most 1 where that check holds)."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        gf, wf = g.float(), w.float()
+        tol = K9_BWD_TOL * wf.abs().max() + (
+            wf.abs() * 2.0 ** -7 if g.dtype == torch.bfloat16 else 0.0)
+        worst = max(worst, float(((gf - wf).abs() / torch.clamp(
+            tol, min=torch.finfo(torch.float32).tiny)).max()))
+    return worst
+
+
+def k9_bwd_ragged_parity():
+    """K9-bwd against its plain version at every case of K9's ragged grid
+    and at the path's tiling (the plain forward's o and lse as its inputs),
+    each call checked to launch K9-bwd once; and K9's own lse
+    (``return_lse``) against the plain one on each route."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 18)
+    t0 = time.perf_counter()
+    cases, worst, lse_worst = 0, {torch.float32: 0.0, torch.bfloat16: 0.0}, 0.0
+    grid = [(s, 1 if s > 1024 else 2, rep, d, K9_WINDOWS, 1.0)
+            for s in K9_SEQS for rep in K9_REPS for d in K9_DIMS]
+    grid.append((K9_BWD_PATH_SEQ, 1, 10, 256, K9_BWD_PATH_WINDOWS, 0.0))
+    for s, b, rep, d, windows, floor in grid:
+        hkv = 1 if rep == 10 else 2
+        for dtype in (torch.float32, torch.bfloat16):
+            counter = fa.ROUTES[dtype][1]
+            q, k, v, do = (torch.randn((b, h, s, d), generator=gen,
+                                       device=DEVICE).to(dtype)
+                           for h in (hkv * rep, hkv, hkv, hkv * rep))
+            for causal, window in itertools.product((True, False), windows):
+                for cap in K9_SOFTCAPS:
+                    kw = dict(causal=causal, window=window, softcap=cap,
+                              scale=None if cap is None else 0.1)
+                    o, lse = fa.plain(q, k, v, return_lse=True, **kw)
+                    got = _counted(fa.BWD_ROUTES[dtype],
+                                   lambda: fa.flash_attention_bwd(
+                                       q, k, v, o, lse, do, **kw))
+                    err = flash_bwd_err(torch, got, fa.plain_bwd(
+                        q, k, v, o, lse, do, **kw), floor)
+                    worst[dtype] = max(worst[dtype], err)
+                    del got
+                    _, klse = _counted(counter, lambda: (
+                        fa.flash_attention(q, k, v, return_lse=True, **kw)))
+                    dl = (klse - lse).abs()
+                    check(bool((dl <= K9_ATOL * torch.clamp(
+                        lse.abs(), min=1.0)).all()),
+                          f"K9 lse != plain (max {float(dl.max())})")
+                    lse_worst = max(lse_worst, float(dl.max()))
+                    cases += 1
+    torch.cuda.synchronize()
+    say(f"parity (K9-bwd, ragged): {cases} cases within tolerance (K9's "
+        f"grid and the path's tiling, seq {K9_BWD_PATH_SEQ} x windows "
+        f"{list(K9_BWD_PATH_WINDOWS)} at GQA 10, head dim 256, no floor; "
+        f"{cases // 2} f32, {cases // 2} bf16); max abs err f32 "
+        f"{worst[torch.float32]:.3e}, bf16 {worst[torch.bfloat16]:.3e}; K9's "
+        f"lse on both routes within K9_ATOL (max abs err {lse_worst:.3e}) "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return {"cases": cases, "max_abs_err_f32": worst[torch.float32],
+            "max_abs_err_bf16": worst[torch.bfloat16],
+            "lse_max_abs_err": lse_worst}
+
+
+def k10_bwd_ragged_parity():
+    """K10-bwd against its plain version, exactly, at K10's ragged cases
+    (:func:`k10_ragged_parity`'s shapes, the misaligned copies too), each
+    launch awaited by :func:`_watchdog`."""
+    import torch
+    from repro_torch.kernels import rglru_scan as rg
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 19)
+    seqs = (1, rg.T - 1, rg.T, rg.T + 1, 2 * rg.T + 1, 4 * rg.T + 1,
+            K10_LONG)
+    t0 = time.perf_counter()
+    cases = 0
+    for b in K10_BATCHES:
+        for s in seqs:
+            for w in K10_WIDTHS:
+                a = 0.5 + 0.49 * torch.rand((b, s, w), generator=gen,
+                                            device=DEVICE)
+                h, dh = (torch.randn((b, s, w), generator=gen, device=DEVICE)
+                         for _ in range(2))
+                triples = [(a, h, dh)]
+                if w % 4 == 0 and b == K10_BATCHES[-1] and s == seqs[-2]:
+                    triples.append(tuple(_misaligned(torch, t)
+                                         for t in (a, h, dh)))
+                for ta, th, tdh in triples:
+                    got = _counted("rglru_scan_bwd",
+                                   lambda: rg.rglru_scan_bwd(ta, th, tdh))
+                    _watchdog(torch, f"K10-bwd at {(b, s, w)}",
+                              K10_WATCHDOG_S)
+                    for x, y in zip(got, rg.plain_bwd(ta, th, tdh)):
+                        equal_and_err(torch, x, y)
+                    cases += 1
+    say(f"parity (K10-bwd, ragged): {cases} cases exactly equal to plain "
+        f"(B {list(K10_BATCHES)}, S {list(seqs)}, W {list(K10_WIDTHS)}, "
+        f"the multiples of 4 also off a 16-byte boundary) "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return {"cases": cases}
+
+
+def autograd_parity():
+    """``ops.flash`` and ``ops.rglru`` differentiated on the card (K9 then
+    K9-bwd; K10 then K10-bwd, each launched once) against ``torch.autograd``
+    of the plain forwards, in f32, within :data:`AUTOGRAD_TOL`."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rglru_scan as rg
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
+    out = {}
+    q, k, v, do = (torch.randn(shape, generator=gen, device=DEVICE)
+                   for shape in ((2, 4, 130, 64), (2, 2, 130, 64),
+                                 (2, 2, 130, 64), (2, 4, 130, 64)))
+    a = 0.5 + 0.49 * torch.rand((2, 130, 40), generator=gen, device=DEVICE)
+    x, dh = (torch.randn((2, 130, 40), generator=gen, device=DEVICE)
+             for _ in range(2))
+    kw = dict(causal=True, window=64, softcap=30.0)
+    runs = (("K9", lambda *t: ops.flash(*t, **kw),
+             lambda *t: fa.plain(*t, **kw), (q, k, v), do,
+             {"flash_attention_f32": 1, "flash_attention_bwd_f32": 1}),
+            ("K10", ops.rglru, rg.plain, (a, x), dh,
+             {"rglru_scan": 1, "rglru_scan_bwd": 1}))
+    for label, fn, plain_fn, inputs, grad_out, want_launches in runs:
+        leaves = [t.clone().requires_grad_() for t in inputs]
+        before = ops.launch_counts()
+        got = torch.autograd.grad(fn(*leaves), leaves, grad_out)
+        after = ops.launch_counts()
+        moved = {c: after[c] - before[c] for c in after
+                 if after[c] != before[c]}
+        check(moved == want_launches,
+              f"{label} autograd launched {moved}, want {want_launches}")
+        plain_leaves = [t.clone().requires_grad_() for t in inputs]
+        want = torch.autograd.grad(plain_fn(*plain_leaves), plain_leaves,
+                                   grad_out)
+        err = 0.0
+        for g, w in zip(got, want):
+            e = float((g - w).abs().max())
+            check(e <= AUTOGRAD_TOL * max(1.0, float(w.abs().max())),
+                  f"{label} autograd on the card != plain autograd ({e})")
+            err = max(err, e)
+        out[label] = err
+    say(f"autograd on the card (ops.flash: K9 + K9-bwd at (2, 4, 130, 64) "
+        f"GQA 2, window 64, softcap 30; ops.rglru: K10 + K10-bwd at (2, 130, "
+        f"40)) against torch.autograd of the plain forwards: max abs err "
+        f"K9 {out['K9']:.3e}, K10 {out['K10']:.3e}")
+    return out
+
+
+def _k9_bwd_bound(torch, args, kw):
+    """K9-bwd's bound: 10·d flops a live (query, key) pair of every (batch,
+    q head) (S, dP, dV, dQ, dK: 2.5x the forward's 4·d) over the peak of
+    the inputs' type, against q, k, v, o, dO, lse read and dq, dk, dv
+    written once."""
+    q, k, v, o, lse, do = args
+    (_, _), live, ok = _k9_bound(torch, q, k, v, kw)
+    b, hq, _, d = q.shape
+    bytes_ = (3 * q.numel() + 4 * k.numel() + o.numel()) * \
+        q.element_size() + 4 * lse.numel()
+    rate = BF16_OPS_S if q.dtype == torch.bfloat16 else F32_OPS_S
+    return _bound(bytes_, 10 * b * hq * d * live, rate), live, ok
+
+
+def _k9_bwd_at_path(torch, args, kw):
+    """K9-bwd at a training step's captured inputs: held to its plain
+    version with no floor (the gradients are near 1e-5), timed beside it,
+    its bound, its f32 route (the CUDA-core kernels) on f32 copies of the
+    same inputs, and the backward of ``scaled_dot_product_attention`` (kv
+    heads repeated, a boolean mask) on the same tensors (timed only).  Also
+    what one bf16 rounding of P and dS would cost in accuracy (the plain
+    backward so rounded, ``operand_dtype``), as a ratio to the tolerance."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    q, k, v, o, lse, do = args
+    got = _counted(fa.BWD_ROUTES[q.dtype],
+                   lambda: fa.flash_attention_bwd(*args, **kw))
+    want = fa.plain_bwd(*args, **kw)
+    err = flash_bwd_err(torch, got, want, floor=0.0)
+    ratio = flash_bwd_tol_ratio(torch, got, want)
+    scales = [float(w.float().abs().max()) for w in want]
+    one_rounding = flash_bwd_tol_ratio(torch, ref.flash_attention_bwd_ref(
+        *args, **kw, operand_dtype=torch.bfloat16), want)
+    del got, want
+    (bound_ms, bound_by), live, ok = _k9_bwd_bound(torch, args, kw)
+    ms = time_ms(torch, lambda: fa.flash_attention_bwd(*args, **kw), 3)
+    plain_ms = time_ms(torch, lambda: fa.plain_bwd(*args, **kw), 1)
+    f32 = [t.float() for t in args]
+    f32_ms = time_ms(torch, lambda: fa.flash_attention_bwd(*f32, **kw), 2)
+    del f32
+    rep = q.shape[1] // k.shape[1]
+    qx, kx, vx = (t.detach().clone().requires_grad_() for t in (
+        q, k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)))
+    ox = F.scaled_dot_product_attention(qx, kx, vx, attn_mask=ok,
+                                        scale=kw.get("scale"))
+    lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+        ox, (qx, kx, vx), do, retain_graph=True), 3)
+    del ox, qx, kx, vx
+    say(f"flash_attention_bwd (K9-bwd, route {fa.BWD_ROUTES[q.dtype]}): "
+        f"{ms:.3f} ms (f32 route on f32 copies {f32_ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, sdpa backward {lib_ms:.3f} ms, bound "
+        f"{bound_ms:.4f} ms by {bound_by}; {live} live pairs a head) at q "
+        f"{tuple(q.shape)} {q.dtype}, kv {tuple(k.shape)}, {kw}; max abs err "
+        f"{err:.3e} (max |dq|, |dk|, |dv| {scales[0]:.3e}, {scales[1]:.3e}, "
+        f"{scales[2]:.3e}; err / tolerance {ratio:.3f}); one bf16 rounding "
+        f"of P and dS (emulated) would reach {one_rounding:.3f} x the "
+        f"tolerance")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            "f32_route_ms": f32_ms, "tol_ratio": ratio,
+            "grad_scales": scales, "one_rounding_tol_ratio": one_rounding}
+
+
+def _k10_bwd_at_path(torch, args):
+    """K10-bwd at a training step's captured inputs: exactly its plain
+    version, timed beside it and its bound (a, h, dh read, da, db written:
+    20 bytes and 3 operations a channel-step)."""
+    from repro_torch.kernels import rglru_scan as rg
+    got = _counted("rglru_scan_bwd", lambda: rg.rglru_scan_bwd(*args))
+    err = max(equal_and_err(torch, x, y)
+              for x, y in zip(got, rg.plain_bwd(*args)))
+    del got
+    n = args[0].numel()
+    bound_ms, bound_by = _bound(20 * n, 3 * n, F32_OPS_S)
+    ms = time_ms(torch, lambda: rg.rglru_scan_bwd(*args), 10)
+    plain_ms = time_ms(torch, lambda: rg.plain_bwd(*args), 1)
+    say(f"rglru_scan_bwd (K10-bwd): {ms:.3f} ms (plain {plain_ms:.3f} ms, "
+        f"library n/a, bound {bound_ms:.4f} ms by {bound_by}) at "
+        f"{tuple(args[0].shape)}; max abs err {err}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+#: a training step's launches, per microbatch: the forward and remat's
+#: recompute run each group's blocks twice, the tail once, the backward
+#: every block once
+def _step_launches(model) -> dict:
+    cfg = model.cfg
+    g_local = cfg.pattern.count("local") * cfg.n_groups
+    g_rg = cfg.pattern.count("rg") * cfg.n_groups
+    t_rg = cfg.tail.count("rg")
+    return {"flash_attention": TRAIN_ACCUM * 2 * g_local,
+            "flash_attention_bwd": TRAIN_ACCUM * g_local,
+            "rglru_scan": TRAIN_ACCUM * (2 * g_rg + t_rg),
+            "rglru_scan_bwd": TRAIN_ACCUM * (g_rg + t_rg)}
+
+
+def train_steps(results):
+    """Phase 13b: full-width RecurrentGemma-2B train steps on the card."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    from repro_torch.train import (AdamWConfig, adamw_update, init_optimizer,
+                                   make_train_step)
+    t0 = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    model = Model(cfg, remat=True, device=DEVICE).init(
+        torch.Generator(device=DEVICE).manual_seed(SEED))
+    opt_cfg = AdamWConfig(warmup_steps=1, total_steps=TRAIN_STEPS)
+    opt_state = init_optimizer(model)
+    step = make_train_step(model, opt_cfg, accum_steps=TRAIN_ACCUM)
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                         global_batch=TRAIN_BATCH, seed=SEED)
+    torch.cuda.synchronize()
+    say(f"phase 13b: {LM_ARCH} ({len(model.layers)} layers, "
+        f"{sum(p.numel() for p in model.parameters())} parameters) and its "
+        f"AdamW state on the card in {time.perf_counter() - t0:.1f} s; "
+        f"sequence {TRAIN_SEQ}, global batch {TRAIN_BATCH} in {TRAIN_ACCUM} "
+        f"microbatches, remat")
+
+    # step 1's loss as model.loss computes it, before the step
+    batch0 = pipe.batch(0)
+    mb = TRAIN_BATCH // TRAIN_ACCUM
+    with torch.no_grad():
+        ref_loss = float(torch.stack([model.loss(
+            {k: torch.as_tensor(v[i * mb:(i + 1) * mb], device=DEVICE)
+             for k, v in batch0.items()}) for i in range(TRAIN_ACCUM)]).mean())
+    want = _step_launches(model)
+    captured = {}
+    flash_bwd, rglru_bwd = ops.flash_attention_bwd, ops.rglru_scan_bwd
+    steps = []
+    for i in range(TRAIN_STEPS):
+        batch = pipe.batch(i)
+        if i == 1:  # a steady step: its first K9-bwd and K10-bwd inputs
+            ops.flash_attention_bwd = _spy(captured, "flash_bwd", flash_bwd)
+            ops.rglru_scan_bwd = _spy(captured, "rglru_bwd", rglru_bwd)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        try:
+            opt_state, met = step(opt_state, batch)
+            loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+            torch.cuda.synchronize()
+        finally:
+            ops.flash_attention_bwd, ops.rglru_scan_bwd = flash_bwd, rglru_bwd
+        secs = time.perf_counter() - t1
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(np.isfinite(loss) and np.isfinite(gnorm),
+              f"train step {i + 1}: loss {loss}, grad norm {gnorm}")
+        check(counts == want, f"train step {i + 1} launched {counts}, want "
+              f"{want}")
+        steps.append({"loss": loss, "grad_norm": gnorm, "seconds": secs,
+                      "peak_gib": peak, "step": int(met["step"])})
+        say(f"train step {i + 1}: loss {loss:.4f}, grad norm {gnorm:.4f}, "
+            f"{secs:.3f} s synced ({TRAIN_BATCH * TRAIN_SEQ / secs:.0f} "
+            f"tokens/s), peak {peak:.2f} GiB; launches {counts}")
+    err = abs(steps[0]["loss"] - ref_loss)
+    check(err <= TRAIN_LOSS_RTOL * abs(ref_loss),
+          f"step 1's loss {steps[0]['loss']} != model.loss {ref_loss}")
+    steady = [s["seconds"] for s in steps[1:]]
+    phase = {"steps": steps, "ref_loss": ref_loss, "ref_loss_err": err,
+             "launches_per_step": want,
+             "step_s": float(np.mean(steady)),
+             "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / float(np.mean(steady)),
+             "peak_gib": max(s["peak_gib"] for s in steps)}
+    say(f"train steps: step 1's loss {steps[0]['loss']:.6f} against "
+        f"model.loss {ref_loss:.6f} (|d| {err:.2e}); steps 2-{TRAIN_STEPS} "
+        f"{phase['step_s']:.3f} s each ({phase['tokens_per_s']:.0f} "
+        f"tokens/s), peak {phase['peak_gib']:.2f} GiB")
+
+    # one step profiled; the optimizer alone on gradients of the same shapes
+    phase["step_breakdown"] = profile_breakdown(
+        torch, "train step", lambda: step(opt_state, pipe.batch(TRAIN_STEPS)))
+    params = dict(model.named_parameters())
+    grads = {k: torch.full_like(p, 1e-3) for k, p in params.items()}
+    phase["optimizer_breakdown"] = profile_breakdown(
+        torch, "adamw_update alone",
+        lambda: adamw_update(opt_cfg, params, grads, opt_state))
+    del grads, params
+    br, opt_br = phase["step_breakdown"], phase["optimizer_breakdown"]
+    if br is not None and opt_br is not None:
+        cls = dict(br["classes_ms"])
+        cls["optimizer"] = opt_br["device_ms"]
+        cls["other"] = max(0.0, cls.get("other", 0.0) - opt_br["device_ms"])
+        phase["classes_ms"] = cls
+        say("train step device ms by class (the optimizer's from "
+            "adamw_update profiled alone, taken out of 'other'): "
+            + ", ".join(f"{c} {ms:.2f}" for c, ms in sorted(
+                cls.items(), key=lambda kv: -kv[1]))
+            + f"; idle share {br['idle_share']:.3f}")
+
+    # the backward kernels at the captured inputs
+    # (the saved tensors a backward receives are its graph's; detached)
+    (args, kw) = captured["flash_bwd"]
+    results["flash_attention_bwd"] = {
+        "launches": want["flash_attention_bwd"],
+        **_k9_bwd_at_path(torch, tuple(t.detach() for t in args), kw)}
+    (args, _) = captured["rglru_bwd"]
+    results["rglru_scan_bwd"] = {
+        "launches": want["rglru_scan_bwd"],
+        **_k10_bwd_at_path(torch, tuple(t.detach() for t in args))}
+    del captured, args, model, opt_state, step
+    torch.cuda.empty_cache()
+    phase["seconds"] = time.perf_counter() - t0
+    return phase
+
+
+def _demo_model(torch, device):
+    """``examples/train_lm_torch.py``'s demo model, its pipeline and AdamW
+    (the example's settings, :data:`DRIVER_STEPS` steps)."""
+    import importlib.util
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models.model import Model
+    from repro_torch.train import AdamWConfig
+    spec = importlib.util.spec_from_file_location(
+        "train_lm_torch", ROOT / "examples" / "train_lm_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    dim, layers, vocab, _, batch, seq = example.PRESETS["demo"]
+    cfg = example.make_config(dim, layers, vocab)
+    model = Model(cfg, tp=1, use_chunked_attn=False, remat=False,
+                  device=device)
+    pipe = TokenPipeline(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
+                         seed=17)
+    opt = AdamWConfig(lr=3e-3, warmup_steps=20, total_steps=DRIVER_STEPS)
+    return model, pipe, opt
+
+
+def _kernel_names(torch, fn) -> set:
+    """The names of the device kernels one call of ``fn`` launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
+def driver_phase(tmp: Path) -> dict:
+    """Phase 13c: the demo model through ``TrainDriver`` with and without
+    an injected failure, bit for bit; deterministic mode's kernels; the
+    training CLI."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import (DriverConfig, TrainDriver,
+                                     run_with_restarts)
+    from repro_torch.runtime.driver import deterministic_algorithms
+    from repro_torch.train import init_optimizer, make_train_step
+    t0 = time.perf_counter()
+    model, pipe, opt = _demo_model(torch, DEVICE)
+
+    def config(name, fail=()):
+        return DriverConfig(ckpt_dir=str(tmp / name),
+                            ckpt_every=DRIVER_CKPT_EVERY,
+                            max_steps=DRIVER_STEPS, fail_at_steps=fail,
+                            log_every=10 ** 9)
+
+    ops.reset_launch_counts()
+    t1 = time.perf_counter()
+    a = TrainDriver(model, opt, pipe, config("a"), seed=SEED)
+    log_a = a.run(DRIVER_STEPS)
+    secs_a = time.perf_counter() - t1
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    n_attn = len(model.layers)
+    check(counts == {"flash_attention": DRIVER_STEPS * n_attn,
+                     "flash_attention_bwd": DRIVER_STEPS * n_attn},
+          f"driver run launched {counts}")
+    want = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    want_m = {k: v.cpu().clone() for k, v in a.opt_state["m"].items()}
+    b = run_with_restarts(lambda: TrainDriver(
+        model, opt, pipe, config("b", (DRIVER_FAIL,)), seed=SEED),
+        DRIVER_STEPS)
+    same = (b.step == DRIVER_STEPS
+            and all(torch.equal(v.cpu(), want[k])
+                    for k, v in model.state_dict().items())
+            and all(torch.equal(v.cpu(), want_m[k])
+                    for k, v in b.opt_state["m"].items()))
+    resumed_from = DRIVER_FAIL - DRIVER_FAIL % DRIVER_CKPT_EVERY
+    losses_same = [r["loss"] for r in b.metrics_log] == [
+        r["loss"] for r in log_a[resumed_from:]]
+    check(same and losses_same, "the resumed driver run is not bit-identical "
+          "to the uninterrupted one")
+    first, last = log_a[0]["loss"], log_a[-1]["loss"]
+    check(last < first, f"the demo loss did not fall ({first} -> {last})")
+    say(f"phase 13c: demo model ({sum(p.numel() for p in model.parameters())}"
+        f" parameters) through TrainDriver, {DRIVER_STEPS} steps in "
+        f"{secs_a:.1f} s (launches {counts}): loss {first:.4f} -> "
+        f"{last:.4f}; failure at step {DRIVER_FAIL}, resumed from step "
+        f"{resumed_from}: parameters, moments and losses bit-identical to the "
+        f"uninterrupted run (deterministic mode)")
+
+    # what deterministic mode changes: one demo step's kernels, off and on
+    step = make_train_step(model, opt)
+    state = init_optimizer(model)
+    names = {}
+    for mode in (False, True):
+        with deterministic_algorithms(mode):
+            step(state, pipe.batch(0))  # warm
+            names[mode] = _kernel_names(torch,
+                                        lambda: step(state, pipe.batch(1)))
+    changed = {"only_deterministic": sorted(names[True] - names[False]),
+               "only_default": sorted(names[False] - names[True])}
+    say("deterministic mode, one demo step's kernels: only with it "
+        f"{[n[:100] for n in changed['only_deterministic']]}; only without "
+        f"{[n[:100] for n in changed['only_default']]}")
+    del model, a, b, step, state
+
+    # the training CLI, once
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t1 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         LM_ARCH, "--smoke", "--steps", "3", "--ckpt-dir", str(tmp / "cli"),
+         "--device", DEVICE],
+        capture_output=True, text=True, env=env, timeout=300)
+    check(cli.returncode == 0 and "finished at step 3" in cli.stdout,
+          f"launch.train: rc {cli.returncode}: {cli.stdout[-500:]} "
+          f"{cli.stderr[-2000:]}")
+    cli_s = time.perf_counter() - t1
+    say(f"python -m repro_torch.launch.train --arch {LM_ARCH} --smoke "
+        f"--steps 3: {cli.stdout.strip().splitlines()[-1]} ({cli_s:.1f} s)")
+    return {"demo_seconds": secs_a, "first_loss": first, "last_loss": last,
+            "launches": counts, "resumed_from": resumed_from,
+            "bit_identical": True, "deterministic_kernels": changed,
+            "cli_seconds": cli_s, "seconds": time.perf_counter() - t0}
+
+
+#: the cuBLAS workspace setting of deterministic mode
+#: (``repro_torch.runtime.driver.CUBLAS_DETERMINISTIC``)
+CUBLAS_DETERMINISTIC = ":4096:8"
+
+
+def _driver_phase_in_child(tmp: Path) -> dict:
+    """:func:`driver_phase` in a process of its own whose environment holds
+    ``CUBLAS_WORKSPACE_CONFIG`` from the start, as the training entry
+    points set it: PyTorch reads it at its first GEMM, so in this process,
+    which ran phases 1-13b without it, setting it would only quiet
+    PyTorch's check; and set from the start here it would slow the
+    serving path's host (phase 8's decode, PERF.md)."""
+    out = tmp / "driver_phase.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_DETERMINISTIC)
+    code = ("import json; from pathlib import Path; import chip_smoke as cs; "
+            f"r = cs.driver_phase(Path({str(tmp)!r})); "
+            f"Path({str(out)!r}).write_text(json.dumps(r, default=str))")
+    rc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                        timeout=600).returncode
+    check(rc == 0, f"phase 13c's process exited with {rc}")
+    return json.loads(out.read_text())
+
+
+def train_phase(results):
+    """The LM training path (module docstring, phase 13)."""
+    import tempfile
+    t0 = time.perf_counter()
+    phase = {"k9_bwd_parity": k9_bwd_ragged_parity(),
+             "k10_bwd_parity": k10_bwd_ragged_parity(),
+             "autograd": autograd_parity()}
+    phase["train"] = train_steps(results)
+    with tempfile.TemporaryDirectory(prefix="repro_torch_train_") as tmp:
+        phase["driver"] = _driver_phase_in_child(Path(tmp))
+    phase["seconds"] = time.perf_counter() - t0
+    say(f"training phase (13): {phase['seconds']:.1f} s")
+    results["train_phase"] = phase
 
 
 # -- phase 10: observability, admission and analytics --------------------------
@@ -4135,6 +4768,7 @@ def main():
     allpairs_phase(results)
     tuple_phase(results)
     lm_phase(results)
+    train_phase(results)
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          **{k: results[name][k] for k in (
@@ -4147,8 +4781,9 @@ def main():
                                  for k in ("dense_phase", "csr_phase",
                                            "tuned_phase", "dag_phase",
                                            "allpairs_phase", "tuple_phase",
-                                           "lm_phase", "obs_phase",
-                                           "durable_phase", "mesh_phase")},
+                                           "lm_phase", "train_phase",
+                                           "obs_phase", "durable_phase",
+                                           "mesh_phase")},
                                 default=str))
     say(f"phase 12 (distribution): {results['mesh_phase']['seconds']:.1f} "
         "s in all")

@@ -28,7 +28,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("boolmm", "minplus", "spmv", "relax", "flash_attention",
-           "rglru_scan")
+           "flash_attention_bwd", "rglru_scan", "rglru_scan_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -38,7 +38,9 @@ LAUNCHES = {"bool_matmul": 0, "minplus_matmul": 0, "maxplus_matmul": 0,
             "csr_bool_step": 0, "csr_minplus_step": 0, "csr_maxplus_step": 0,
             "csr_plustimes_step": 0, "csr_minplus_tiled_step": 0,
             "relax_step": 0, "relax_step_tiled": 0, "flash_attention": 0,
-            "flash_attention_f32": 0, "rglru_scan": 0}
+            "flash_attention_f32": 0, "flash_attention_bwd": 0,
+            "flash_attention_bwd_f32": 0, "rglru_scan": 0,
+            "rglru_scan_bwd": 0}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

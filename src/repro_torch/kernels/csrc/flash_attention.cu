@@ -5,7 +5,11 @@
 // with GQA (kv(g) = (g / hq)·hkv + (g % hq) / rep, rep = hq / hkv), a causal
 // mask, a sliding window ((i − j) < window) and an optional logit softcap;
 // masked logits are −1e30 (not −inf), the output is acc / max(l, 1e−30) in
-// q's dtype, and every sum is f32.
+// q's dtype, and every sum is f32.  When asked (a non-null `lse`), each row
+// also writes the log-sum-exp of its masked logits, m + log(l) in f32 from
+// the running max and sum its softmax used (the backward, K9-bwd in
+// flash_attention_bwd.cu, recomputes P from it; a row with no valid key
+// writes −1e30).  The prefill passes none.
 //
 // Replaces: src/repro/kernels/flash_attention.py, `flash_attention` /
 // `_flash_kernel`, the TPU kernel that carries (m, l, acc) in VMEM scratch
@@ -175,7 +179,8 @@ __device__ __forceinline__ float warp_sum(float x) {
 template <int CPL>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ o, Params p) {
+             const float* __restrict__ v, float* __restrict__ o,
+             float* __restrict__ lse, Params p) {
   constexpr int DV = 32 * CPL;        // V row width: the lanes' columns
   extern __shared__ __align__(16) float smem[];
   const int dq = (p.d + 3) & ~3;      // q and K row width, float4-aligned
@@ -282,6 +287,8 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < RPW; ++i) {
     const int qi = q0 + warp * RPW + i;
     if (qi >= p.sq) continue;
+    if (lse != nullptr && lane == 0)
+      lse[(size_t)g * p.sq + qi] = m[i] + logf(l[i]);
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int t = 0; t < CPL; ++t) {
@@ -292,8 +299,8 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int CPL>
-int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           const Params& p, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int bh, const Params& p, cudaStream_t stream) {
   const int dq = (p.d + 3) & ~3;
   const size_t smem = sizeof(float) * ((size_t)BQ * dq +
                                        (size_t)BK * (dq + 4) +
@@ -304,22 +311,22 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((p.sq + BQ - 1) / BQ, bh);
   flash_kernel<CPL><<<grid, THREADS, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, p);
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, p);
   REPRO_LAUNCH_CHECK();
   return 0;
 }
 
-int dispatch(const void* q, const void* k, const void* v, void* o, int bh,
-             const Params& p, cudaStream_t stream) {
+int dispatch(const void* q, const void* k, const void* v, void* o,
+             float* lse, int bh, const Params& p, cudaStream_t stream) {
   switch ((p.d + 31) / 32) {
-    case 1: return launch<1>(q, k, v, o, bh, p, stream);
-    case 2: return launch<2>(q, k, v, o, bh, p, stream);
-    case 3: return launch<3>(q, k, v, o, bh, p, stream);
-    case 4: return launch<4>(q, k, v, o, bh, p, stream);
-    case 5: return launch<5>(q, k, v, o, bh, p, stream);
-    case 6: return launch<6>(q, k, v, o, bh, p, stream);
-    case 7: return launch<7>(q, k, v, o, bh, p, stream);
-    case 8: return launch<8>(q, k, v, o, bh, p, stream);
+    case 1: return launch<1>(q, k, v, o, lse, bh, p, stream);
+    case 2: return launch<2>(q, k, v, o, lse, bh, p, stream);
+    case 3: return launch<3>(q, k, v, o, lse, bh, p, stream);
+    case 4: return launch<4>(q, k, v, o, lse, bh, p, stream);
+    case 5: return launch<5>(q, k, v, o, lse, bh, p, stream);
+    case 6: return launch<6>(q, k, v, o, lse, bh, p, stream);
+    case 7: return launch<7>(q, k, v, o, lse, bh, p, stream);
+    case 8: return launch<8>(q, k, v, o, lse, bh, p, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -471,8 +478,8 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ o, Params p,
-                int vec) {
+                const bf16* __restrict__ v, bf16* __restrict__ o,
+                float* __restrict__ lse, Params p, int vec) {
   constexpr int NT = BK / 8;   // score n-tiles (8 keys each)
   constexpr int NB = D / 64;   // output column blocks (64 columns each)
   extern __shared__ unsigned char smem_raw[];
@@ -616,6 +623,8 @@ flash_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = 0; i < 2; ++i) {
     const int qi = qi0 + 8 * i;
     if (qi >= p.sq) continue;
+    if (lse != nullptr && tq == 0)  // m and l are the quad's, after the sum
+      lse[(size_t)g * p.sq + qi] = m[i] + logf(l[i]);
     const float inv = 1.0f / fmaxf(l[i], 1e-30f);
     bf16* orow = og + (size_t)qi * p.d;
 #pragma unroll
@@ -637,8 +646,8 @@ flash_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           const Params& p, int vec, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int bh, const Params& p, int vec, cudaStream_t stream) {
   const size_t smem = sizeof(bf16) * (size_t)(BQ + 4 * BK) * D + 1024;
   const cudaError_t e = cudaFuncSetAttribute(
       flash_kernel_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -646,7 +655,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((p.sq + BQ - 1) / BQ, bh);
   flash_kernel_tc<D><<<grid, THREADS, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, p, vec);
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, p, vec);
   REPRO_LAUNCH_CHECK();
   return 0;
 }
@@ -662,9 +671,11 @@ bool valid(int b, int hq, int hkv, int sk, int d) {
 
 // q, o: (b, hq, sq, d); k, v: (b, hkv, sk, d); all contiguous f32;
 // 1 <= d <= 256, hq % hkv == 0, sk >= 1, -sk <= window <= sq when
-// has_window (the wrapper clamps it).  The CUDA-core kernel.
+// has_window (the wrapper clamps it); lse: (b, hq, sq) f32, or null for
+// none.  The CUDA-core kernel.
 extern "C" int repro_flash_attention_f32(const void* q, const void* k,
-                                         const void* v, void* o, int b, int hq,
+                                         const void* v, void* o, void* lse,
+                                         int b, int hq,
                                          int hkv, int sq, int sk, int d,
                                          int causal, int has_window,
                                          int window, int has_softcap,
@@ -674,12 +685,14 @@ extern "C" int repro_flash_attention_f32(const void* q, const void* k,
   if (!valid(b, hq, hkv, sk, d)) return (int)cudaErrorInvalidValue;
   const Params p{hq, hkv, sq, sk, d, causal, has_window, window, has_softcap,
                  softcap, scale};
-  return f32::dispatch(q, k, v, o, b * hq, p, (cudaStream_t)stream);
+  return f32::dispatch(q, k, v, o, (float*)lse, b * hq, p,
+                       (cudaStream_t)stream);
 }
 
 // The same contract for bf16 q, k, v and o: the tensor-core kernel.
 extern "C" int repro_flash_attention_bf16(const void* q, const void* k,
-                                          const void* v, void* o, int b,
+                                          const void* v, void* o, void* lse,
+                                          int b,
                                           int hq, int hkv, int sq, int sk,
                                           int d, int causal, int has_window,
                                           int window, int has_softcap,
@@ -693,7 +706,8 @@ extern "C" int repro_flash_attention_bf16(const void* q, const void* k,
                   ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
   const cudaStream_t st = (cudaStream_t)stream;
   const int bh = b * hq;
-  if (d <= 64) return tc::launch<64>(q, k, v, o, bh, p, vec, st);
-  if (d <= 128) return tc::launch<128>(q, k, v, o, bh, p, vec, st);
-  return tc::launch<256>(q, k, v, o, bh, p, vec, st);
+  float* l = (float*)lse;
+  if (d <= 64) return tc::launch<64>(q, k, v, o, l, bh, p, vec, st);
+  if (d <= 128) return tc::launch<128>(q, k, v, o, l, bh, p, vec, st);
+  return tc::launch<256>(q, k, v, o, l, bh, p, vec, st);
 }

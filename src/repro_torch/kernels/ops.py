@@ -5,6 +5,13 @@ kernel's plain PyTorch version, a CUDA tensor to the CUDA kernel (or the
 call raises).  The one exception is the dense plus-times product, which is
 a plain f32 matrix product on both (the JAX package leaves it to XLA's
 ``jnp.matmul`` as well), held to full f32 on the card.
+
+``flash`` (K9) and ``rglru`` (K10) are differentiable: where autograd
+records them, each runs as a ``torch.autograd.Function`` whose backward is
+a kernel too (K9-bwd, K10-bwd), and on CPU tensors both directions run the
+plain versions.  Where nothing needs a gradient (serving, under
+``inference_mode`` or ``no_grad``) they launch the forward kernel alone and
+save nothing.
 """
 from __future__ import annotations
 
@@ -12,11 +19,11 @@ import torch
 
 from . import build, ref
 from .boolmm import bool_frontier_matmul, bool_matmul
-from .flash_attention import flash_attention
+from .flash_attention import flash_attention, flash_attention_bwd
 from .minplus import (maxplus_frontier_matmul, minplus_frontier_matmul,
                       minplus_matmul)
 from .relax import relax_step
-from .rglru_scan import rglru_scan
+from .rglru_scan import rglru_scan, rglru_scan_bwd
 from .spmv import (csr_bool_spmv, csr_bool_step, csr_maxplus_spmv,  # noqa: F401
                    csr_maxplus_step, csr_minplus_spmv, csr_minplus_spmv_tiled,
                    csr_minplus_step, csr_minplus_tiled_step,
@@ -63,14 +70,68 @@ def relax(d: torch.Tensor, a: torch.Tensor, delta_mask: torch.Tensor, **kw):
     return relax_step(d, a, delta_mask, **kw)
 
 
-def flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, **kw
-          ) -> torch.Tensor:
-    """Forward GQA attention in the JAX kernel layout (b, h, s, d): K9."""
-    return flash_attention(q, k, v, **kw)
+def _recorded(*tensors) -> bool:
+    """Autograd records a call on these tensors (grad mode on, one of them
+    requiring a gradient)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+class _Flash(torch.autograd.Function):
+    """K9 forward with its log-sum-exp saved; K9-bwd backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale):
+        o, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                 softcap=softcap, scale=scale,
+                                 return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.kw = dict(causal=causal, window=window, softcap=softcap,
+                      scale=scale)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         **ctx.kw)
+        return dq, dk, dv, None, None, None, None
+
+
+class _Rglru(torch.autograd.Function):
+    """K10 forward with ``a`` and the states saved; K10-bwd backward."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        h = rglru_scan(a, b)
+        ctx.save_for_backward(a, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h = ctx.saved_tensors
+        da, db = rglru_scan_bwd(a, h, dh)
+        return da, db
+
+
+def flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+          causal: bool = True, window: int | None = None,
+          softcap: float | None = None, scale: float | None = None,
+          bq=None, bk=None) -> torch.Tensor:
+    """GQA attention in the JAX kernel layout (b, h, s, d): K9, and K9-bwd
+    in its backward where autograd records the call (``bq``/``bk`` are the
+    JAX kernel's block sizes, ignored)."""
+    if _recorded(q, k, v):
+        return _Flash.apply(q, k, v, causal, window, softcap, scale)
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           softcap=softcap, scale=scale)
 
 
 def rglru(a: torch.Tensor, b: torch.Tensor, **kw) -> torch.Tensor:
-    """The RG-LRU recurrence ``h_t = a_t h_{t-1} + b_t``, (B, S, W): K10."""
+    """The RG-LRU recurrence ``h_t = a_t h_{t-1} + b_t``, (B, S, W): K10,
+    and K10-bwd in its backward where autograd records the call (``kw``:
+    :func:`rglru_scan`'s, forward only)."""
+    if _recorded(a, b):
+        return _Rglru.apply(a, b)
     return rglru_scan(a, b, **kw)
 
 

@@ -52,24 +52,29 @@ def relax_ref(d: torch.Tensor, a: torch.Tensor, delta_mask: torch.Tensor):
 NEG_INF = -1e30
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True, window: int | None = None,
-                        softcap: float | None = None,
-                        scale: float | None = None) -> torch.Tensor:
-    """q: (b, hq, sq, d); k/v: (b, hkv, sk, d) -> (b, hq, sq, d) in
-    ``q.dtype``.  GQA by repeating each kv head ``hq // hkv`` times; f32
-    scores, a logit softcap ``cap·tanh(s/cap)`` before the causal/window
-    mask (``-1e30``, positions ``arange(sq)`` and ``arange(sk)``), softmax
-    and the f32 value product, as the JAX ``ref.flash_attention_ref``."""
+def _wide(dtype) -> torch.dtype:
+    """The plain versions' working type: f32, or f64 for f64 inputs (the
+    CPU gradient checks); the kernels take f32 and bf16."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def _logits(q, k, causal, window, softcap, scale):
+    """The masked logits of :func:`flash_attention_ref` (kv heads repeated)
+    and the softcap's ``tanh`` (None without one).  The mask is an additive
+    ``-1e30`` bias, as the JAX model's ``attention_reference`` adds it: the
+    forward equals a ``where`` (in f32, ``s - 1e30`` rounds to ``-1e30``),
+    and the gradient reaches the logits of a row with no valid key, which
+    softmaxes to the uniform row."""
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
-    rep = hq // hkv
+    wt = _wide(q.dtype)
     scale = scale or (1.0 / math.sqrt(d))
-    kx = k.repeat_interleave(rep, dim=1).to(torch.float32)
-    vx = v.repeat_interleave(rep, dim=1).to(torch.float32)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32) * scale, kx)
+    kx = k.repeat_interleave(hq // hkv, dim=1).to(wt)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(wt) * scale, kx)
+    t = None
     if softcap is not None:
-        s = softcap * torch.tanh(s / softcap)
+        t = torch.tanh(s / softcap)
+        s = softcap * t
     qp = torch.arange(sq, device=q.device)[:, None]
     kp = torch.arange(sk, device=q.device)[None, :]
     ok = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
@@ -77,24 +82,115 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         ok &= qp >= kp
     if window is not None:
         ok &= (qp - kp) < window
-    s = torch.where(ok, s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", p, vx).to(q.dtype)
+    return s + torch.where(ok, 0.0, NEG_INF).to(wt), t
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int | None = None,
+                        softcap: float | None = None,
+                        scale: float | None = None, return_lse: bool = False):
+    """q: (b, hq, sq, d); k/v: (b, hkv, sk, d) -> (b, hq, sq, d) in
+    ``q.dtype``.  GQA by repeating each kv head ``hq // hkv`` times; f32
+    scores, a logit softcap ``cap·tanh(s/cap)`` before the causal/window
+    mask (``-1e30``, positions ``arange(sq)`` and ``arange(sk)``), softmax
+    and the f32 value product, as the JAX ``ref.flash_attention_ref``.
+
+    ``return_lse`` also returns each row's log-sum-exp of its masked
+    logits, (b, hq, sq) f32: what the backward recomputes P from (a row
+    with no valid key has ``-1e30``)."""
+    x, _ = _logits(q, k, causal, window, softcap, scale)
+    rep = q.shape[1] // k.shape[1]
+    vx = v.repeat_interleave(rep, dim=1).to(x.dtype)
+    p = torch.softmax(x, dim=-1)
+    o = torch.einsum("bhqk,bhkd->bhqd", p, vx).to(q.dtype)
+    if return_lse:
+        return o, torch.logsumexp(x, dim=-1)
+    return o
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
+                            window: int | None = None,
+                            softcap: float | None = None,
+                            scale: float | None = None,
+                            operand_dtype: torch.dtype | None = None):
+    """The gradient of :func:`flash_attention_ref` (the plain K9-bwd):
+    ``(dq, dk, dv)`` in the inputs' dtypes from the forward's output ``o``
+    and log-sum-exp ``lse`` and the output's gradient ``do``.  P is
+    recomputed from q·k and ``lse`` (a row with no valid key is uniform,
+    ``1/sk``); ``D = rowsum(dO ⊙ O)``; ``dV = Pᵀ dO``, ``dP = dO Vᵀ``,
+    ``dS = P ⊙ (dP − D)``, times ``1 − (s/cap)²`` under a softcap;
+    ``dQ = dS K·scale``, ``dK = dSᵀ Q·scale``; dK and dV summed over the
+    query heads of each kv head.  Every sum in f32 (f64 for f64 inputs).
+
+    ``operand_dtype`` (a measurement aid; None on every path) rounds P and
+    dS to that type once before their products, as a kernel that feeds each
+    to the tensor cores as a single bf16 operand would."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    x, t = _logits(q, k, causal, window, softcap, scale)
+    wt = x.dtype
+    scale = scale or (1.0 / math.sqrt(d))
+    lse = lse.to(wt)[..., None]
+    p = torch.where(lse <= NEG_INF / 2, 1.0 / sk, torch.exp(x - lse))
+    dof = do.to(wt)
+    big_d = (dof * o.to(wt)).sum(-1, keepdim=True)
+    vx = v.repeat_interleave(rep, dim=1).to(wt)
+    kx = k.repeat_interleave(rep, dim=1).to(wt)
+
+    def operand(x):
+        return x if operand_dtype is None else x.to(operand_dtype).to(wt)
+
+    dv = torch.einsum("bhqk,bhqd->bhkd", operand(p), dof)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", dof, vx) - big_d)
+    if t is not None:
+        ds = ds * (1.0 - t * t)
+    ds = operand(ds)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kx) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.to(wt) * scale)
+
+    def heads(x):  # (b, hq, sk, d) -> (b, hkv, sk, d), summed over rep
+        return x.reshape(b, hkv, rep, sk, d).sum(2)
+
+    return dq.to(q.dtype), heads(dk).to(k.dtype), heads(dv).to(v.dtype)
 
 
 def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a, b: (B, S, W) -> h (B, S, W) f32, ``h_t = a_t·h_{t-1} + b_t`` from
     ``h_0 = 0``: the sequential recurrence in f32, one rounded product and
     one rounded sum a step, as the Pallas body computes it (the JAX
-    package's own oracle is an associative scan, equal within rounding)."""
-    a = a.to(torch.float32)
-    b = b.to(torch.float32)
+    package's own oracle is an associative scan, equal within rounding).
+    f64 inputs run in f64."""
+    wt = _wide(a.dtype)
+    a = a.to(wt)
+    b = b.to(wt)
     out = torch.empty_like(a)
     h = torch.zeros_like(a[:, 0])
     for t in range(a.shape[1]):
         h = torch.add(torch.mul(a[:, t], h), b[:, t])
         out[:, t] = h
     return out
+
+
+def rglru_scan_bwd_ref(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor):
+    """The gradient of :func:`rglru_scan_ref` (the plain K10-bwd): from the
+    decays ``a``, the forward's states ``h`` and their gradient ``dh``,
+    all (B, S, W), the reverse walk ``g_t = dh_t + a_{t+1}·g_{t+1}`` (from
+    ``g_S = 0``, ``a_S = 0``) in f32, one rounded product and one rounded
+    sum a step; returns ``(da, db)`` with ``db_t = g_t`` and ``da_t =
+    g_t·h_{t-1}`` (``h_{-1} = 0``).  f64 inputs run in f64."""
+    wt = _wide(a.dtype)
+    a, h, dh = a.to(wt), h.to(wt), dh.to(wt)
+    da = torch.empty_like(a)
+    db = torch.empty_like(a)
+    zero = torch.zeros_like(a[:, 0])
+    g, a_next = zero, zero
+    for t in reversed(range(a.shape[1])):
+        g = torch.add(dh[:, t], torch.mul(a_next, g))
+        db[:, t] = g
+        da[:, t] = torch.mul(g, h[:, t - 1] if t else zero)
+        a_next = a[:, t]
+    return da, db
 
 
 #: one CSR frontier step per carrier (spine + COO tail)

@@ -15,8 +15,14 @@ chunked two-pass scan would give the card more threads but round in
 another order, and the ring comes near the card's byte rate without it.
 :func:`scan_in_kernel_order` is the kernel's walk in PyTorch.
 
-On CPU tensors the wrapper runs the plain version (:data:`plain`); on CUDA
-tensors it launches the kernel or raises.
+
+:func:`rglru_scan_bwd` is its backward, K10-bwd (``csrc/rglru_scan_bwd.cu``,
+counter ``rglru_scan_bwd``): a kernel of the port with no TPU counterpart
+(the JAX package differentiates an associative scan), the reverse walk
+with ``da`` and ``db`` in the same pass, bit for bit its plain version.
+
+On CPU tensors the wrappers run the plain versions (:data:`plain`,
+:data:`plain_bwd`); on CUDA tensors they launch the kernel or raise.
 """
 from __future__ import annotations
 
@@ -26,8 +32,9 @@ import torch
 
 from . import build, ref
 
-#: the plain PyTorch version of this kernel
+#: the plain PyTorch version of this kernel, and of its backward
 plain = ref.rglru_scan_ref
+plain_bwd = ref.rglru_scan_bwd_ref
 
 #: the kernel's default plan (``csrc/rglru_scan.cu``): channels a CTA and
 #: steps a ring stage; its stage count, 2 to 4, follows the shape
@@ -43,6 +50,7 @@ _PROTOTYPES = {
     "repro_rglru_scan_plan": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP],
     "repro_rglru_scan_route": [_VP, _VP, _I],
     "repro_rglru_scan_stages": [_I, _I]}
+_BWD_PROTOTYPES = {"repro_rglru_scan_bwd": [_VP] * 5 + [_I] * 3 + [_VP]}
 
 
 def rglru_scan(a: torch.Tensor, b: torch.Tensor, *, bw: int | None = None,
@@ -83,6 +91,33 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor, *, bw: int | None = None,
     build.check(lib, rc, f"rglru_scan (plan {plan or 'default'})")
     build.LAUNCHES["rglru_scan"] += 1
     return h
+
+
+def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K10-bwd: from the decays ``a``, :func:`rglru_scan`'s states ``h`` and
+    their gradient ``dh`` (all (B, S, W), taken as f32), ``(da, db)`` f32:
+    ``g_t = dh_t + a_{t+1} g_{t+1}``, ``db_t = g_t``, ``da_t = g_t
+    h_{t-1}``."""
+    if not build.on_card("rglru_scan_bwd", a, h, dh):
+        return plain_bwd(a, h, dh)
+    a, h, dh = (t.to(torch.float32).contiguous() for t in (a, h, dh))
+    build.require("rglru_scan_bwd a", a, torch.float32, 3)
+    if h.shape != a.shape or dh.shape != a.shape:
+        raise ValueError(f"rglru_scan_bwd: a {tuple(a.shape)}, h "
+                         f"{tuple(h.shape)} and dh {tuple(dh.shape)} must "
+                         f"have one (B, S, W) shape")
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    if a.numel() == 0:
+        return da, db
+    lib = build.load("rglru_scan_bwd", _BWD_PROTOTYPES)
+    with torch.cuda.device(a.device):
+        rc = lib.repro_rglru_scan_bwd(
+            a.data_ptr(), h.data_ptr(), dh.data_ptr(), da.data_ptr(),
+            db.data_ptr(), *a.shape, build.stream_handle(a))
+    build.check(lib, rc, "rglru_scan_bwd")
+    build.LAUNCHES["rglru_scan_bwd"] += 1
+    return da, db
 
 
 def route(a: torch.Tensor, b: torch.Tensor) -> str:

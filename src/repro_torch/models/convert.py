@@ -79,3 +79,19 @@ def cache_from_jax(tree: dict, model) -> list[dict]:
     the port's: one dict of tensors a layer, in layer order."""
     return [{k: _tensor(v, model.device) for k, v in layer.items()}
             for layer in _per_layer(tree, model)]
+
+
+def opt_state_from_jax(state: dict, model) -> dict:
+    """A JAX AdamW state (``adamw_init``/``adamw_update``'s ``{"m", "v",
+    "step"}``, ``m`` and ``v`` shaped like the params tree) as the port's:
+    ``m`` and ``v`` keyed like ``model.named_parameters()`` (through
+    :func:`params_from_jax`'s layout), f32, and ``step`` a 0-d int32
+    tensor, all on the model's device."""
+    names = [name for name, _ in model.named_parameters()]
+    out = {}
+    for k in ("m", "v"):
+        tree = params_from_jax(state[k], model)
+        out[k] = {name: tree[name].to(torch.float32) for name in names}
+    out["step"] = torch.tensor(int(np.asarray(state["step"])),
+                               dtype=torch.int32, device=model.device)
+    return out

@@ -12,9 +12,14 @@ caps); master parameters are f32, cast at use.
 Attention:
   * ``attention_reference`` — the plain einsum in the model's (b, s, h, d)
     layout (the oracle);
-  * the prefill's attention is K9 (``kernels.ops.flash``, the same
-    function, O(s) memory), through ``models.model.Model._attention``;
+  * ``attention_chunked`` — JAX's online softmax over KV chunks in plain
+    PyTorch, each chunk recomputed in the backward;
+  * the model's attention is K9 (``kernels.ops.flash``, the same function,
+    O(s) memory, with K9-bwd as its backward), through
+    ``models.model.Model._attention``;
   * ``decode_attention`` — one query position against a (ring) cache.
+
+``cross_entropy`` is the training loss's mean NLL in f32.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ from collections.abc import Callable
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.ref import NEG_INF
 
@@ -34,8 +40,10 @@ DEFAULT_COMPUTE = torch.bfloat16
 class Params(nn.Module):
     """A module whose parameters and sub-modules are read by name, as the
     JAX functions read a params dict: ``params["wq"]``, ``"q_norm" in
-    params``.  Parameters are serving weights: no gradient (the backward
-    waits for the training slice)."""
+    params``.  Parameters are registered with ``requires_grad=False``, so
+    serving and every forward outside training records nothing; the train
+    step (``train.steps.make_train_step``) turns gradients on for its own
+    scope only."""
 
     def __init__(self):
         super().__init__()
@@ -182,6 +190,53 @@ def attention_reference(spec: AttnSpec, q: torch.Tensor, k: torch.Tensor,
     return out.reshape(b, sq, hq, d).to(q.dtype)
 
 
+def attention_chunked(spec: AttnSpec, q: torch.Tensor, k: torch.Tensor,
+                      v: torch.Tensor, q_pos: torch.Tensor,
+                      k_pos: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+    """Online-softmax attention over KV chunks (JAX's flash equivalent,
+    O(s) memory): q (b, sq, hq, d), k/v (b, sk, hkv, d).  A ragged sk
+    falls back to a single chunk, as in JAX; each chunk's step is
+    recomputed in the backward (``torch.utils.checkpoint``, as JAX's
+    ``jax.checkpoint(step)``), so the (s, chunk) scores are never kept."""
+    b, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    scale = spec.scale or (1.0 / math.sqrt(d))
+    if sk % chunk:
+        chunk = sk  # fall back to single chunk for ragged sizes
+    qf = (q.to(torch.float32) * scale).reshape(b, sq, hkv, rep, d)
+
+    def step(m, l, acc, ks, vs, kp):
+        s = torch.einsum("bqhrd,bkhd->bhrqk", qf, ks.to(torch.float32))
+        if spec.softcap is not None:
+            s = spec.softcap * torch.tanh(s / spec.softcap)
+        s = s + _mask_bias(spec, q_pos, kp)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l_new = l * alpha + p.sum(dim=-1)
+        acc_new = acc * alpha[..., None] + torch.einsum(
+            "bhrqk,bkhd->bhrqd", p, vs.to(torch.float32))
+        return m_new, l_new, acc_new
+
+    m = torch.full((b, hkv, rep, sq), -math.inf, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, hkv, rep, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hkv, rep, sq, d), dtype=torch.float32,
+                      device=q.device)
+    for c0 in range(0, sk, chunk):
+        args = (m, l, acc, k[:, c0:c0 + chunk], v[:, c0:c0 + chunk],
+                k_pos[c0:c0 + chunk])
+        if torch.is_grad_enabled():
+            m, l, acc = checkpoint(step, *args, use_reentrant=False,
+                                   preserve_rng_state=False)
+        else:
+            m, l, acc = step(*args)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d)
+    return out.to(q.dtype)
+
+
 def decode_attention(spec: AttnSpec, q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, q_pos: torch.Tensor,
                      k_pos: torch.Tensor) -> torch.Tensor:
@@ -295,3 +350,17 @@ def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
     if cap is None:
         return x
     return (cap * torch.tanh(x.to(torch.float32) / cap)).to(x.dtype)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean NLL in f32: logits (..., V); labels (...) int; with ``mask``
+    the mean over the masked-in positions (at least one), as JAX's."""
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        m = mask.to(torch.float32)
+        return (nll * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return nll.mean()

@@ -1,4 +1,5 @@
-"""Model assembly: ArchConfig -> init / forward / decode_step, in PyTorch.
+"""Model assembly: ArchConfig -> init / forward / loss / decode_step, in
+PyTorch.
 
 The JAX package's ``models/model.py`` for the block types ``attn``,
 ``local`` and ``rg``, with its names and constructor arguments.  The model
@@ -13,23 +14,28 @@ order (group after group, then the tail) and the scan is a loop over it.
   local  same, sliding-window mask (gemma2 local / recurrentgemma)
   rg     RG-LRU recurrent block + MLP (RecurrentGemma)
 
-A prefill's attention is K9 and its RG-LRU scan K10 (``kernels.ops``).
-Decode carries a cache, a list of per-layer dicts: windowed layers keep
-ring buffers (O(window) state), recurrent layers O(1) state.
+A forward's attention is K9 and its RG-LRU scan K10 (``kernels.ops``); a
+training backward runs them back through K9-bwd and K10-bwd, with each
+pattern group recomputed under ``remat`` (JAX's ``jax.checkpoint`` of its
+group step).  Decode carries a cache, a list of per-layer dicts: windowed
+layers keep ring buffers (O(window) state), recurrent layers O(1) state.
 """
 from __future__ import annotations
 
 import math
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
 from ..kernels import ops
 from . import recurrent as rec
 from .layers import (DEFAULT_COMPUTE, MLP, AttnSpec, Attention, Params,
-                     RMSNorm, attn_out, attn_qkv, decode_attention,
-                     dense_init, embed_init, mlp, rmsnorm, softcap)
+                     RMSNorm, attn_out, attn_qkv, cross_entropy,
+                     decode_attention, dense_init, embed_init, mlp, rmsnorm,
+                     softcap)
 
 ATTN_TYPES = ("attn", "local")
 BLOCK_TYPES = ATTN_TYPES + ("rg",)
@@ -68,11 +74,14 @@ class Model(Params):
                  use_chunked_attn: bool | None = None, remat: bool = True,
                  *, device=None):
         """``use_chunked_attn`` and ``remat`` are the JAX arguments.  The
-        port's prefill attention is K9 at every length (O(s) memory, the
-        function of the JAX package's chunked attention), and a serving
-        forward runs no backward for ``remat`` to recompute, so neither
-        changes the path.  ``device`` defaults to ``cuda``
-        (:func:`resolve_device`)."""
+        port's attention is K9 at every length (O(s) memory, the function
+        of the JAX package's chunked attention), so ``use_chunked_attn``
+        does not change the path.  ``remat`` (JAX's default, True) makes a
+        forward that autograd records keep only each pattern group's input
+        and recompute the group in the backward (``torch.utils.checkpoint``,
+        as JAX's ``jax.checkpoint(group_step)``; the tail blocks are kept);
+        a serving forward records nothing, so there it changes nothing.
+        ``device`` defaults to ``cuda`` (:func:`resolve_device`)."""
         super().__init__()
         for t in (*cfg.pattern, *cfg.tail, cfg.input_kind):
             if t in WAITING:
@@ -172,18 +181,43 @@ class Model(Params):
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
         return softcap(x @ head.to(x.dtype), self.cfg.final_softcap)
 
-    @torch.no_grad()
     def forward(self, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
         """``batch["tokens"]`` (b, s) int -> (logits (b, s, V), aux_loss).
         The aux loss is the MoE router's in the JAX package: 0 for the
-        block types ported here."""
+        block types ported here.  Differentiable where autograd records it
+        (the train step); serving wraps it in ``inference_mode``."""
         tokens = batch["tokens"]
         x = self._embed_in(tokens)
         positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
-        for block in self.layers:
+        P = len(self.cfg.pattern)
+        n_group = P * self.cfg.n_groups
+        remat = self.remat and torch.is_grad_enabled() and any(
+            p.requires_grad for p in self.parameters())
+        for g0 in range(0, n_group, P):
+            blocks = self.layers[g0:g0 + P]
+            if remat:
+                x = checkpoint(self._apply_group, blocks, x, positions,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = self._apply_group(blocks, x, positions)
+        for block in self.layers[n_group:]:
             x = self._apply_block(block, x, positions)
         return self._logits(x), torch.zeros((), dtype=torch.float32,
                                             device=x.device)
+
+    def _apply_group(self, blocks, x: torch.Tensor, positions):
+        """One pattern group (JAX's ``group_step``)."""
+        for block in blocks:
+            x = self._apply_block(block, x, positions)
+        return x
+
+    def loss(self, batch: dict) -> torch.Tensor:
+        """Mean cross-entropy of ``batch["labels"]`` (masked by
+        ``batch["mask"]`` when present) plus 0.01 of the aux loss, as
+        JAX's ``Model.loss``."""
+        logits, aux = self.forward(batch)
+        ce = cross_entropy(logits, batch["labels"], batch.get("mask"))
+        return ce + 0.01 * aux
 
     # ---------------------------------------------------------------- decode
 

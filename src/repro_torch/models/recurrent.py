@@ -58,7 +58,10 @@ def _rglru_gates(params, x: torch.Tensor, spec: RglruSpec):
     i = torch.sigmoid((x @ params["w_i"].to(x.dtype)).to(torch.float32))
     log_a = -spec.c * r * F.softplus(params["lam"])  # (b, s, w)
     a = torch.exp(log_a)
-    mult = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-6))
+    # maximum, not clamp: at the floor JAX's max sends half the gradient
+    # each way, as torch.maximum does (clamp would send all of it)
+    mult = torch.sqrt(torch.maximum(1.0 - torch.exp(2.0 * log_a),
+                                    log_a.new_tensor(1e-6)))
     b = mult * i * x.to(torch.float32)
     return a, b
 
@@ -77,7 +80,7 @@ def rglru_seq(params, spec: RglruSpec, x: torch.Tensor,
               compute=DEFAULT_COMPUTE) -> torch.Tensor:
     """Full-sequence RG-LRU block. x: (b, s, d_model) -> (b, s, d_model).
 
-    The scan is K10 (``ops.rglru``)."""
+    The scan is K10 (``ops.rglru``), differentiable through K10-bwd."""
     gate = F.gelu((x @ params["w_y"].to(compute)).to(torch.float32),
                   approximate="tanh")
     h = x @ params["w_x"].to(compute)

@@ -298,9 +298,12 @@ def test_wrappers_route_by_device():
                            "csr_maxplus_step", "csr_plustimes_step",
                            "csr_minplus_tiled_step", "relax_step",
                            "relax_step_tiled", "flash_attention",
-                           "flash_attention_f32", "rglru_scan"}
+                           "flash_attention_f32", "flash_attention_bwd",
+                           "flash_attention_bwd_f32", "rglru_scan",
+                           "rglru_scan_bwd"}
     assert build.SOURCES == ("boolmm", "minplus", "spmv", "relax",
-                             "flash_attention", "rglru_scan")
+                             "flash_attention", "flash_attention_bwd",
+                             "rglru_scan", "rglru_scan_bwd")
 
 
 @pytest.mark.parametrize("name", ["bool", "min_plus", "max_plus",
